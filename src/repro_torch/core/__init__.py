@@ -1,0 +1,10 @@
+"""Core PC2IM algorithms, the batched engine and the accelerator entry point.
+
+C1  L1 distances + lattice query            -> fps.py, query.py
+C2  median-based spatial partitioning (MSP) -> partition.py
+C4  split-concatenate quantized MAC         -> quant.py, kernels/sc_matmul
+C5  delayed aggregation                     -> grouping.py
+Batched (B, N, 3) PreprocessEngine          -> engine.py
+ExecutionPolicy                             -> policy.py
+PC2IMAccelerator                            -> accelerator.py
+"""

@@ -1,0 +1,33 @@
+"""Grouping / aggregation for delayed aggregation (paper C5, from Mesorasi [8]).
+
+Delayed aggregation runs the MLP per *point* and only then gathers each
+centroid's neighbours and max-pools them, so MLP cost scales with N rather
+than M * nsample.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.query import NeighborSet
+
+_NEG = -1e30
+
+
+def group_features(features: torch.Tensor, nbrs: NeighborSet) -> torch.Tensor:
+    """Gather neighbour features: (..., N, C), idx (..., M, S) -> (..., M, S, C)."""
+    idx = nbrs.idx.long()
+    lead, (m, s) = idx.shape[:-2], idx.shape[-2:]
+    flat = idx.reshape(*lead, m * s, 1)
+    return torch.take_along_dim(features, flat, dim=-2).reshape(*lead, m, s, features.shape[-1])
+
+
+def masked_maxpool(grouped: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Max over the nsample axis, ignoring padded slots.  (..., M, S, C) -> (..., M, C).
+
+    Centroids with no neighbour get 0 features.
+    """
+    neg = torch.tensor(_NEG, dtype=grouped.dtype, device=grouped.device)
+    out = torch.where(mask[..., None], grouped, neg).amax(dim=-2)
+    any_valid = mask.any(dim=-1)[..., None]
+    return torch.where(any_valid, out, torch.zeros_like(out))

@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), one folder per kernel.
+
+fps/        per-tile farthest point sampling (csrc/fps.cu)
+lattice/    per-tile first-k L1 lattice query (csrc/lattice.cu)
+sc_matmul/  split-concatenate integer matmul (csrc/sc_matmul.cu)
+
+Each folder: kernel.py (ctypes launch wrapper), ref.py (plain PyTorch
+version), ops.py (public op, registers the pair).  registry.py dispatches by
+tensor device and counts launches; build.py compiles csrc/ with nvcc.
+"""

@@ -1,0 +1,1 @@
+"""fps kernel: kernel.py (CUDA launch), ref.py (plain version), ops.py (public op)."""

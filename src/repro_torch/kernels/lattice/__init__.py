@@ -1,0 +1,1 @@
+"""lattice kernel: kernel.py (CUDA launch), ref.py (plain version), ops.py (public op)."""

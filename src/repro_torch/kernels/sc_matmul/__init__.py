@@ -1,0 +1,1 @@
+"""sc_matmul kernel: kernel.py (CUDA launch), ref.py (plain version), ops.py (public op)."""

@@ -1,0 +1,43 @@
+"""Public ops: SC integer matmul + the drop-in quantized linear layer.
+
+`sc_quantized_linear` is the `ExecutionPolicy(quant="sc_w16a16")` path behind
+every MLP layer: float in, float out, SC-CIM integer GEMM inside.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quant import quantize_symmetric
+from repro_torch.kernels import registry
+from repro_torch.kernels.sc_matmul.kernel import sc_matmul_cuda
+from repro_torch.kernels.sc_matmul.ref import sc_matmul_plain
+
+registry.register("sc_matmul", plain=sc_matmul_plain, cuda=sc_matmul_cuda)
+
+
+def sc_matmul_op(
+    x_q: torch.Tensor, w_q: torch.Tensor, *, bits: int = 16, backend: str | None = "auto"
+) -> torch.Tensor:
+    """Exact integer matmul via SC planes.  (M,K) x (K,N) int32 -> (M,N) float32."""
+    if bits % 4 or not 4 <= bits <= 16:
+        raise ValueError(f"bits={bits} must be 4, 8, 12 or 16")
+    impl = registry.dispatch("sc_matmul", x_q, backend)
+    return impl(x_q.contiguous(), w_q.contiguous(), n_planes=bits // 4)
+
+
+def sc_quantized_linear(
+    x: torch.Tensor, w: torch.Tensor, *, bits: int = 16, backend: str | None = "auto"
+) -> torch.Tensor:
+    """W16A16 (or W8A8) linear: float (..., K) x (K, N) -> float32 (..., N).
+
+    The activation scale is per tensor over every row of the flattened batch,
+    and the two scales are multiplied before they scale the product, as in
+    the reference.
+    """
+    lead = x.shape[:-1]
+    xq = quantize_symmetric(x.reshape(-1, x.shape[-1]), bits)
+    wq = quantize_symmetric(w, bits)
+    y = sc_matmul_op(xq.q, wq.q, bits=bits, backend=backend)
+    y = y * (xq.scale * wq.scale)
+    return y.reshape(*lead, w.shape[-1]).to(torch.float32)

@@ -1,0 +1,119 @@
+"""Dense layer, LayerNorm and the per-point MLP stack as nn.Modules.
+
+Every dense layer takes the numeric decision as an explicit
+`ExecutionPolicy` — the paper's C4 (SC W16A16) with no hidden state:
+
+    y = layer(x, policy=ExecutionPolicy(quant="sc_w16a16"))
+
+`policy=None` (or quant="none") is the float path, a plain `torch.matmul`
+as the reference leaves it to XLA.  The quantized path goes through
+`kernels/sc_matmul` under the policy's backend.
+
+Weights keep the JAX package's layout, w (d_in, d_out) with y = x @ w, so
+the SC kernel reads them as they are and `params.from_jax_params` copies
+them without a transpose.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.core.policy import ExecutionPolicy
+from repro_torch.kernels.sc_matmul.ops import sc_quantized_linear
+
+
+class Linear(nn.Module):
+    """Dense layer y = x @ w + b with w (d_in, d_out), float or SC-quantized.
+
+    Initialised like the reference: w ~ N(0, 1/d_in), b = 0, drawn on the CPU
+    from `generator` and then moved to `device`, so a seed gives the same
+    weights on every device.
+    """
+
+    def __init__(
+        self, d_in: int, d_out: int, *, bias: bool = True,
+        generator: torch.Generator | None = None, device=None,
+    ):
+        super().__init__()
+        w = torch.randn(d_in, d_out, generator=generator) * (1.0 / math.sqrt(d_in))
+        self.w = nn.Parameter(w.to(device))
+        self.b = nn.Parameter(torch.zeros(d_out, device=device)) if bias else None
+
+    def forward(self, x: torch.Tensor, policy: ExecutionPolicy | None = None) -> torch.Tensor:
+        """Float matmul, or the SC integer path when the policy quantizes."""
+        bits = None if policy is None else policy.quant_bits
+        if bits is None:
+            y = torch.matmul(x, self.w)
+        else:
+            y = sc_quantized_linear(
+                x, self.w, bits=bits, backend=policy.resolved_backend()
+            ).to(x.dtype)
+        if self.b is not None:
+            y = y + self.b
+        return y
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with statistics in float32: (x - mu) * rsqrt(var + eps) * g + b.
+
+    Written out as the reference writes it, rather than F.layer_norm, so both
+    packages evaluate the same formula.
+    """
+
+    def __init__(self, d: int, *, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(d, device=device))
+        self.b = nn.Parameter(torch.zeros(d, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalise over the last dim."""
+        x32 = x.to(torch.float32)
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, correction=0)
+        y = (x - mu.to(x.dtype)) * torch.rsqrt(var + self.eps).to(x.dtype)
+        return y * self.g + self.b
+
+
+class MLPLayer(nn.Module):
+    """One [linear -> LN] layer of an MLP stack (LN absent when norm=False)."""
+
+    def __init__(self, d_in: int, d_out: int, *, bias: bool, norm: bool,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.lin = Linear(d_in, d_out, bias=bias, generator=generator, device=device)
+        self.ln = LayerNorm(d_out, device=device) if norm else None
+
+    def forward(self, x: torch.Tensor, policy: ExecutionPolicy | None = None) -> torch.Tensor:
+        """Linear, then LayerNorm if the layer has one."""
+        x = self.lin(x, policy=policy)
+        return self.ln(x) if self.ln is not None else x
+
+
+class MLP(nn.Module):
+    """Per-point MLP stack: [linear -> LN -> relu] per layer.
+
+    LN stands in for the original BatchNorm (the reference's documented,
+    statistics-free deviation).  `channels` = [d_in, hidden..., d_out].
+    """
+
+    def __init__(self, channels, *, bias: bool = True, norm: bool = True,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            MLPLayer(cin, cout, bias=bias, norm=norm, generator=generator, device=device)
+            for cin, cout in zip(channels[:-1], channels[1:])
+        )
+
+    def forward(self, x: torch.Tensor, *, final_act: bool = True,
+                policy: ExecutionPolicy | None = None) -> torch.Tensor:
+        """Apply every layer; relu after each, except the last when final_act=False."""
+        n = len(self.layers)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, policy=policy)
+            if final_act or i < n - 1:
+                x = torch.relu(x)
+        return x

@@ -1,0 +1,179 @@
+"""Each CUDA kernel against its plain PyTorch version on the card, bitwise, at
+the main-path shapes of a full-width pointnet2-cls forward over 8 clouds of
+1024 points, and at ragged sizes that exercise the kernels' other paths.
+
+Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test skips where
+torch.cuda.is_available() is false.  On the card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Imports neither jax nor the JAX package: the card's host has neither.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.pointnet2_cls import CONFIG
+from repro_torch.core.accelerator import get_accelerator
+from repro_torch.core.engine import clamp_depth
+from repro_torch.core.policy import ExecutionPolicy
+from repro_torch.kernels import registry
+from repro_torch.kernels.fps.kernel import fps_tiles_cuda
+from repro_torch.kernels.fps.ops import fps_tiles
+from repro_torch.kernels.fps.ref import fps_tiles_plain
+from repro_torch.kernels.lattice.kernel import lattice_tiles_cuda
+from repro_torch.kernels.lattice.ref import lattice_tiles_plain
+from repro_torch.kernels.sc_matmul.kernel import sc_matmul_cuda
+from repro_torch.kernels.sc_matmul.ref import sc_matmul_plain
+
+pytestmark = pytest.mark.gpu
+BATCH = 8
+
+
+def _preprocess_shapes():
+    """(T, P, k, radius, nsample) of each SA stage's kernels for BATCH clouds."""
+    shapes, n = [], CONFIG.n_points
+    for sa in CONFIG.sa:
+        depth = clamp_depth(n, sa.n_centroids, CONFIG.msp_depth)
+        shapes.append((BATCH << depth, n >> depth, sa.n_centroids >> depth, sa.radius, sa.nsample))
+        n = sa.n_centroids
+    return shapes
+
+
+def _linear_shapes():
+    """(M, K, N) of every dense layer of one forward over BATCH clouds."""
+    shapes, n, c_in = [], CONFIG.n_points, 3
+    for sa in CONFIG.sa:
+        for c in sa.mlp:
+            shapes.append((BATCH * n, c_in, c))
+            c_in = c
+        n, c_in = sa.n_centroids, c_in + 3
+    for c in CONFIG.global_mlp:
+        shapes.append((BATCH * n, c_in, c))
+        c_in = c
+    for c in (*CONFIG.head, CONFIG.n_classes):
+        shapes.append((BATCH, c_in, c))
+        c_in = c
+    return shapes
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tiles(t, p, device, seed=0, snapped=False):
+    x = np.random.default_rng(seed).uniform(-1, 1, (t, p, 3)).astype(np.float32)
+    if snapped:
+        x = np.round(x * 8) / 8
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+def test_main_path_shapes():
+    assert [s[:3] for s in _preprocess_shapes()] == [(32, 256, 64), (32, 64, 16)]
+    assert len(_linear_shapes()) == 12 and _linear_shapes()[0] == (8192, 3, 64)
+
+
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("metric", ["l1", "l2"])
+@pytest.mark.parametrize("snapped", [False, True])
+def test_fps_kernel_matches_plain(cuda, stage, metric, snapped):
+    t, p, k, _, _ = _preprocess_shapes()[stage]
+    pts = _tiles(t, p, cuda, seed=stage, snapped=snapped)
+    got = fps_tiles_cuda(pts, k, metric=metric)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_tiles_plain(pts, k, metric=metric))
+
+
+@pytest.mark.parametrize("p,k", [(1000, 40), (3000, 24), (8192, 8), (5, 5)])
+def test_fps_kernel_ragged_tile_sizes(cuda, p, k):
+    pts = _tiles(3, p, cuda, seed=p, snapped=True)
+    got = fps_tiles_cuda(pts, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_tiles_plain(pts, k))
+
+
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("snapped", [False, True])
+def test_lattice_kernel_matches_plain(cuda, stage, snapped):
+    t, p, k, radius, ns = _preprocess_shapes()[stage]
+    pts = _tiles(t, p, cuda, seed=10 + stage, snapped=snapped)
+    local = fps_tiles_plain(pts, k).long()
+    cents = torch.take_along_dim(pts, local[..., None], dim=1).contiguous()
+    l_range = float(radius * 1.6)
+    got = lattice_tiles_cuda(pts, cents, nsample=ns, l_range=l_range)
+    torch.cuda.synchronize()
+    want = lattice_tiles_plain(pts, cents, nsample=ns, l_range=l_range)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("p,k,ns,l_range", [(70, 9, 32, 0.2), (300, 40, 4, 3.0), (33, 5, 64, 0.0)])
+def test_lattice_kernel_ragged_sizes(cuda, p, k, ns, l_range):
+    pts = _tiles(4, p, cuda, seed=p, snapped=True)
+    cents = pts[:, :k].contiguous()
+    got = lattice_tiles_cuda(pts, cents, nsample=ns, l_range=l_range)
+    want = lattice_tiles_plain(pts, cents, nsample=ns, l_range=l_range)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _int_operands(m, k, n, bits, device, seed=0):
+    rng = np.random.default_rng(seed)
+    lim = 1 << (bits - 1)
+    x = rng.integers(-lim, lim, (m, k), dtype=np.int32)
+    w = rng.integers(-lim, lim, (k, n), dtype=np.int32)
+    x[0], w[:, 0] = -lim, lim - 1
+    return torch.from_numpy(x).to(device), torch.from_numpy(w).to(device)
+
+
+@pytest.mark.parametrize("shape", _linear_shapes())
+@pytest.mark.parametrize("bits", [16, 8])
+def test_sc_matmul_kernel_matches_plain(cuda, shape, bits):
+    m, k, n = shape
+    x, w = _int_operands(m, k, n, bits, cuda, seed=m + k + n)
+    got = sc_matmul_cuda(x, w, n_planes=bits // 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc_matmul_plain(x, w, n_planes=bits // 4))
+
+
+@pytest.mark.parametrize("m,k,n,bits", [(33, 70, 17, 16), (1, 1, 1, 16), (100, 37, 65, 12), (7, 9, 3, 4)])
+def test_sc_matmul_kernel_ragged_sizes(cuda, m, k, n, bits):
+    x, w = _int_operands(m, k, n, bits, cuda, seed=m)
+    got = sc_matmul_cuda(x, w, n_planes=bits // 4)
+    assert torch.equal(got, sc_matmul_plain(x, w, n_planes=bits // 4))
+    exact = (x.cpu().to(torch.int64) @ w.cpu().to(torch.int64)).double()
+    # the f32 combine rounds: relative to the largest entry, as the reference's tests
+    assert (got.cpu().double() - exact).abs().max() <= 1e-6 * exact.abs().max()
+
+
+def test_forward_launches_each_kernel(cuda):
+    params = get_accelerator(CONFIG, device=cuda).init(torch.Generator().manual_seed(0))
+    pts = np.random.default_rng(0).uniform(-1, 1, (BATCH, CONFIG.n_points, 3)).astype(np.float32)
+    for quant, n_sc in (("none", 0), ("sc_w16a16", len(_linear_shapes()))):
+        accel = get_accelerator(CONFIG, ExecutionPolicy(quant=quant), device=cuda)
+        registry.reset_launches()
+        logits = accel.infer(params, pts)
+        torch.cuda.synchronize()
+        assert logits.shape == (BATCH, CONFIG.n_classes) and bool(torch.isfinite(logits).all())
+        assert registry.launches() == {"fps_tiles": 2, "lattice_tiles": 2, "sc_matmul": n_sc}
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    pts = _tiles(2, 64, cuda)
+    with pytest.raises(ValueError, match="xla"):
+        fps_tiles(pts, 4, backend="xla")
+    with pytest.raises(ValueError, match="contiguous"):
+        fps_tiles_cuda(pts.transpose(1, 2).contiguous().transpose(1, 2), 4)
+    with pytest.raises(ValueError):
+        fps_tiles_cuda(pts.double(), 4)
+    with pytest.raises(ValueError):
+        fps_tiles_cuda(_tiles(1, 8193, cuda), 4)
+    x = torch.zeros(4, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        sc_matmul_cuda(x, x, n_planes=5)
+    with pytest.raises(ValueError):
+        sc_matmul_cuda(x.float(), x)
