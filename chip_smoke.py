@@ -3,31 +3,44 @@
 
     python3 chip_smoke.py
 
+It drives three paths of the port, each through the entry points a user
+calls: the pointnet2-cls forward (8 clouds of 1024 points), the
+pointnet2-seg forward (8 clouds of 4096 points, whose FP stages run the
+knn3 kernel), both through get_accelerator(CONFIG, policy).infer at full
+width, and the flat lattice query (`lattice_query_fused`) at the example
+pipeline's shape (2048 points, 64 centroids) and at a seg-sized set (4096
+points, 1024 centroids).
+
 Phases, each of which stops the run with a non-zero exit code if it fails:
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the three CUDA kernels from src/repro_torch/csrc with nvcc for
+  2. build the four CUDA kernels from src/repro_torch/csrc with nvcc for
      sm_90a, one nvcc per source, all at once;
-  3. drive one full-width pointnet2-cls forward (8 clouds of 1024 points,
-     quant="sc_w16a16") while recording every kernel call's inputs, then
-     hold each kernel against its plain PyTorch version on those inputs on
-     the card (bitwise), and time kernel, plain version and, for the SC
-     matmul, one float64 torch.matmul of the same operands: the card's busy
-     time a call from torch.profiler, and the time between CUDA events
-     around back-to-back calls, which includes the host's enqueue time;
-  4. the main path: with every launch counter at 0, run
+  3. run one cls and one seg forward (quant="sc_w16a16") and the flat path
+     while recording every kernel call's inputs, then hold each kernel
+     against its plain PyTorch version on those inputs on the card
+     (bitwise), and time kernel, plain version and, for the SC matmul, one
+     float64 torch.matmul of the same operands: the card's busy time a call
+     from torch.profiler, and the time between CUDA events around
+     back-to-back calls, which includes the host's enqueue time;
+  4. the paths, counted: for each path (and policy), every launch counter
+     set to 0 just before it and read just after.  cls and seg run
      get_accelerator(CONFIG, policy).infer on a few batches of 8 clouds for
-     quant="none" and quant="sc_w16a16"; check that each forward launched
-     2 FPS, 2 lattice and (under SC) 12 SC-matmul kernels; time a forward
-     per batch under both policies, and profile one (device time by
-     kernel, and the device's idle share);
+     quant="none" and quant="sc_w16a16"; a cls forward must launch 2 FPS,
+     2 lattice and (under SC) 12 SC-matmul kernels, a seg forward 2 FPS,
+     2 lattice, 2 knn3 and (under SC) 12 SC-matmul kernels, and the flat
+     path one flat lattice kernel a query.  Then a forward per batch is
+     timed under both policies and one is profiled (device time by kernel,
+     and the device's idle share);
   5. check the outputs against the port's own CPU run (plain versions):
-     preprocessing bitwise, logits finite, of shape (8, 8) and within the
-     stated tolerance.
+     preprocessing, the seg FP stages' 3-NN indices and the flat query
+     bitwise; logits finite, of shape (8, 8) for cls and (8, 4096, 8) for
+     seg, and within the stated tolerance.
 
-Then it prints one JSON line with every kernel's launches, error and times,
-the card line again, and as its last line
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Then it prints one JSON line with every kernel's launches (summed over the
+paths of phase 4), error and times (summed over the calls recorded in
+phase 3, with a breakdown by path), the card line again, and as its last
+line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Inputs and weights come from numpy / torch generators seeded with SEED;
 neither jax nor the JAX package is imported.
 """
@@ -46,13 +59,16 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 BATCH = 8
-N_BATCHES = 3
+N_BATCHES = {"cls": 3, "seg": 2}
 TIMED_FORWARDS = 10
+# The flat lattice query: (points, centroids, radius, nsample), one cloud each.
+# examples/preprocess_pipeline.py's query, and a seg-sized one (SA1's counts).
+FLAT_SETS = ((2048, 64, 0.3, 16), (4096, 1024, 0.2, 32))
 # Logit tolerance card vs CPU.  Float: cuBLAS and the CPU BLAS sum the
 # matmuls in different orders (~1e-7 relative per layer).  SC: the integer
 # products are exact, but a float difference upstream can move an
 # activation across a rounding boundary of the 16-bit quantizer, one
-# quantum (max|x| / 32767) at a time.
+# quantum (max|x| / 32767) at a time.  Both models get the same bounds.
 LOGIT_ATOL = {"none": 1e-4, "sc_w16a16": 2e-3}
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
@@ -72,6 +88,14 @@ KERNELS = {
     "sc_matmul": {
         "source": "src/repro_torch/csrc/sc_matmul.cu",
         "replaces": "src/repro/kernels/sc_matmul/kernel.py:89",
+    },
+    "knn3": {
+        "source": "src/repro_torch/csrc/knn3.cu",
+        "replaces": "src/repro/kernels/knn3/kernel.py:47",
+    },
+    "lattice_query": {
+        "source": "src/repro_torch/csrc/lattice.cu",
+        "replaces": "src/repro/kernels/lattice/kernel.py:97",
     },
 }
 
@@ -138,26 +162,32 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_kernels(torch, fn) -> dict[str, list]:
+def device_kernels(torch, fn, tries: int = 3) -> dict[str, list]:
     """{name: [count, ms]} of the device work one fn() call enqueues (torch.profiler).
 
     fn runs once unprofiled first, to warm up.  Durations are the card's
-    own (CUPTI), so the host's time to enqueue the work is left out.
+    own (CUPTI), so the host's time to enqueue the work is left out.  A
+    profiler session now and then records no CUDA event at all; such a
+    session is reported and profiled again, up to `tries` sessions.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     by_name: dict[str, list] = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            entry = by_name.setdefault(evt.name, [0, 0.0])
-            entry[0] += 1
-            entry[1] += evt.time_range.elapsed_us() / 1e3
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA:
+                entry = by_name.setdefault(evt.name, [0, 0.0])
+                entry[0] += 1
+                entry[1] += evt.time_range.elapsed_us() / 1e3
+        if by_name:
+            break
+        say(f"torch.profiler recorded no CUDA event in session {attempt + 1} of {tries}")
     return by_name
 
 
@@ -177,18 +207,26 @@ def bound(name: str, args, kw, plain_out) -> tuple[float, float, float]:
         nbytes = t * p * 3 * 4 + t * k * 4
         ops = 10 * t * p * (k - 1)  # 3 sub, 3 abs, 2 add, min, compare a point a step
         return nbytes, ops, PEAK_F32_OPS
-    if name == "lattice_tiles":
-        coords, cents = args
+    if name in ("lattice_tiles", "lattice_query"):
+        # the flat query is the per-tile one with T = 1
+        coords, cents = (a if a.ndim == 3 else a[None] for a in args)
+        idx, mask = (o if o.ndim == 3 else o[None] for o in plain_out)
         t, p, _ = coords.shape
         kk = cents.shape[1]
         ns = kw["nsample"]
-        idx, mask = plain_out
         # the walk stops once a row is full: count the points each row scans
         scanned = np.where(
             mask[..., -1].cpu().numpy(), idx[..., -1].cpu().numpy() + 1, p
         ).astype(np.int64)
         nbytes = t * kk * 3 * 4 + t * p * 3 * 4 + t * kk * ns * (4 + 1)
         ops = 9 * int(scanned.sum())  # 3 sub, 3 abs, 2 add, compare
+        return nbytes, ops, PEAK_F32_OPS
+    if name == "knn3":
+        queries, points = args
+        b, q, _ = queries.shape
+        p = points.shape[1]
+        nbytes = b * (q + p) * 3 * 4 + b * q * kw["k"] * 8
+        ops = 9 * b * q * p  # 3 sub, 3 mul (or abs), 2 add, compare a pair
         return nbytes, ops, PEAK_F32_OPS
     x, w = args
     m, k = x.shape
@@ -218,6 +256,27 @@ def profile_forward(torch, accel, params, batch, wall_ms: float) -> dict:
     }
 
 
+def n_linears(cfg) -> int:
+    """Dense layers of one forward: the SA MLPs, then cls's global MLP or seg's
+    FP MLPs (two layers each, one FP stage per SA stage), and the head."""
+    sa = sum(len(stage.mlp) for stage in cfg.sa)
+    middle = len(cfg.global_mlp) if cfg.task == "cls" else 2 * len(cfg.sa)
+    return sa + middle + len(cfg.head) + 1
+
+
+def expected_launches(path: str, quant: str, cfg=None) -> dict[str, int]:
+    """Kernel launches one run of `path` makes under `quant` (phase 4's check)."""
+    want = dict.fromkeys(KERNELS, 0)
+    if path == "flat":
+        want["lattice_query"] = len(FLAT_SETS)
+        return want
+    want["fps_tiles"] = want["lattice_tiles"] = len(cfg.sa)
+    want["sc_matmul"] = n_linears(cfg) if quant != "none" else 0
+    if path == "seg":
+        want["knn3"] = len(cfg.sa)
+    return want
+
+
 def main() -> None:
     """Run every phase; any failure exits non-zero before the last line."""
     import torch
@@ -228,12 +287,14 @@ def main() -> None:
         fail(f"src/repro_torch not found next to {os.path.basename(__file__)}")
     sys.path.insert(0, os.path.join(ROOT, "src"))
 
-    from repro_torch.configs.pointnet2_cls import CONFIG
+    from repro_torch.configs.pointnet2_cls import CONFIG as CLS_CONFIG
+    from repro_torch.configs.pointnet2_seg import CONFIG as SEG_CONFIG
     from repro_torch.core.accelerator import get_accelerator
     from repro_torch.core.policy import ExecutionPolicy
     from repro_torch.kernels import build, registry
     from repro_torch.kernels.fps import ops as _fps_ops  # noqa: F401  (registers)
-    from repro_torch.kernels.lattice import ops as _lattice_ops  # noqa: F401
+    from repro_torch.kernels.knn3.ops import knn3
+    from repro_torch.kernels.lattice.ops import lattice_query_fused
     from repro_torch.kernels.sc_matmul import ops as _sc_ops  # noqa: F401
 
     for mod in sys.modules:
@@ -259,156 +320,219 @@ def main() -> None:
                 say(f"    {line.strip()}")
 
     rng = np.random.default_rng(SEED)
-    batches = [make_clouds(rng, BATCH, CONFIG.n_points) for _ in range(N_BATCHES)]
+    configs = {"cls": CLS_CONFIG, "seg": SEG_CONFIG}
+    batches = {m: [make_clouds(rng, BATCH, cfg.n_points) for _ in range(N_BATCHES[m])]
+               for m, cfg in configs.items()}
+    flat_sets = []
+    for p, m, radius, ns in FLAT_SETS:
+        cloud = make_clouds(rng, 1, p)[0]
+        cents = cloud[np.sort(rng.choice(p, m, replace=False))]
+        flat_sets.append((torch.from_numpy(cloud).cuda(), torch.from_numpy(cents).cuda(),
+                          radius, ns))
+
+    def flat_path():
+        return [lattice_query_fused(pts, cents, radius, ns) for pts, cents, radius, ns in flat_sets]
+
     sc = ExecutionPolicy(quant="sc_w16a16")
     policies = {"none": ExecutionPolicy(quant="none"), "sc_w16a16": sc}
-    n_linears = (
-        sum(len(sa.mlp) for sa in CONFIG.sa) + len(CONFIG.global_mlp) + len(CONFIG.head) + 1
-    )
+    accels = {(m, q): get_accelerator(cfg, pol, device="cuda")
+              for m, cfg in configs.items() for q, pol in policies.items()}
+    params = {m: accels[m, "sc_w16a16"].init(torch.Generator().manual_seed(SEED))
+              for m in configs}
 
     # -- 3. kernels against their plain versions, at main-path shapes --------
-    accel_sc = get_accelerator(CONFIG, sc, device="cuda")
-    params = accel_sc.init(torch.Generator().manual_seed(SEED))
-    calls = {name: [] for name in KERNELS}
     specs = {name: registry.get(name) for name in KERNELS}
 
-    def recorder(name, spec):
-        def record(*args, **kw):
-            calls[name].append(([a.clone() if torch.is_tensor(a) else a for a in args], dict(kw)))
-            return spec.cuda(*args, **kw)
-        return record
+    def record_calls(run) -> dict[str, list]:
+        """Every kernel call that run() makes, with cloned inputs."""
+        calls = {name: [] for name in KERNELS}
 
-    try:
-        for name, spec in specs.items():
-            registry.register(name, plain=spec.plain, cuda=recorder(name, spec))
-        accel_sc.infer(params, batches[0])
-        torch.cuda.synchronize()
-    finally:
-        for name, spec in specs.items():
-            registry.register(name, plain=spec.plain, cuda=spec.cuda)
-    say("main-path kernel calls of one sc_w16a16 forward: "
-        + ", ".join(f"{n}={len(c)}" for n, c in calls.items()))
+        def recorder(name, spec):
+            def record(*args, **kw):
+                calls[name].append(
+                    ([a.clone() if torch.is_tensor(a) else a for a in args], dict(kw)))
+                return spec.cuda(*args, **kw)
+            return record
+
+        try:
+            for name, spec in specs.items():
+                registry.register(name, plain=spec.plain, cuda=recorder(name, spec))
+            run()
+            torch.cuda.synchronize()
+        finally:
+            for name, spec in specs.items():
+                registry.register(name, plain=spec.plain, cuda=spec.cuda)
+        return calls
+
+    recorded = {
+        m: record_calls(functools.partial(accels[m, "sc_w16a16"].infer, params[m], batches[m][0]))
+        for m in configs
+    }
+    recorded["flat"] = record_calls(flat_path)
+    for path, calls in recorded.items():
+        say(f"kernel calls of one {path} run"
+            f"{' (sc_w16a16 forward)' if path != 'flat' else ''}: "
+            + ", ".join(f"{n}={len(c)}" for n, c in calls.items()))
 
     per_call = []
     summary = {}
     for name, spec in specs.items():
-        if not calls[name]:
-            fail(f"the main path made no {name} call")
+        if not any(calls[name] for calls in recorded.values()):
+            fail(f"no path made a {name} call")
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-               "ops_ms": 0.0, "library_ms": 0.0 if name == "sc_matmul" else None}
-        max_err = 0.0
-        for args, kw in calls[name]:
-            got = spec.cuda(*args, **kw)
-            want = spec.plain(*args, **kw)
-            torch.cuda.synchronize()
-            got_t = got if isinstance(got, tuple) else (got,)
-            want_t = want if isinstance(want, tuple) else (want,)
-            for g, w in zip(got_t, want_t):
-                err = (g.to(torch.float64) - w.to(torch.float64)).abs().max().item()
-                max_err = max(max_err, err)
-                if not torch.equal(g, w):
-                    fail(f"{name} at {[tuple(a.shape) for a in args if torch.is_tensor(a)]}: "
-                         f"kernel differs from its plain version (max |diff| {err})")
-            # ms / plain_ms / library_ms: the card's busy time a call (profiler);
-            # *_enqueue_ms: CUDA events around back-to-back calls, which is the
-            # host's enqueue time wherever that exceeds the card's.
-            kernel_fn = functools.partial(spec.cuda, *args, **kw)
-            plain_fn = functools.partial(spec.plain, *args, **kw)
-            ms = device_ms(torch, kernel_fn, reps=50)
-            plain_ms = device_ms(torch, plain_fn, reps=5)
-            nbytes, ops, peak = bound(name, args, kw, want)
-            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-            ops_ms = ops / peak * 1e3
-            row = {"kernel": name, "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
-                   "kw": {k: v for k, v in kw.items()}, "ms": ms, "plain_ms": plain_ms,
-                   "enqueue_ms": cuda_ms(torch, kernel_fn, reps=50),
-                   "plain_enqueue_ms": cuda_ms(torch, plain_fn, reps=5, warmup=1),
-                   "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-            if name == "sc_matmul":
-                xd, wd = args[0].to(torch.float64), args[1].to(torch.float64)
-                library_fn = functools.partial(torch.matmul, xd, wd)
-                row["library_ms"] = device_ms(torch, library_fn, reps=20)
-                row["library_enqueue_ms"] = cuda_ms(torch, library_fn, reps=20)
-                tot["library_ms"] += row["library_ms"]
-            per_call.append(row)
-            tot["ms"] += ms
-            tot["plain_ms"] += plain_ms
-            tot["bound_ms"] += row["bound_ms"]
-            tot["bytes_ms"] += bytes_ms
-            tot["ops_ms"] += ops_ms
-        tot["max_abs_err"] = max_err
+               "ops_ms": 0.0, "library_ms": 0.0 if name == "sc_matmul" else None,
+               "max_abs_err": 0.0, "by_path": {}}
+        for path, calls in recorded.items():
+            if not calls[name]:
+                continue
+            part = {"calls": len(calls[name]), "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                    "library_ms": 0.0 if name == "sc_matmul" else None}
+            for args, kw in calls[name]:
+                got = spec.cuda(*args, **kw)
+                want = spec.plain(*args, **kw)
+                torch.cuda.synchronize()
+                got_t = got if isinstance(got, tuple) else (got,)
+                want_t = want if isinstance(want, tuple) else (want,)
+                for g, w in zip(got_t, want_t):
+                    err = (g.to(torch.float64) - w.to(torch.float64)).abs().max().item()
+                    tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                    if not torch.equal(g, w):
+                        fail(f"{name} at {[tuple(a.shape) for a in args if torch.is_tensor(a)]}"
+                             f" ({path}): kernel differs from its plain version (max |diff| {err})")
+                # ms / plain_ms / library_ms: the card's busy time a call (profiler);
+                # *_enqueue_ms: CUDA events around back-to-back calls, which is the
+                # host's enqueue time wherever that exceeds the card's.
+                kernel_fn = functools.partial(spec.cuda, *args, **kw)
+                plain_fn = functools.partial(spec.plain, *args, **kw)
+                ms = device_ms(torch, kernel_fn, reps=50)
+                plain_ms = device_ms(torch, plain_fn, reps=5)
+                nbytes, ops, peak = bound(name, args, kw, want)
+                bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+                ops_ms = ops / peak * 1e3
+                row = {"kernel": name, "path": path,
+                       "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
+                       "kw": {k: v for k, v in kw.items()}, "ms": ms, "plain_ms": plain_ms,
+                       "enqueue_ms": cuda_ms(torch, kernel_fn, reps=50),
+                       "plain_enqueue_ms": cuda_ms(torch, plain_fn, reps=5, warmup=1),
+                       "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+                       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+                if name == "sc_matmul":
+                    xd, wd = args[0].to(torch.float64), args[1].to(torch.float64)
+                    library_fn = functools.partial(torch.matmul, xd, wd)
+                    row["library_ms"] = device_ms(torch, library_fn, reps=20)
+                    row["library_enqueue_ms"] = cuda_ms(torch, library_fn, reps=20)
+                    part["library_ms"] += row["library_ms"]
+                    tot["library_ms"] += row["library_ms"]
+                per_call.append(row)
+                for acc in (tot, part):
+                    acc["ms"] += ms
+                    acc["plain_ms"] += plain_ms
+                    acc["bound_ms"] += row["bound_ms"]
+                tot["bytes_ms"] += bytes_ms
+                tot["ops_ms"] += ops_ms
+            tot["by_path"][path] = part
+            say(f"{name} ({path}): {part['calls']} calls, kernel == plain version bitwise; "
+                f"device time: kernel {part['ms']:.4f} ms, plain {part['plain_ms']:.4f} ms, "
+                f"bound {part['bound_ms']:.6f} ms")
         summary[name] = tot
-        say(f"{name}: {len(calls[name])} main-path calls, kernel == plain version bitwise; "
-            f"per forward, device time: kernel {tot['ms']:.4f} ms, plain "
-            f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.6f} ms")
     say(json.dumps({"kernel_calls": per_call}))
 
-    # -- 4. the main path, counted -------------------------------------------
-    accels = {q: get_accelerator(CONFIG, pol, device="cuda") for q, pol in policies.items()}
-    logits_gpu = {}
-    deltas = {}
-    registry.reset_launches()
-    for q, accel in accels.items():
-        before = registry.launches()
-        logits_gpu[q] = [accel.infer(params, b) for b in batches]
+    # -- 4. the paths, counted -------------------------------------------------
+    launches = dict.fromkeys(KERNELS, 0)
+    counted = {}
+
+    def counted_run(label: str, run, want: dict[str, int]):
+        """Run with every counter at 0 just before; check the counts read just after."""
+        registry.reset_launches()
+        out = run()
         torch.cuda.synchronize()
-        after = registry.launches()
-        deltas[q] = {n: after[n] - before[n] for n in KERNELS}
-    launches = registry.launches()
-    say(f"main path launches: {json.dumps(deltas)}")
-    for q, delta in deltas.items():
-        want = {"fps_tiles": 2 * N_BATCHES, "lattice_tiles": 2 * N_BATCHES,
-                "sc_matmul": n_linears * N_BATCHES if q != "none" else 0}
-        if delta != want:
-            fail(f"quant={q}: launches {delta}, expected {want} for {N_BATCHES} forwards")
+        got = {n: registry.launches()[n] for n in KERNELS}
+        counted[label] = got
+        if got != want:
+            fail(f"{label}: launches {got}, expected {want}")
+        for n in KERNELS:
+            launches[n] += got[n]
+        return out
+
+    outputs = {}
+    for (m, q), accel in accels.items():
+        want_one = expected_launches(m, q, configs[m])
+        outputs[m, q] = [
+            counted_run(f"{m} quant={q} batch {i}", functools.partial(accel.infer, params[m], b),
+                        want_one)
+            for i, b in enumerate(batches[m])
+        ]
+    flat_out = counted_run("flat", flat_path, expected_launches("flat", "none"))
+    say(f"main path launches: {json.dumps(counted)}")
     for name in KERNELS:
         if launches[name] == 0:
-            fail(f"{name} was never launched on the main path")
+            fail(f"{name} was never launched on the paths")
 
     forward_ms = {}
-    for q, accel in accels.items():
+    for (m, q), accel in accels.items():
         times = []
         for i in range(TIMED_FORWARDS + 2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            accel.infer(params, batches[i % N_BATCHES])
+            accel.infer(params[m], batches[m][i % N_BATCHES[m]])
             torch.cuda.synchronize()
             if i >= 2:
                 times.append((time.perf_counter() - t0) * 1e3)
-        forward_ms[q] = {"median_ms": float(np.median(times)), "min_ms": float(np.min(times)),
-                         "max_ms": float(np.max(times)), "runs": len(times)}
-    say(json.dumps({"forward_per_batch": {"batch": BATCH, "n_points": CONFIG.n_points,
-                                          **forward_ms}}))
+        forward_ms.setdefault(m, {"batch": BATCH, "n_points": configs[m].n_points})[q] = {
+            "median_ms": float(np.median(times)), "min_ms": float(np.min(times)),
+            "max_ms": float(np.max(times)), "runs": len(times)}
+    say(json.dumps({"forward_per_batch": forward_ms}))
     say(json.dumps({"forward_profile": {
-        q: profile_forward(torch, accel, params, batches[0], forward_ms[q]["median_ms"])
-        for q, accel in accels.items()
+        m: {q: profile_forward(torch, accels[m, q], params[m], batches[m][0],
+                               forward_ms[m][q]["median_ms"]) for q in policies}
+        for m in configs
     }}))
 
     # -- 5. against the port's own CPU run -------------------------------------
-    params_cpu = accel_sc.init(torch.Generator().manual_seed(SEED)).to("cpu")
-    for q, pol in policies.items():
-        accel_cpu = get_accelerator(CONFIG, pol, device="cpu")
-        worst = 0.0
-        for b, got in zip(batches, logits_gpu[q]):
-            pre_gpu = accels[q].preprocess_stage(b)
-            pre_cpu = accel_cpu.preprocess_stage(b)
-            for stage, (rg, rc) in enumerate(zip(pre_gpu, pre_cpu)):
-                for field in ("centroid_idx", "centroid_xyz"):
-                    if not torch.equal(getattr(rg, field).cpu(), getattr(rc, field)):
-                        fail(f"quant={q} stage {stage}: {field} differs from the CPU run")
-                if not (torch.equal(rg.neighbors.idx.cpu(), rc.neighbors.idx)
-                        and torch.equal(rg.neighbors.mask.cpu(), rc.neighbors.mask)):
-                    fail(f"quant={q} stage {stage}: neighbours differ from the CPU run")
-            want = accel_cpu.infer(params_cpu, b)
-            got = got.cpu()
-            if got.shape != (BATCH, CONFIG.n_classes) or not torch.isfinite(got).all():
-                fail(f"quant={q}: logits of shape {tuple(got.shape)}, finite={bool(torch.isfinite(got).all())}")
-            worst = max(worst, (got - want).abs().max().item())
-        if worst > LOGIT_ATOL[q]:
-            fail(f"quant={q}: logits differ from the CPU run by {worst} > {LOGIT_ATOL[q]}")
-        say(f"quant={q}: preprocessing equals the CPU run bitwise; max |logit diff| "
-            f"{worst:.3e} <= {LOGIT_ATOL[q]}")
+    for m, cfg in configs.items():
+        params_cpu = accels[m, "sc_w16a16"].init(torch.Generator().manual_seed(SEED)).to("cpu")
+        checked = batches[m] if m == "cls" else batches[m][:1]  # one seg batch: the CPU is slow
+        for q, pol in policies.items():
+            accel_cpu = get_accelerator(cfg, pol, device="cpu")
+            shape = (BATCH, cfg.n_classes) if cfg.task == "cls" else (
+                BATCH, cfg.n_points, cfg.n_classes)
+            worst = 0.0
+            for b, got in zip(checked, outputs[m, q]):
+                pre_gpu = accels[m, q].preprocess_stage(b)
+                pre_cpu = accel_cpu.preprocess_stage(b)
+                for stage, (rg, rc) in enumerate(zip(pre_gpu, pre_cpu)):
+                    for field in ("centroid_idx", "centroid_xyz"):
+                        if not torch.equal(getattr(rg, field).cpu(), getattr(rc, field)):
+                            fail(f"{m} quant={q} stage {stage}: {field} differs from the CPU run")
+                    if not (torch.equal(rg.neighbors.idx.cpu(), rc.neighbors.idx)
+                            and torch.equal(rg.neighbors.mask.cpu(), rc.neighbors.mask)):
+                        fail(f"{m} quant={q} stage {stage}: neighbours differ from the CPU run")
+                if cfg.task == "seg":  # each FP stage's 3-NN: a level among the next coarser
+                    levels_gpu = [torch.from_numpy(b).cuda()] + [r.centroid_xyz for r in pre_gpu]
+                    levels_cpu = [torch.from_numpy(b)] + [r.centroid_xyz for r in pre_cpu]
+                    for i in range(len(pre_gpu)):
+                        kg = knn3(levels_gpu[i], levels_gpu[i + 1])
+                        kc = knn3(levels_cpu[i], levels_cpu[i + 1])
+                        if not all(torch.equal(g.cpu(), c) for g, c in zip(kg, kc)):
+                            fail(f"{m} quant={q}: 3-NN of level {i} differs from the CPU run")
+                want = accel_cpu.infer(params_cpu, b)
+                got = got.cpu()
+                if tuple(got.shape) != shape or not torch.isfinite(got).all():
+                    fail(f"{m} quant={q}: logits of shape {tuple(got.shape)}, "
+                         f"finite={bool(torch.isfinite(got).all())}")
+                worst = max(worst, (got - want).abs().max().item())
+            if worst > LOGIT_ATOL[q]:
+                fail(f"{m} quant={q}: logits differ from the CPU run by {worst} > {LOGIT_ATOL[q]}")
+            extra = ", FP 3-NN indices" if cfg.task == "seg" else ""
+            say(f"{m} quant={q}: preprocessing{extra} equal the CPU run bitwise over "
+                f"{len(checked)} batch(es); max |logit diff| {worst:.3e} <= {LOGIT_ATOL[q]}")
+    for (pts, cents, radius, ns), got in zip(flat_sets, flat_out):
+        want = lattice_query_fused(pts.cpu(), cents.cpu(), radius, ns)
+        if not (torch.equal(got.idx.cpu(), want.idx) and torch.equal(got.mask.cpu(), want.mask)):
+            fail(f"flat lattice query at P={pts.shape[0]}, M={cents.shape[0]} differs from the "
+                 "CPU run")
+    say("flat: lattice_query_fused equals the CPU run bitwise at "
+        + ", ".join(f"P={p} M={m}" for p, m, _, _ in FLAT_SETS))
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -419,7 +543,7 @@ def main() -> None:
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
-            "library_ms": tot["library_ms"],
+            "library_ms": tot["library_ms"], "by_path": tot["by_path"],
         })
     say(json.dumps({"kernels": kernels}))
     say(card)

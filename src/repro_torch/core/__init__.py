@@ -6,5 +6,6 @@ C4  split-concatenate quantized MAC         -> quant.py, kernels/sc_matmul
 C5  delayed aggregation                     -> grouping.py
 Batched (B, N, 3) PreprocessEngine          -> engine.py
 ExecutionPolicy                             -> policy.py
-PC2IMAccelerator                            -> accelerator.py
+3-NN + interpolation (seg FP stages)       -> query.py, grouping.py
+PC2IMAccelerator                            -> accelerator.py (device.py)
 """

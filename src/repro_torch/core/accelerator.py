@@ -12,6 +12,9 @@ halves on their own:
     params = accel.init(torch.Generator().manual_seed(0))
     logits = accel.infer(params, points)        # (B, N, 3+F) -> (B, C)
 
+The same holds for `get_config("pointnet2-seg")`, whose logits are per
+point: (B, N, 3+F) -> (B, N, C).
+
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`, which runs the plain versions of the kernels).  Without a
 card the default device raises: nothing drifts to the CPU.  PyTorch runs
@@ -26,25 +29,9 @@ import threading
 
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.policy import ExecutionPolicy, resolve_policy
 from repro_torch.models import pointnet2 as PN
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: "cuda" unless the caller names another.
-
-    Raises RuntimeError for a CUDA device on a host without one.
-    """
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "plain PyTorch versions of the kernels on the CPU"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 class PC2IMAccelerator:
@@ -79,11 +66,18 @@ class PC2IMAccelerator:
         return torch.as_tensor(points, dtype=torch.float32, device=self.device)
 
     def forward(self, params: PN.PointNet2Params, points) -> torch.Tensor:
-        """Batched forward: (B, N, 3+F) -> logits (B, n_classes), autograd on."""
+        """Batched forward, autograd on: (B, N, 3+F) -> logits.
+
+        Logits are (B, n_classes) for a cls config and (B, N, n_classes),
+        one row a point, for a seg config.
+        """
         return PN.forward(params, self.config, self._points(points), policy=self.policy)
 
     def infer(self, params: PN.PointNet2Params, points) -> torch.Tensor:
-        """Inference entry point: `forward` under torch.inference_mode()."""
+        """Inference entry point: `forward` under torch.inference_mode().
+
+        (B, N, 3+F) -> (B, n_classes) for cls, (B, N, n_classes) for seg.
+        """
         with torch.inference_mode():
             return self.forward(params, points)
 
@@ -97,7 +91,8 @@ class PC2IMAccelerator:
             return PN.preprocess_stage(self.config, self._points(points), policy=self.policy)
 
     def feature_stage(self, params: PN.PointNet2Params, points, preproc: tuple) -> torch.Tensor:
-        """Feature half: SC-CIM (or float) per-point MLPs + aggregation.
+        """Feature half: SC-CIM (or float) per-point MLPs + aggregation, and for
+        seg the feature-propagation stages (3-NN interpolation + MLPs).
 
         `feature_stage(params, pts, preprocess_stage(pts))` equals
         `infer(params, pts)`: `forward` is exactly that composition.

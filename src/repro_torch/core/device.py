@@ -1,0 +1,26 @@
+"""Where the port's entry points run: the card, unless the caller names another device.
+
+Kept apart from `core/accelerator.py` so that the model and the weight
+bridge resolve devices the same way without importing the accelerator.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: "cuda" unless the caller names another.
+
+    Raises RuntimeError for a CUDA device on a host without one.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions of the kernels on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

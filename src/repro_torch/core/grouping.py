@@ -2,7 +2,8 @@
 
 Delayed aggregation runs the MLP per *point* and only then gathers each
 centroid's neighbours and max-pools them, so MLP cost scales with N rather
-than M * nsample.
+than M * nsample.  `interpolate_features` is the segmentation model's
+up-sampling: 3-NN inverse-distance interpolation of coarse features.
 """
 
 from __future__ import annotations
@@ -31,3 +32,20 @@ def masked_maxpool(grouped: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     out = torch.where(mask[..., None], grouped, neg).amax(dim=-2)
     any_valid = mask.any(dim=-1)[..., None]
     return torch.where(any_valid, out, torch.zeros_like(out))
+
+
+def interpolate_features(features: torch.Tensor, idx: torch.Tensor,
+                         weights: torch.Tensor) -> torch.Tensor:
+    """k-NN inverse-distance interpolation (FP layer up-sampling).
+
+    features (..., N, C) at the coarse level; idx, weights (..., M, k) ->
+    (..., M, C) = sum over j of features[idx[..., j]] * weights[..., j],
+    added in index order j = 0, 1, ... like the reference's sum over k.
+    """
+    idx = idx.long()
+    out = None
+    for j in range(idx.shape[-1]):
+        rows = torch.take_along_dim(features, idx[..., j:j + 1], dim=-2)  # (..., M, C)
+        term = rows * weights[..., j:j + 1]
+        out = term if out is None else out + term
+    return out

@@ -1,4 +1,4 @@
-"""Neighbour queries — lattice query (paper C1).
+"""Neighbour queries — lattice query (paper C1) and k-nearest neighbours (seg FP).
 
 Lattice query (PC2IM): for each centroid, the *first* `nsample` points (in
 index order) with L1 distance <= L = 1.6 * R, padded with the first hit (the
@@ -6,6 +6,10 @@ PointNet++ convention), plus a mask of the real neighbours.
 
 The threshold is the Python double `range_factor * radius` rounded once to
 float32, as in the reference, where it meets float32 distances.
+
+kNN (the segmentation model's up-sampling): for each query, the k smallest
+distances and their indices, as k rounds of first-index argmin and
+mask-out, the dataflow of kernels/knn3.
 """
 
 from __future__ import annotations
@@ -71,3 +75,34 @@ def lattice_query(
     """
     d = pairwise_distance(centroids, points, "l1")
     return _first_k_in_range(d, range_factor * radius, nsample, valid)
+
+
+def knn(query_xyz: torch.Tensor, ref_xyz: torch.Tensor, k: int,
+        metric: str = "l2") -> tuple[torch.Tensor, torch.Tensor]:
+    """k nearest neighbours of each query point among the reference points.
+
+    query_xyz (..., M, 3), ref_xyz (..., N, 3) -> (idx (..., M, k) int32,
+    dist (..., M, k)), dist squared for l2.  Each round takes the first index
+    of the row minimum (torch.argmin returns the first) and masks it with
+    inf, so ties go to the lower index: the first k of a stable sort by
+    (distance, index).
+    """
+    d = pairwise_distance(query_xyz, ref_xyz, metric)  # (..., M, N)
+    idxs, dists = [], []
+    for _ in range(k):
+        j = torch.argmin(d, dim=-1, keepdim=True)
+        dists.append(torch.take_along_dim(d, j, dim=-1))
+        idxs.append(j)
+        d = d.scatter(-1, j, float("inf"))
+    return torch.cat(idxs, dim=-1).to(torch.int32), torch.cat(dists, dim=-1)
+
+
+def three_nn_interpolate_weights(dist_sq: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Inverse-distance weights for 3-NN feature interpolation (FP layer).
+
+    dist_sq (..., k) -> weights (..., k), normalised over the trailing axis.
+    `eps` is a Python float added to the float32 distances, as in the
+    reference, so a self-match (distance 0) weighs 1 / float32(1e-8).
+    """
+    w = 1.0 / (dist_sq + eps)
+    return w / w.sum(dim=-1, keepdim=True)

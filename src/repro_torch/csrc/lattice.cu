@@ -2,18 +2,24 @@
 // range L, in index order, plus a mask.
 //
 // Replaces: lattice_tiles_pallas / _lattice_kernel,
-// src/repro/kernels/lattice/kernel.py:50 (body at :25).  Same function: for
+// src/repro/kernels/lattice/kernel.py:50 (body at :25), and the flat
+// lattice_pallas at :97, which runs the same body over one point set: its
+// wrapper (kernels/lattice/kernel.py, lattice_query_cuda) launches this
+// kernel as one tile of all M centroids and P points.  Same function: for
 // centroid c of tile t, slot s holds the index of the (s+1)-th point j of
 // tile t (in index order) with (|cx-px| + |cy-py|) + |cz-pz| <= L, and
 // mask[s] says whether such a point exists.  Empty slots take the first hit,
 // or 0 when there is none.  L arrives as the float32 value of the Python
 // double radius * 1.6, compared with <=, like the reference.
 //
-// Bound on an H100 SXM: at the main-path shapes (8 clouds: T=32 tiles,
+// Bound on an H100 SXM: at the cls main-path shapes (8 clouds: T=32 tiles,
 // K=64 centroids, P=256 points, nsample=32) the kernel reads ~123 KB and
 // writes T*K*nsample*(4+1) = ~330 KB, ~0.13 us at 3.35 TB/s; the distance
 // work (~9 operations per point scanned) is far below the f32 rate, so
-// bytes set the bound.
+// bytes set the bound.  Seg (8 clouds of 4096 points) gives T=64 tiles of
+// K=128 centroids, P=512 points and T=64 of K=32, P=128; a flat query of
+// M=1024 centroids among P=4096 points scans up to 4M pairs, still a few
+// microseconds of f32 work at most.
 //
 // Design: one warp per centroid.  The warp walks the tile in chunks of 32
 // points, one point a lane; __ballot_sync of the hit flags plus __popc of the

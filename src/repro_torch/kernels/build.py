@@ -29,7 +29,7 @@ import threading
 
 SRC_DIR = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fps", "lattice", "sc_matmul")
+SOURCES = ("fps", "lattice", "sc_matmul", "knn3")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",

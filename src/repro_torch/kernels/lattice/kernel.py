@@ -1,4 +1,4 @@
-"""Launch wrapper of the per-tile lattice query kernel (`csrc/lattice.cu`)."""
+"""Launch wrappers of the lattice query kernel (`csrc/lattice.cu`): per tile and flat."""
 
 from __future__ import annotations
 
@@ -23,16 +23,13 @@ def _entry():
     return fn
 
 
-def lattice_tiles_cuda(
-    coords: torch.Tensor, centroids: torch.Tensor, *, nsample: int, l_range: float
+def _launch(
+    coords: torch.Tensor, centroids: torch.Tensor, nsample: int, l_range: float, name: str
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """coords (T, P, 3), centroids (T, K, 3) float32 CUDA -> idx int32, mask bool.
+    """Launch the kernel on (T, P, 3) / (T, K, 3) tensors, counting it as `name`.
 
-    One warp per centroid, launched on the current stream.  `l_range` is
-    rounded to float32 once, here, as the reference compares it.
+    Nothing is launched (or counted) when there is no centroid.
     """
-    registry.require_cuda_tensor(coords, "coords", torch.float32, 3)
-    registry.require_cuda_tensor(centroids, "centroids", torch.float32, 3)
     t, p, three = coords.shape
     if three != 3 or centroids.shape[0] != t or centroids.shape[2] != 3:
         raise ValueError(
@@ -57,5 +54,32 @@ def lattice_tiles_cuda(
         ctypes.c_float(np.float32(l_range)), stream,
     )
     build.check(status, "lattice")
-    registry.count_launch("lattice_tiles")
+    registry.count_launch(name)
     return idx, mask
+
+
+def lattice_tiles_cuda(
+    coords: torch.Tensor, centroids: torch.Tensor, *, nsample: int, l_range: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """coords (T, P, 3), centroids (T, K, 3) float32 CUDA -> idx int32, mask bool.
+
+    One warp per centroid, launched on the current stream.  `l_range` is
+    rounded to float32 once, here, as the reference compares it.
+    """
+    registry.require_cuda_tensor(coords, "coords", torch.float32, 3)
+    registry.require_cuda_tensor(centroids, "centroids", torch.float32, 3)
+    return _launch(coords, centroids, nsample, l_range, "lattice_tiles")
+
+
+def lattice_query_cuda(
+    points: torch.Tensor, centroids: torch.Tensor, *, nsample: int, l_range: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """points (P, 3), centroids (M, 3) float32 CUDA -> idx (M, nsample) int32, mask bool.
+
+    The flat query: the same kernel over one set, launched as one tile
+    holding all M centroids and all P points.
+    """
+    registry.require_cuda_tensor(points, "points", torch.float32, 2)
+    registry.require_cuda_tensor(centroids, "centroids", torch.float32, 2)
+    idx, mask = _launch(points[None], centroids[None], nsample, l_range, "lattice_query")
+    return idx[0], mask[0]

@@ -1,4 +1,4 @@
-"""Public op: per-tile lattice query via the kernel registry."""
+"""Public ops: lattice query, per tile and over one flat set, via the kernel registry."""
 
 from __future__ import annotations
 
@@ -6,10 +6,41 @@ import torch
 
 from repro_torch.core.query import LATTICE_RANGE_FACTOR, NeighborSet
 from repro_torch.kernels import registry
-from repro_torch.kernels.lattice.kernel import lattice_tiles_cuda
-from repro_torch.kernels.lattice.ref import lattice_tiles_plain
+from repro_torch.kernels.lattice.kernel import lattice_query_cuda, lattice_tiles_cuda
+from repro_torch.kernels.lattice.ref import lattice_query_plain, lattice_tiles_plain
 
 registry.register("lattice_tiles", plain=lattice_tiles_plain, cuda=lattice_tiles_cuda)
+registry.register("lattice_query", plain=lattice_query_plain, cuda=lattice_query_cuda)
+
+
+def lattice_query_fused(
+    points: torch.Tensor,
+    centroids: torch.Tensor,
+    radius: float,
+    nsample: int,
+    *,
+    range_factor: float = LATTICE_RANGE_FACTOR,
+    backend: str | None = "auto",
+) -> NeighborSet:
+    """Flat lattice query over one point set: core.query.lattice_query's signature.
+
+    points (P, 3), centroids (M, 3) -> NeighborSet with idx/mask (M, nsample):
+    each centroid's first `nsample` points within L1 range
+    range_factor * radius, in index order.  The kernel on CUDA tensors, the
+    plain version on CPU tensors.
+    """
+    if points.ndim != 2 or points.shape[-1] != 3 or centroids.ndim != 2 or centroids.shape[-1] != 3:
+        raise ValueError(
+            f"expected points (P, 3) and centroids (M, 3), got "
+            f"{tuple(points.shape)} and {tuple(centroids.shape)}"
+        )
+    l_range = float(radius * range_factor)
+    impl = registry.dispatch("lattice_query", points, backend)
+    idx, mask = impl(
+        points.to(torch.float32).contiguous(), centroids.to(torch.float32).contiguous(),
+        nsample=nsample, l_range=l_range,
+    )
+    return NeighborSet(idx=idx, mask=mask)
 
 
 def lattice_query_tiles(

@@ -1,9 +1,11 @@
 """PointNet++ (PointNet2) — the paper's evaluation model — with PC2IM preprocessing.
 
 Set-abstraction (SA) stages: sample centroids (FPS), query neighbours, learn
-per-point features (MLP), max-pool per neighbourhood.  Ported so far: the
-classification task with pc2im preprocessing (MSP + L1 FPS + lattice query)
-and delayed aggregation (C5), in float or under the SC W16A16/W8A8 policies.
+per-point features (MLP), max-pool per neighbourhood.  Feature-propagation
+(FP) stages (segmentation): 3-NN inverse-distance interpolation + unit MLPs.
+Ported so far: classification and segmentation with pc2im preprocessing
+(MSP + L1 FPS + lattice query) and delayed aggregation (C5), in float or
+under the SC W16A16/W8A8 policies.
 
 Delayed aggregation feeds *absolute* coords + features through the per-point
 MLP and aggregates afterwards (Mesorasi [8], which the paper adopts).
@@ -18,8 +20,11 @@ import torch
 from torch import nn
 
 from repro_torch.core import grouping as G
+from repro_torch.core import query as Q
+from repro_torch.core.device import resolve_device
 from repro_torch.core.engine import EngineConfig, clamp_depth, get_engine
 from repro_torch.core.policy import ExecutionPolicy, resolve_policy
+from repro_torch.kernels.knn3.ops import knn3
 from repro_torch.models.nn import MLP
 
 
@@ -63,8 +68,8 @@ class PointNet2Config:
 
 def check_ported(cfg: PointNet2Config) -> None:
     """Raise for the parts of the config this package does not run yet."""
-    if cfg.task != "cls":
-        raise ValueError(f"task {cfg.task!r} is not ported; only 'cls' runs here")
+    if cfg.task not in ("cls", "seg"):
+        raise ValueError(f"task {cfg.task!r} is not ported; only 'cls' and 'seg' run here")
     if cfg.preproc != "pc2im":
         raise ValueError(f"preproc {cfg.preproc!r} is not ported; only 'pc2im' runs here")
     if cfg.aggregation != "delayed":
@@ -74,33 +79,50 @@ def check_ported(cfg: PointNet2Config) -> None:
 
 
 class PointNet2Params(nn.Module):
-    """The weights of a cls PointNet2: one MLP per SA stage, the global MLP, the head.
+    """The weights of a PointNet2: one MLP per SA stage, then the task's own.
 
-    Mirrors the reference's parameter tree: `sa[i]`, `global_mlp` (the tree's
-    "global") and `head`, each holding `layers[j].lin.{w,b}` and
-    `layers[j].ln.{g,b}`.
+    Mirrors the reference's parameter tree: `sa[i]`, then for cls
+    `global_mlp` (the tree's "global") and `head`, for seg `fp[i]` (one MLP
+    per FP stage, coarsest first) and `head`; each MLP holds
+    `layers[j].lin.{w,b}` and `layers[j].ln.{g,b}`.  Weights are drawn on
+    the CPU from `generator` and moved to `device`, the card by default.
     """
 
     def __init__(self, cfg: PointNet2Config, *, generator: torch.Generator | None = None,
                  device=None):
         super().__init__()
         check_ported(cfg)
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=resolve_device(device))
         c_in = 3 + cfg.in_features
         stages = []
         for sa in cfg.sa:
             stages.append(MLP([c_in] + list(sa.mlp), **kw))
             c_in = sa.mlp[-1] + 3  # next stage consumes features + xyz
         self.sa = nn.ModuleList(stages)
-        self.global_mlp = MLP([cfg.sa[-1].mlp[-1] + 3] + list(cfg.global_mlp), **kw)
-        self.head = MLP(
-            [cfg.global_mlp[-1]] + list(cfg.head) + [cfg.n_classes], norm=False, **kw
-        )
+        sa_out = cfg.sa[-1].mlp[-1]
+        if cfg.task == "cls":
+            self.global_mlp = MLP([sa_out + 3] + list(cfg.global_mlp), **kw)
+            c_head = cfg.global_mlp[-1]
+        else:
+            # FP stages walk back up the SA pyramid; each concatenates the
+            # interpolated coarse features with the finer level's skip
+            skips = [3 + cfg.in_features] + [sa.mlp[-1] for sa in cfg.sa[:-1]]
+            c_coarse, fp = sa_out, []
+            for i, skip_c in enumerate(reversed(skips)):
+                cout = cfg.fp_mlp[min(i, len(cfg.fp_mlp) - 1)]
+                fp.append(MLP([c_coarse + skip_c, cout, cout], **kw))
+                c_coarse = cout
+            self.fp = nn.ModuleList(fp)
+            c_head = c_coarse
+        self.head = MLP([c_head] + list(cfg.head) + [cfg.n_classes], norm=False, **kw)
 
 
 def init_params(cfg: PointNet2Config, generator: torch.Generator | None = None,
                 device=None) -> PointNet2Params:
-    """Fresh parameters: drawn on the CPU from `generator`, then moved to `device`."""
+    """Fresh parameters: drawn on the CPU from `generator`, then moved to `device`.
+
+    `device` defaults to the card (raises without one); pass "cpu" for the CPU.
+    """
     return PointNet2Params(cfg, generator=generator, device=device)
 
 
@@ -144,18 +166,41 @@ def feature_stage(params: PointNet2Params, cfg: PointNet2Config, points: torch.T
                   preproc: tuple, policy: ExecutionPolicy | None = None) -> torch.Tensor:
     """Feature half: per-point MLPs + aggregation over precomputed neighbourhoods.
 
-    `preproc` is `preprocess_stage`'s output.  Returns cls logits (B, n_classes).
+    `preproc` is `preprocess_stage`'s output.  Returns cls logits
+    (B, n_classes), or seg logits (B, N, n_classes) after the FP stages.
     """
     policy = resolve_policy(cfg, policy)
     check_ported(cfg)
     xyz = points[..., :3]
     feats = points[..., 3:] if cfg.in_features else None
+    levels = [(xyz, feats)]
     for mlp, res in zip(params.sa, preproc):
-        xyz, feats = _sa_stage(mlp, xyz, feats, res, policy)
-    x = torch.cat([xyz, feats], dim=-1)  # (B, M, C)
-    x = params.global_mlp(x, policy=policy)
-    x = x.amax(dim=1)  # global max pool per cloud
-    return params.head(x, final_act=False, policy=policy)
+        levels.append(_sa_stage(mlp, *levels[-1], res, policy))
+
+    if cfg.task == "cls":
+        x = torch.cat(levels[-1], dim=-1)  # (B, M, 3 + C)
+        x = params.global_mlp(x, policy=policy)
+        x = x.amax(dim=1)  # global max pool per cloud
+        return params.head(x, final_act=False, policy=policy)
+
+    # segmentation: FP stages walk the pyramid back from coarse to fine.
+    # Skips: intermediate levels contribute their SA features, the finest
+    # level its raw xyz (plus input features).
+    coarse_xyz, coarse_f = levels[-1]
+    n_fp = len(params.fp)
+    for i, mlp in enumerate(params.fp):
+        fine_xyz, fine_f = levels[n_fp - 1 - i]
+        idx, dist = knn3(fine_xyz, coarse_xyz, k=3, metric="l2",
+                         backend=policy.resolved_backend())
+        w = Q.three_nn_interpolate_weights(dist)
+        interp = G.interpolate_features(coarse_f, idx, w)  # (B, Nf, Cc)
+        if i == n_fp - 1:  # finest level: raw inputs as skip
+            skip = fine_xyz if fine_f is None else torch.cat([fine_xyz, fine_f], dim=-1)
+        else:
+            skip = fine_f
+        coarse_f = mlp(torch.cat([interp, skip], dim=-1), policy=policy)
+        coarse_xyz = fine_xyz
+    return params.head(coarse_f, final_act=False, policy=policy)
 
 
 def _sa_stage(mlp: MLP, xyz, feats, res, policy):
@@ -172,7 +217,7 @@ def _sa_stage(mlp: MLP, xyz, feats, res, policy):
 
 def forward(params: PointNet2Params, cfg: PointNet2Config, points: torch.Tensor,
             policy: ExecutionPolicy | None = None) -> torch.Tensor:
-    """Batched forward.  points: (B, N, 3+F) -> logits (B, n_classes).
+    """Batched forward.  points: (B, N, 3+F) -> logits (B, n_classes) | seg (B, N, n_classes).
 
     Literally feature_stage(preprocess_stage(...)); the policy is resolved
     here, once, for both halves.

@@ -2,8 +2,8 @@
 
 The tree is what the reference's `init_params` returns, with every leaf
 turned into a numpy array (`jax.tree.map(np.asarray, params)`): nested
-dicts and lists `sa[i]` / `global` / `head` -> `layers[j]` ->
-`lin{w, b}` and `ln{g, b}`.  The reference stores w as (d_in, d_out) and
+dicts and lists `sa[i]`, then `global` / `head` (cls) or `fp[i]` / `head`
+(seg) -> `layers[j]` -> `lin{w, b}` and `ln{g, b}`.  The reference stores w as (d_in, d_out) and
 computes y = x @ w; `models.nn.Linear` keeps that layout, so weights are
 copied as they are, and every shape is checked against the config.
 """
@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.accelerator import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.models.nn import MLP
 from repro_torch.models.pointnet2 import PointNet2Config, PointNet2Params
 
@@ -50,12 +50,17 @@ def from_jax_params(tree, cfg: PointNet2Config, device=None) -> PointNet2Params:
     point; pass "cpu" on a host without a card).
     """
     dev = resolve_device(device)
-    params = PointNet2Params(cfg, generator=torch.Generator().manual_seed(0))
-    if len(tree["sa"]) != len(params.sa):
-        raise ValueError(f"tree has {len(tree['sa'])} SA stages, config has {len(params.sa)}")
+    params = PointNet2Params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    lists = {"sa": params.sa} if cfg.task == "cls" else {"sa": params.sa, "fp": params.fp}
     with torch.no_grad():
-        for i, (mlp, sub) in enumerate(zip(params.sa, tree["sa"])):
-            _load_mlp(mlp, sub, f"sa[{i}]")
-        _load_mlp(params.global_mlp, tree["global"], "global")
+        for key, mlps in lists.items():
+            if len(tree[key]) != len(mlps):
+                raise ValueError(
+                    f"tree has {len(tree[key])} {key} stages, config has {len(mlps)}"
+                )
+            for i, (mlp, sub) in enumerate(zip(mlps, tree[key])):
+                _load_mlp(mlp, sub, f"{key}[{i}]")
+        if cfg.task == "cls":
+            _load_mlp(params.global_mlp, tree["global"], "global")
         _load_mlp(params.head, tree["head"], "head")
     return params.to(dev)

@@ -1,5 +1,5 @@
 """Port parity, core modules: policy, MSP partition, distances, lattice query,
-SC quantization and the pc2im PreprocessEngine, each held against the JAX
+kNN with the 3-NN interpolation, SC quantization and the pc2im PreprocessEngine, each held against the JAX
 package on the same numpy inputs.  Every output here is an integer, a
 selection or an exactly-rounded float, so every comparison is bitwise."""
 
@@ -13,6 +13,7 @@ import torch
 
 from repro.core import engine as JE
 from repro.core import fps as JF
+from repro.core import grouping as JGroup
 from repro.core import partition as JPart
 from repro.core import policy as JPol
 from repro.core import quant as JQ
@@ -20,6 +21,7 @@ from repro.core import query as JQuery
 from repro.kernels.sc_matmul.ref import sc_matmul_ref as j_sc_matmul_ref
 from repro_torch.core import engine as TE
 from repro_torch.core import fps as TF
+from repro_torch.core import grouping as TGroup
 from repro_torch.core import partition as TPart
 from repro_torch.core import policy as TPol
 from repro_torch.core import quant as TQ
@@ -134,6 +136,42 @@ def test_lattice_query_batched_and_valid_mask():
         )
         _eq(got.idx[i], want.idx)
         _eq(got.mask[i], want.mask)
+
+
+# -- kNN and 3-NN interpolation (seg FP stages) -----------------------------------
+
+
+@pytest.mark.parametrize("kind", ["uniform", "snapped"])
+@pytest.mark.parametrize("metric", ["l1", "l2"])
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_knn_bitwise(kind, metric, k):
+    """Indices and distances; the snapped cloud is full of equal distances."""
+    qs, ref = _clouds(kind, 1, 50, seed=7)[0], _clouds(kind, 1, 37, seed=8)[0]
+    wi, wd = JQuery.knn(jnp.asarray(qs), jnp.asarray(ref), k, metric=metric)
+    gi, gd = TQuery.knn(torch.from_numpy(qs), torch.from_numpy(ref), k, metric=metric)
+    assert gi.dtype == torch.int32
+    _eq(gi, wi)
+    _eq(gd, wd)
+
+
+def test_knn_batched_and_interpolation_bitwise():
+    """Batched knn equals the reference per cloud; the 3-NN weights (self-matches
+    included, distance 0) and the interpolation agree to the bit, since both
+    packages add the same terms in the same order."""
+    fine = _clouds("snapped", 2, 48, seed=9)
+    coarse = fine[:, ::4].copy()  # every coarse point is also a fine point
+    feats = np.random.default_rng(10).normal(size=(2, 12, 5)).astype(np.float32)
+    idx, dist = TQuery.knn(torch.from_numpy(fine), torch.from_numpy(coarse), 3)
+    w = TQuery.three_nn_interpolate_weights(dist)
+    out = TGroup.interpolate_features(torch.from_numpy(feats), idx, w)
+    assert out.shape == (2, 48, 5)
+    for b in range(2):
+        wi, wd = JQuery.knn(jnp.asarray(fine[b]), jnp.asarray(coarse[b]), 3)
+        _eq(idx[b], wi)
+        _eq(dist[b], wd)
+        ww = JQuery.three_nn_interpolate_weights(wd)
+        _eq(w[b], ww)
+        _eq(out[b], JGroup.interpolate_features(jnp.asarray(feats[b]), wi, ww))
 
 
 # -- SC quantization ------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Each CUDA kernel against its plain PyTorch version on the card, bitwise, at
-the main-path shapes of a full-width pointnet2-cls forward over 8 clouds of
-1024 points, and at ragged sizes that exercise the kernels' other paths.
+the main-path shapes of full-width forwards over 8 clouds (pointnet2-cls:
+1024 points; pointnet2-seg: 4096 points, whose FP stages run the knn3
+kernel), at the flat lattice query's shapes, and at ragged sizes that
+exercise the kernels' other paths.
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test skips where
 torch.cuda.is_available() is false.  On the card:
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.configs.pointnet2_cls import CONFIG
+from repro_torch.configs.pointnet2_seg import CONFIG as SEG_CONFIG
 from repro_torch.core.accelerator import get_accelerator
 from repro_torch.core.engine import clamp_depth
 from repro_torch.core.policy import ExecutionPolicy
@@ -22,8 +25,11 @@ from repro_torch.kernels import registry
 from repro_torch.kernels.fps.kernel import fps_tiles_cuda
 from repro_torch.kernels.fps.ops import fps_tiles
 from repro_torch.kernels.fps.ref import fps_tiles_plain
-from repro_torch.kernels.lattice.kernel import lattice_tiles_cuda
-from repro_torch.kernels.lattice.ref import lattice_tiles_plain
+from repro_torch.kernels.knn3.kernel import knn3_cuda
+from repro_torch.kernels.knn3.ops import knn3
+from repro_torch.kernels.knn3.ref import knn3_plain
+from repro_torch.kernels.lattice.kernel import lattice_query_cuda, lattice_tiles_cuda
+from repro_torch.kernels.lattice.ref import lattice_query_plain, lattice_tiles_plain
 from repro_torch.kernels.sc_matmul.kernel import sc_matmul_cuda
 from repro_torch.kernels.sc_matmul.ref import sc_matmul_plain
 
@@ -39,6 +45,18 @@ def _preprocess_shapes():
         shapes.append((BATCH << depth, n >> depth, sa.n_centroids >> depth, sa.radius, sa.nsample))
         n = sa.n_centroids
     return shapes
+
+
+def _seg_fp_shapes():
+    """(B, Q, P) of each FP stage's 3-NN for BATCH seg clouds, coarsest first."""
+    sizes = [SEG_CONFIG.n_points] + [sa.n_centroids for sa in SEG_CONFIG.sa]
+    return [(BATCH, sizes[i - 1], sizes[i]) for i in range(len(sizes) - 1, 0, -1)]
+
+
+def _seg_n_linears():
+    """Dense layers of one seg forward: SA MLPs, FP MLPs (two layers each), head."""
+    return (sum(len(sa.mlp) for sa in SEG_CONFIG.sa) + 2 * len(SEG_CONFIG.sa)
+            + len(SEG_CONFIG.head) + 1)
 
 
 def _linear_shapes():
@@ -77,6 +95,8 @@ def _tiles(t, p, device, seed=0, snapped=False):
 def test_main_path_shapes():
     assert [s[:3] for s in _preprocess_shapes()] == [(32, 256, 64), (32, 64, 16)]
     assert len(_linear_shapes()) == 12 and _linear_shapes()[0] == (8192, 3, 64)
+    assert _seg_fp_shapes() == [(8, 1024, 256), (8, 4096, 1024)]
+    assert _seg_n_linears() == 12
 
 
 @pytest.mark.parametrize("stage", [0, 1])
@@ -159,7 +179,62 @@ def test_forward_launches_each_kernel(cuda):
         logits = accel.infer(params, pts)
         torch.cuda.synchronize()
         assert logits.shape == (BATCH, CONFIG.n_classes) and bool(torch.isfinite(logits).all())
-        assert registry.launches() == {"fps_tiles": 2, "lattice_tiles": 2, "sc_matmul": n_sc}
+        assert registry.launches() == {"fps_tiles": 2, "lattice_tiles": 2, "sc_matmul": n_sc,
+                                       "knn3": 0, "lattice_query": 0}
+
+
+def test_seg_forward_launches_each_kernel(cuda):
+    """A full-width seg forward: 2 FPS, 2 lattice and 2 knn3 launches (+12 SC)."""
+    params = get_accelerator(SEG_CONFIG, device=cuda).init(torch.Generator().manual_seed(0))
+    pts = np.random.default_rng(1).uniform(-1, 1, (BATCH, SEG_CONFIG.n_points, 3))
+    for quant, n_sc in (("none", 0), ("sc_w16a16", _seg_n_linears())):
+        accel = get_accelerator(SEG_CONFIG, ExecutionPolicy(quant=quant), device=cuda)
+        registry.reset_launches()
+        logits = accel.infer(params, pts.astype(np.float32))
+        torch.cuda.synchronize()
+        assert logits.shape == (BATCH, SEG_CONFIG.n_points, SEG_CONFIG.n_classes)
+        assert bool(torch.isfinite(logits).all())
+        assert registry.launches() == {"fps_tiles": 2, "lattice_tiles": 2, "sc_matmul": n_sc,
+                                       "knn3": 2, "lattice_query": 0}
+
+
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("metric", ["l1", "l2"])
+@pytest.mark.parametrize("snapped", [False, True])
+def test_knn3_kernel_matches_plain(cuda, stage, metric, snapped):
+    """Seg FP shapes; the queries contain every reference point (self-matches)."""
+    b, q, p = _seg_fp_shapes()[stage]
+    queries = _tiles(b, q, cuda, seed=20 + stage, snapped=snapped)
+    points = queries[:, ::q // p].contiguous()
+    got = knn3_cuda(queries, points, k=3, metric=metric)
+    torch.cuda.synchronize()
+    want = knn3_plain(queries, points, k=3, metric=metric)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("b,q,p,k", [(1, 1, 5, 5), (3, 130, 1, 1), (2, 1000, 2500, 8),
+                                     (1, 129, 1024, 3), (5, 77, 1025, 2)])
+def test_knn3_kernel_ragged_sizes(cuda, b, q, p, k):
+    queries = _tiles(b, q, cuda, seed=q, snapped=True)
+    points = _tiles(b, p, cuda, seed=p + 1, snapped=True)
+    for metric in ("l1", "l2"):
+        got = knn3_cuda(queries, points, k=k, metric=metric)
+        want = knn3_plain(queries, points, k=k, metric=metric)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("p,m,radius,ns", [(2048, 64, 0.3, 16), (4096, 1024, 0.2, 32),
+                                           (200, 50, 0.5, 8)])
+@pytest.mark.parametrize("snapped", [False, True])
+def test_lattice_query_kernel_matches_plain(cuda, p, m, radius, ns, snapped):
+    """The flat query at the example's shapes, at a seg-sized set and a ragged one."""
+    pts = _tiles(1, p, cuda, seed=p, snapped=snapped)[0]
+    cents = pts[:: p // m][:m].contiguous()
+    l_range = float(radius * 1.6)
+    got = lattice_query_cuda(pts, cents, nsample=ns, l_range=l_range)
+    torch.cuda.synchronize()
+    want = lattice_query_plain(pts, cents, nsample=ns, l_range=l_range)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -177,3 +252,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         sc_matmul_cuda(x, x, n_planes=5)
     with pytest.raises(ValueError):
         sc_matmul_cuda(x.float(), x)
+    with pytest.raises(ValueError, match="xla"):
+        knn3(pts, pts, backend="xla")
+    with pytest.raises(ValueError):
+        knn3_cuda(pts.double(), pts.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        knn3_cuda(pts.transpose(1, 2).contiguous().transpose(1, 2), pts)
+    with pytest.raises(ValueError):
+        knn3_cuda(pts, pts, k=9)
+    with pytest.raises(ValueError):
+        knn3_cuda(pts, pts[:, :2].contiguous(), k=3)
+    with pytest.raises(ValueError):
+        lattice_query_cuda(pts, pts, nsample=4, l_range=0.5)  # 3-D: use the per-tile wrapper

@@ -1,5 +1,8 @@
 """Port parity, kernels: each plain PyTorch version against the JAX package's
-Pallas kernel (interpret mode, tiny shapes) and XLA reference, bitwise; the
+Pallas kernel (interpret mode, tiny shapes) and XLA reference, bitwise
+(indices and masks; knn3's distances are bitwise against the XLA oracle,
+whose coordinate sum the port repeats, and within rtol 1e-6 of the Pallas
+kernel's own reduction); the
 registry's device dispatch and launch counters; the CUDA wrappers' refusals
 on the CPU; and the nvcc build's command line.  The CUDA kernels themselves
 run only on a card (tests/test_torch_gpu.py, chip_smoke.py)."""
@@ -11,6 +14,9 @@ import pytest
 import torch
 
 from repro.kernels.fps.ops import fps_tiles as j_fps_tiles
+from repro.kernels.knn3.ops import knn3 as j_knn3
+from repro.kernels.knn3.ref import knn3_ref as j_knn3_ref
+from repro.kernels.lattice.ops import lattice_query_fused as j_lattice_fused
 from repro.kernels.lattice.ops import lattice_query_tiles as j_lattice_tiles
 from repro.kernels.sc_matmul.ops import sc_matmul_op as j_sc_matmul_op
 from repro.kernels.sc_matmul.ops import sc_quantized_linear as j_sc_linear
@@ -18,8 +24,10 @@ from repro_torch.kernels import build, registry
 from repro_torch.kernels.fps.kernel import fps_tiles_cuda
 from repro_torch.kernels.fps.ops import fps_tiles
 from repro_torch.kernels.fps.ref import fps_tiles_plain
-from repro_torch.kernels.lattice.kernel import lattice_tiles_cuda
-from repro_torch.kernels.lattice.ops import lattice_query_tiles
+from repro_torch.kernels.knn3.kernel import MAX_K, knn3_cuda
+from repro_torch.kernels.knn3.ops import knn3
+from repro_torch.kernels.lattice.kernel import lattice_query_cuda, lattice_tiles_cuda
+from repro_torch.kernels.lattice.ops import lattice_query_fused, lattice_query_tiles
 from repro_torch.kernels.sc_matmul.kernel import sc_matmul_cuda
 from repro_torch.kernels.sc_matmul.ops import sc_matmul_op, sc_quantized_linear
 
@@ -77,6 +85,102 @@ def test_lattice_plain_matches_reference_any_tile_size():
     np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
 
 
+@pytest.mark.parametrize("m,p,ns", [(4, 128, 8), (16, 256, 16), (128, 512, 32)])
+@pytest.mark.parametrize("snapped", [False, True])
+def test_lattice_fused_plain_matches_pallas_interpret(m, p, ns, snapped):
+    """The flat query at tests/test_kernels.py's shapes, and on a tie-heavy cloud."""
+    pts = _tiles(1, p, seed=p, snapped=snapped)[0]
+    cents = pts[:m].copy()
+    want = j_lattice_fused(jnp.asarray(pts), jnp.asarray(cents), 0.4, ns,
+                           backend="pallas", interpret=True)
+    got = lattice_query_fused(torch.from_numpy(pts), torch.from_numpy(cents), 0.4, ns)
+    assert got.idx.shape == (m, ns) and got.idx.dtype == torch.int32
+    np.testing.assert_array_equal(got.idx.numpy(), np.asarray(want.idx))
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+
+
+def test_lattice_fused_plain_non_multiple_shapes():
+    pts = _tiles(1, 200, seed=11)[0]
+    cents = pts[:50].copy()
+    for backend in ("pallas", "xla"):
+        want = j_lattice_fused(jnp.asarray(pts), jnp.asarray(cents), 0.5, 8,
+                               backend=backend, interpret=True)
+        got = lattice_query_fused(torch.from_numpy(pts), torch.from_numpy(cents), 0.5, 8)
+        np.testing.assert_array_equal(got.idx.numpy(), np.asarray(want.idx))
+        np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    with pytest.raises(ValueError):
+        lattice_query_fused(torch.from_numpy(pts)[None], torch.from_numpy(cents), 0.5, 8)
+
+
+# -- knn3 -------------------------------------------------------------------------
+
+
+def _knn_inputs(q, p, seed, snapped):
+    qs = _tiles(1, q, seed=seed, snapped=snapped)[0]
+    pts = _tiles(1, p, seed=seed + 1, snapped=snapped)[0]
+    return qs, pts
+
+
+def _check_knn(qs, pts, k, metric):
+    """Port vs the XLA oracle (indices and distances bitwise) and vs the Pallas
+    kernel in interpret mode (indices bitwise; distances at rtol 1e-6, since
+    that kernel reduces the squared terms with its own jnp.sum over a
+    (bq, 3, P) block and lands one ulp off on some L2 distances)."""
+    gi, gd = knn3(torch.from_numpy(qs)[None], torch.from_numpy(pts)[None], k=k, metric=metric)
+    gi, gd = gi[0], gd[0]
+    assert gi.shape == (qs.shape[0], k) and gi.dtype == torch.int32 and gd.dtype == torch.float32
+    ri, rd = j_knn3_ref(jnp.asarray(qs), jnp.asarray(pts).T, k=k, metric=metric)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(rd))
+    pi, pd = j_knn3(jnp.asarray(qs), jnp.asarray(pts), k=k, metric=metric,
+                    backend="pallas", interpret=True)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(pi))
+    np.testing.assert_allclose(gd.numpy(), np.asarray(pd), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2"])
+@pytest.mark.parametrize("q,p", [(8, 128), (64, 256), (100, 200)])
+@pytest.mark.parametrize("snapped", [False, True])
+def test_knn3_plain_matches_pallas_interpret(metric, q, p, snapped):
+    _check_knn(*_knn_inputs(q, p, seed=q, snapped=snapped), 3, metric)
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2"])
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_knn3_plain_k_sweep(metric, k):
+    _check_knn(*_knn_inputs(16, 128, seed=1, snapped=True), k, metric)
+
+
+@pytest.mark.parametrize("q,p", [(1, 100), (5, 130), (7, 128), (13, 257), (261, 129), (300, 640)])
+def test_knn3_plain_odd_shapes(q, p):
+    _check_knn(*_knn_inputs(q, p, seed=q, snapped=False), 3, "l2")
+
+
+def test_knn3_batched_equals_per_cloud():
+    """(B, Q, 3) x (B, P, 3) is B independent clouds, indices local to each."""
+    qs = torch.from_numpy(_tiles(3, 40, seed=5, snapped=True))
+    pts = torch.from_numpy(_tiles(3, 70, seed=6, snapped=True))
+    idx, dist = knn3(qs, pts)
+    assert idx.shape == (3, 40, 3)
+    for b in range(3):
+        ib, db = knn3(qs[b:b + 1], pts[b:b + 1])
+        assert torch.equal(idx[b], ib[0]) and torch.equal(dist[b], db[0])
+    with pytest.raises(ValueError):
+        knn3(qs[0], pts[0])  # one cloud is (1, Q, 3)
+
+
+def test_knn3_rejects_bad_shapes():
+    q, p = torch.zeros(2, 5, 3), torch.zeros(2, 4, 3)
+    with pytest.raises(ValueError):
+        knn3(q, p, k=5)  # more neighbours than points
+    with pytest.raises(ValueError):
+        knn3(q, p, k=0)
+    with pytest.raises(ValueError):
+        knn3(q, torch.zeros(3, 4, 3))
+    with pytest.raises(ValueError):
+        knn3(q, p, metric="cos")
+
+
 # -- SC matmul ---------------------------------------------------------------------
 
 
@@ -115,7 +219,8 @@ def test_sc_matmul_op_rejects_bad_bits():
 
 def test_registry_dispatch_by_device():
     x = torch.zeros(2, 4, 3)
-    assert set(registry.names()) >= {"fps_tiles", "lattice_tiles", "sc_matmul"}
+    assert set(registry.names()) >= {"fps_tiles", "lattice_tiles", "lattice_query",
+                                     "sc_matmul", "knn3"}
     for backend in (None, "auto", "pallas", "xla"):
         assert registry.dispatch("fps_tiles", x, backend) is fps_tiles_plain
     with pytest.raises(ValueError):
@@ -130,6 +235,8 @@ def test_plain_versions_do_not_count_launches():
     registry.reset_launches()
     fps_tiles(torch.from_numpy(_tiles(2, 16)), 4)
     lattice_query_tiles(torch.from_numpy(_tiles(2, 16)), torch.zeros(2, 3, 3), 0.5, 4)
+    lattice_query_fused(torch.from_numpy(_tiles(1, 16)[0]), torch.zeros(3, 3), 0.5, 4)
+    knn3(torch.zeros(2, 5, 3), torch.from_numpy(_tiles(2, 16)))
     assert registry.launches() == {name: 0 for name in registry.names()}
     registry.count_launch("fps_tiles")
     assert registry.launches()["fps_tiles"] == 1
@@ -145,7 +252,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         lattice_tiles_cuda(pts, torch.zeros(2, 2, 3), nsample=4, l_range=0.5)
     with pytest.raises(ValueError, match="CUDA"):
+        lattice_query_cuda(pts[0], torch.zeros(2, 3), nsample=4, l_range=0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        knn3_cuda(pts, pts)
+    with pytest.raises(ValueError, match="CUDA"):
         sc_matmul_cuda(torch.zeros(2, 2, dtype=torch.int32), torch.zeros(2, 2, dtype=torch.int32))
+    assert MAX_K >= 5  # the reference's tests sweep k = 1, 3, 5
     with pytest.raises(ValueError):
         registry.require_cuda_tensor(torch.zeros(3), "x", torch.float32, 1)
 

@@ -209,13 +209,13 @@ def test_default_device_is_the_card():
 
 def test_init_is_seeded_and_config_checked():
     cfg = get_config("pointnet2-cls", smoke=True)
-    a = TPN.init_params(cfg, torch.Generator().manual_seed(7))
-    b = TPN.init_params(cfg, torch.Generator().manual_seed(7))
+    a = TPN.init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    b = TPN.init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
     for pa, pb in zip(a.parameters(), b.parameters()):
         assert torch.equal(pa, pb)
     assert get_config("pointnet2-cls").n_points == 1024
     with pytest.raises(KeyError):
-        get_config("pointnet2-seg")
-    for change in ({"task": "seg"}, {"aggregation": "standard"}, {"preproc": "baseline1"}):
+        get_config("pointnet2-part")
+    for change in ({"task": "part"}, {"aggregation": "standard"}, {"preproc": "baseline1"}):
         with pytest.raises(ValueError, match="not ported"):
             TA.PC2IMAccelerator(cfg.__class__(**{**cfg.__dict__, **change}), device="cpu")
