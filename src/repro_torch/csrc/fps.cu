@@ -8,21 +8,27 @@
 // summed in that order with round-to-nearest intrinsics so no FMA
 // contraction changes a bit against the plain version.
 //
-// Bound on an H100 SXM: at the main-path shapes (8 clouds of 1024 points:
-// T=32 tiles, P=256, k=64; then P=64, k=16) the work is ~10 f32 operations
-// per point per step (5.2 Mop for stage 1) and ~100 KB of traffic, well
-// under a microsecond at 67 TFLOP/s or 3.35 TB/s.  What sets the time is the
-// chain of k dependent block-wide argmax reductions, i.e. latency.
+// Bound on an H100 SXM: at the main-path shapes (cls: T=32 tiles of P=256,
+// k=64, then P=64, k=16; seg: T=64 of P=512, k=128, then P=128, k=32) the
+// work is ~10 f32 operations per point per step and ~100-400 KB of traffic,
+// well under a microsecond at 67 TFLOP/s or 3.35 TB/s.  What sets the time
+// is the chain of k dependent argmax reductions, i.e. the latency of a step.
 //
-// Design: one block per tile.  Each thread keeps its points and their dmin
-// in registers for the whole loop (ITEMS points a thread, strided so that
-// index order matches thread-then-item order); the tile's coordinates are
-// also staged once in shared memory so every thread can read the last
-// sample's coordinates with one broadcast load.  A step is a register
-// min-update, a warp-shuffle argmax, one __syncthreads, and a redundant
-// per-warp reduction of the per-warp winners from a double-buffered shared
-// array, which removes the second barrier.  Ties go to the lower index; no
-// atomics, so the result is deterministic.
+// Design, P <= 1024 (every main-path tile): one warp a tile, several tiles
+// (warps) a block only when the tiles outnumber the SMs.  Each lane keeps
+// its points (index lane + 32 j) and their dmin in registers; the warp's
+// copy of the tile in shared memory serves the last sample's coordinates as
+// one broadcast load.  A step is a register min-update of every point, a
+// branch-free tree over the lane's own points for its largest dmin and the
+// lowest index holding it, then two redux.sync instructions: the max of the
+// lanes' dmin bits (non-negative floats order like their bits read as int),
+// then the min index over the lanes holding it.  A missing point keeps
+// dmin = -1, whose bits are negative, so it never wins, not even a tie at a
+// dmin of 0.  No block barrier in the loop.
+// P > 1024: one block a tile, a warp-shuffle argmax, one __syncthreads a
+// step and a redundant per-warp reduction of the per-warp winners from a
+// double-buffered shared array, which removes the second barrier.  Ties go
+// to the lower index everywhere; no atomics, so the result is deterministic.
 #include <climits>
 
 #include "pc2im_capi.cuh"
@@ -47,6 +53,87 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
       i = oi;
     }
   }
+}
+
+// Halve W pairs of (value, index) entries, each covering a run of
+// consecutive j: entry j takes the larger of entries 2j and 2j+1, the lower
+// run on a tie; then the next level.  Indices are compile-time constants, so
+// the arrays stay in registers.
+template <int W>
+__device__ __forceinline__ void pair_tree(float* bv, int* bi) {
+  if constexpr (W >= 1) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const bool hi = bv[2 * j + 1] > bv[2 * j];
+      bi[j] = hi ? bi[2 * j + 1] : bi[2 * j];
+      bv[j] = fmaxf(bv[2 * j], bv[2 * j + 1]);
+    }
+    pair_tree<W / 2>(bv, bi);
+  }
+}
+
+// One warp a tile, J = points a lane (32 J >= P); tiles past T are absent.
+template <int J, bool L1>
+__global__ void __launch_bounds__(128) fps_warp_kernel(const float* __restrict__ points,
+                                                       int* __restrict__ out, int T, int P,
+                                                       int k) {
+  extern __shared__ float smem[];  // per warp: xs[P], ys[P], zs[P]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (tile >= T) return;  // the whole warp; nothing below waits on the block
+  float* xs = smem + warp * 3 * P;
+  float* ys = xs + P;
+  float* zs = ys + P;
+  const float* tp = points + static_cast<size_t>(tile) * P * 3;
+  int* to = out + static_cast<size_t>(tile) * k;
+  for (int e = lane; e < 3 * P; e += 32) {
+    const float v = tp[e];
+    const int i = e / 3, c = e - 3 * i;
+    (c == 0 ? xs : c == 1 ? ys : zs)[i] = v;
+  }
+  __syncwarp();
+
+  // A missing point (index >= P) keeps dmin = -1: min(-1, d) stays -1, and
+  // its bits read as int are negative, below every real dmin's.
+  float px[J], py[J], pz[J], dmin[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int i = lane + 32 * j;
+    const bool ok = i < P;
+    px[j] = ok ? xs[i] : 0.f;
+    py[j] = ok ? ys[i] : 0.f;
+    pz[j] = ok ? zs[i] : 0.f;
+    dmin[j] = ok ? kBig : -1.f;
+  }
+
+  int last = 0;
+#pragma unroll 1  // kept rolled: unrolled, the 16-point step ran several times slower
+  for (int s = 1; s < k; ++s) {
+    if (lane == 0) to[s - 1] = last;
+    const float lx = xs[last], ly = ys[last], lz = zs[last];
+    // The lane's largest dmin and its lowest index, by a branch-free tree.
+    float bv[J];
+    int bi[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float dx = px[j] - lx, dy = py[j] - ly, dz = pz[j] - lz;
+      float d;
+      if (L1) {
+        d = __fadd_rn(__fadd_rn(fabsf(dx), fabsf(dy)), fabsf(dz));
+      } else {
+        d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      }
+      dmin[j] = fminf(dmin[j], d);
+      bv[j] = dmin[j];
+      bi[j] = lane + 32 * j;
+    }
+    pair_tree<J / 2>(bv, bi);
+    // Then the warp's: the max of the dmin bits (non-negative floats order
+    // like their bits read as int), and the lowest index holding it.
+    const int best = __reduce_max_sync(kFull, __float_as_int(bv[0]));
+    last = __reduce_min_sync(kFull, __float_as_int(bv[0]) == best ? bi[0] : INT_MAX);
+  }
+  if (lane == 0) to[k - 1] = last;
 }
 
 template <int ITEMS, bool L1>
@@ -143,10 +230,32 @@ cudaError_t launch(const float* points, int* out, int T, int P, int k,
   return cudaGetLastError();
 }
 
+template <int J, bool L1>
+cudaError_t launch_warps(const float* points, int* out, int T, int P, int k,
+                         cudaStream_t stream) {
+  // One warp a block while the tiles fit on the SMs, up to 4 beyond that.
+  const int per_block = T >= 4 * 132 ? 4 : (T >= 2 * 132 ? 2 : 1);
+  const size_t smem = static_cast<size_t>(per_block) * 3 * P * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fps_warp_kernel<J, L1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (T + per_block - 1) / per_block;
+  fps_warp_kernel<J, L1><<<blocks, 32 * per_block, smem, stream>>>(points, out, T, P, k);
+  return cudaGetLastError();
+}
+
 template <bool L1>
-cudaError_t dispatch_items(const float* points, int* out, int T, int P, int k,
-                           cudaStream_t stream) {
-  if (P <= 1024) return launch<1, L1>(points, out, T, P, k, stream);
+cudaError_t dispatch(const float* points, int* out, int T, int P, int k,
+                     cudaStream_t stream) {
+  if (P <= 32) return launch_warps<1, L1>(points, out, T, P, k, stream);
+  if (P <= 64) return launch_warps<2, L1>(points, out, T, P, k, stream);
+  if (P <= 128) return launch_warps<4, L1>(points, out, T, P, k, stream);
+  if (P <= 256) return launch_warps<8, L1>(points, out, T, P, k, stream);
+  if (P <= 512) return launch_warps<16, L1>(points, out, T, P, k, stream);
+  if (P <= 1024) return launch_warps<32, L1>(points, out, T, P, k, stream);
   if (P <= 2048) return launch<2, L1>(points, out, T, P, k, stream);
   if (P <= 4096) return launch<4, L1>(points, out, T, P, k, stream);
   return launch<8, L1>(points, out, T, P, k, stream);
@@ -163,7 +272,7 @@ PC2IM_API int pc2im_fps_tiles(int device, const float* points, int* out, int T,
   if (dev_err != 0) return dev_err;
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = metric_l1
-                              ? dispatch_items<true>(points, out, T, P, k, s)
-                              : dispatch_items<false>(points, out, T, P, k, s);
+                              ? dispatch<true>(points, out, T, P, k, s)
+                              : dispatch<false>(points, out, T, P, k, s);
   return static_cast<int>(err);
 }

@@ -23,6 +23,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -115,6 +116,51 @@ def build_log(name: str) -> str:
     """ptxas/nvcc output of the current build of `csrc/<name>.cu` ('' if none)."""
     log = library_path(name, nvcc_path()).with_suffix(".log")
     return log.read_text() if log.is_file() else ""
+
+
+def kernel_label(mangled: str) -> str:
+    """`sc_matmul_kernel<4,1,1>` for a mangled kernel of this package's sources
+    (a function in an anonymous namespace, with int and bool template
+    arguments); any other name comes back as it is."""
+    names, pos = [], 3  # after "_ZN": length-prefixed names
+    while mangled.startswith("_ZN") and (m := re.match(r"\d+", mangled[pos:])):
+        pos += m.end()
+        names.append(mangled[pos:pos + int(m.group())])
+        pos += int(m.group())
+    names = [n for n in names if not n.startswith("_GLOBAL__N")]
+    if not names:
+        return mangled
+    rest = mangled[pos:]
+    if not rest.startswith("I"):
+        return names[-1]
+    args = re.findall(r"L[ib](\d+)E", rest[:rest.find("EE") + 2])
+    return f"{names[-1]}<{','.join(args)}>"
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Per-kernel registers, static shared memory, stack and spills from ptxas -v output."""
+    entries: list[dict] = []
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": kernel_label(m.group(1)), "registers": None, "smem_bytes": 0,
+                   "stack_bytes": None, "spill_stores": None, "spill_loads": None}
+            entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["stack_bytes"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem_bytes"] = int(m.group(1))
+    return entries
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -26,7 +26,8 @@ def _entry():
 def fps_tiles_cuda(points: torch.Tensor, k: int, *, metric: str = "l1") -> torch.Tensor:
     """points: (T, P, 3) float32 CUDA -> (T, k) int32 local indices.
 
-    One block per tile, launched on the current stream; nothing synchronises.
+    One warp per tile up to 1024 points (32 a lane), one block per tile
+    beyond; launched on the current stream; nothing synchronises.
     """
     registry.require_cuda_tensor(points, "points", torch.float32, 3)
     t, p, three = points.shape

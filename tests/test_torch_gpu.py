@@ -37,11 +37,11 @@ pytestmark = pytest.mark.gpu
 BATCH = 8
 
 
-def _preprocess_shapes():
+def _preprocess_shapes(cfg=CONFIG):
     """(T, P, k, radius, nsample) of each SA stage's kernels for BATCH clouds."""
-    shapes, n = [], CONFIG.n_points
-    for sa in CONFIG.sa:
-        depth = clamp_depth(n, sa.n_centroids, CONFIG.msp_depth)
+    shapes, n = [], cfg.n_points
+    for sa in cfg.sa:
+        depth = clamp_depth(n, sa.n_centroids, cfg.msp_depth)
         shapes.append((BATCH << depth, n >> depth, sa.n_centroids >> depth, sa.radius, sa.nsample))
         n = sa.n_centroids
     return shapes
@@ -59,8 +59,31 @@ def _seg_n_linears():
             + len(SEG_CONFIG.head) + 1)
 
 
+def _seg_linear_shapes():
+    """(M, K, N) of every dense layer of one seg forward over BATCH clouds: the SA
+    MLPs, the FP MLPs (coarsest first; [interpolated, skip] -> cout -> cout), the head."""
+    shapes, sizes, c_in = [], [SEG_CONFIG.n_points], 3
+    for sa in SEG_CONFIG.sa:
+        for c in sa.mlp:
+            shapes.append((BATCH * sizes[-1], c_in, c))
+            c_in = c
+        sizes.append(sa.n_centroids)
+        c_in += 3
+    skips = [3] + [sa.mlp[-1] for sa in SEG_CONFIG.sa[:-1]]
+    c_coarse = SEG_CONFIG.sa[-1].mlp[-1]
+    for i, skip in enumerate(reversed(skips)):
+        cout = SEG_CONFIG.fp_mlp[min(i, len(SEG_CONFIG.fp_mlp) - 1)]
+        m = BATCH * sizes[len(skips) - 1 - i]
+        shapes += [(m, c_coarse + skip, cout), (m, cout, cout)]
+        c_coarse = cout
+    for c in (*SEG_CONFIG.head, SEG_CONFIG.n_classes):
+        shapes.append((BATCH * SEG_CONFIG.n_points, c_coarse, c))
+        c_coarse = c
+    return shapes
+
+
 def _linear_shapes():
-    """(M, K, N) of every dense layer of one forward over BATCH clouds."""
+    """(M, K, N) of every dense layer of one cls forward over BATCH clouds."""
     shapes, n, c_in = [], CONFIG.n_points, 3
     for sa in CONFIG.sa:
         for c in sa.mlp:
@@ -94,28 +117,46 @@ def _tiles(t, p, device, seed=0, snapped=False):
 
 def test_main_path_shapes():
     assert [s[:3] for s in _preprocess_shapes()] == [(32, 256, 64), (32, 64, 16)]
+    assert [s[:3] for s in _preprocess_shapes(SEG_CONFIG)] == [(64, 512, 128), (64, 128, 32)]
     assert len(_linear_shapes()) == 12 and _linear_shapes()[0] == (8192, 3, 64)
     assert _seg_fp_shapes() == [(8, 1024, 256), (8, 4096, 1024)]
-    assert _seg_n_linears() == 12
+    assert _seg_n_linears() == len(_seg_linear_shapes()) == 12
+    assert _seg_linear_shapes()[6:9] == [(8192, 384, 256), (8192, 256, 256), (32768, 259, 128)]
+    assert _seg_linear_shapes()[-1] == (32768, 128, 8)
 
 
+@pytest.mark.parametrize("model", ["cls", "seg"])
 @pytest.mark.parametrize("stage", [0, 1])
 @pytest.mark.parametrize("metric", ["l1", "l2"])
 @pytest.mark.parametrize("snapped", [False, True])
-def test_fps_kernel_matches_plain(cuda, stage, metric, snapped):
-    t, p, k, _, _ = _preprocess_shapes()[stage]
+def test_fps_kernel_matches_plain(cuda, model, stage, metric, snapped):
+    t, p, k, _, _ = _preprocess_shapes(CONFIG if model == "cls" else SEG_CONFIG)[stage]
     pts = _tiles(t, p, cuda, seed=stage, snapped=snapped)
     got = fps_tiles_cuda(pts, k, metric=metric)
     torch.cuda.synchronize()
     assert torch.equal(got, fps_tiles_plain(pts, k, metric=metric))
 
 
-@pytest.mark.parametrize("p,k", [(1000, 40), (3000, 24), (8192, 8), (5, 5)])
-def test_fps_kernel_ragged_tile_sizes(cuda, p, k):
-    pts = _tiles(3, p, cuda, seed=p, snapped=True)
-    got = fps_tiles_cuda(pts, k)
+@pytest.mark.parametrize("t,p,k", [(3, 1000, 40), (3, 3000, 24), (3, 8192, 8), (3, 5, 5),
+                                   (3, 1024, 64), (3, 1025, 64), (600, 64, 16), (300, 33, 8)])
+def test_fps_kernel_ragged_tile_sizes(cuda, t, p, k):
+    """Either side of the one-warp-a-tile limit (P = 1024), and the tile counts
+    at which a block takes 4 and 2 tiles."""
+    pts = _tiles(t, p, cuda, seed=p, snapped=True)
+    for metric in ("l1", "l2"):
+        got = fps_tiles_cuda(pts, k, metric=metric)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fps_tiles_plain(pts, k, metric=metric))
+
+
+@pytest.mark.parametrize("p", [100, 1024, 2000])
+def test_fps_kernel_identical_points(cuda, p):
+    """Every dmin ties at 0 after the first step: the first index wins each time."""
+    pts = torch.full((2, p, 3), 0.25, device=cuda)
+    got = fps_tiles_cuda(pts, 9)
     torch.cuda.synchronize()
-    assert torch.equal(got, fps_tiles_plain(pts, k))
+    assert torch.equal(got, fps_tiles_plain(pts, 9))
+    assert not got.any()
 
 
 @pytest.mark.parametrize("stage", [0, 1])
@@ -150,9 +191,10 @@ def _int_operands(m, k, n, bits, device, seed=0):
     return torch.from_numpy(x).to(device), torch.from_numpy(w).to(device)
 
 
-@pytest.mark.parametrize("shape", _linear_shapes())
+@pytest.mark.parametrize("shape", _linear_shapes() + _seg_linear_shapes())
 @pytest.mark.parametrize("bits", [16, 8])
 def test_sc_matmul_kernel_matches_plain(cuda, shape, bits):
+    """Every dense layer of the cls and the seg forward; the cls head splits K."""
     m, k, n = shape
     x, w = _int_operands(m, k, n, bits, cuda, seed=m + k + n)
     got = sc_matmul_cuda(x, w, n_planes=bits // 4)
@@ -160,14 +202,34 @@ def test_sc_matmul_kernel_matches_plain(cuda, shape, bits):
     assert torch.equal(got, sc_matmul_plain(x, w, n_planes=bits // 4))
 
 
-@pytest.mark.parametrize("m,k,n,bits", [(33, 70, 17, 16), (1, 1, 1, 16), (100, 37, 65, 12), (7, 9, 3, 4)])
+@pytest.mark.parametrize("m,k,n,bits", [(33, 70, 17, 16), (1, 1, 1, 16), (100, 37, 65, 12),
+                                        (7, 9, 3, 4), (1, 1024, 64, 16), (8, 1024, 1024, 16),
+                                        (16, 1024, 1024, 8), (8, 1000, 517, 12), (16, 131, 259, 16),
+                                        (65, 1024, 33, 16), (1100, 70, 17, 16), (2000, 1024, 64, 8)])
 def test_sc_matmul_kernel_ragged_sizes(cuda, m, k, n, bits):
+    """Ragged edges, unaligned x rows and 4-byte w copies (K or N not a multiple of
+    4), split K (M <= 64), w kept resident with a ragged N (M >= 1024) and a K too
+    deep for it."""
     x, w = _int_operands(m, k, n, bits, cuda, seed=m)
     got = sc_matmul_cuda(x, w, n_planes=bits // 4)
     assert torch.equal(got, sc_matmul_plain(x, w, n_planes=bits // 4))
     exact = (x.cpu().to(torch.int64) @ w.cpu().to(torch.int64)).double()
     # the f32 combine rounds: relative to the largest entry, as the reference's tests
     assert (got.cpu().double() - exact).abs().max() <= 1e-6 * exact.abs().max()
+
+
+@pytest.mark.parametrize("value", [-(1 << 15), (1 << 15) - 1])
+@pytest.mark.parametrize("m", [8, 100])
+def test_sc_matmul_kernel_extreme_operands(cuda, value, m):
+    """Every operand at one end of the 16-bit range, K = 1024: the largest
+    diagonal sums (with and without split K) stay exact."""
+    x = torch.full((m, 1024), value, dtype=torch.int32, device=cuda)
+    w = torch.full((1024, 96), value, dtype=torch.int32, device=cuda)
+    got = sc_matmul_cuda(x, w, n_planes=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc_matmul_plain(x, w, n_planes=4))
+    exact = float(value * value * 1024)
+    assert (got.double() - exact).abs().max() <= 1e-6 * exact
 
 
 def test_forward_launches_each_kernel(cuda):

@@ -185,11 +185,13 @@ def test_knn3_rejects_bad_shapes():
 
 
 @pytest.mark.parametrize("bits", [16, 8])
-def test_sc_matmul_plain_matches_pallas_interpret(bits):
+@pytest.mark.parametrize("m,k,n", [(16, 64, 32), (16, 131, 32), (8, 384, 16)])
+def test_sc_matmul_plain_matches_pallas_interpret(bits, m, k, n):
+    """K a multiple of 32, a ragged K (the kernel zero-pads it) and a deep one."""
     lim = 1 << (bits - 1)
-    rng = np.random.default_rng(bits)
-    x = rng.integers(-lim, lim, (16, 64), dtype=np.int32)
-    w = rng.integers(-lim, lim, (64, 32), dtype=np.int32)
+    rng = np.random.default_rng(bits + k)
+    x = rng.integers(-lim, lim, (m, k), dtype=np.int32)
+    w = rng.integers(-lim, lim, (k, n), dtype=np.int32)
     want = j_sc_matmul_op(jnp.asarray(x), jnp.asarray(w), bits=bits, backend="pallas",
                           interpret=True)
     got = sc_matmul_op(torch.from_numpy(x), torch.from_numpy(w), bits=bits)
@@ -206,6 +208,65 @@ def test_sc_quantized_linear_bitwise(bits, lead):
     got = sc_quantized_linear(torch.from_numpy(x), torch.from_numpy(w), bits=bits)
     assert got.shape == lead + (24,) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _linear_shapes(cfg):
+    """(M, K, N) of every dense layer of one forward over 8 clouds (cls or seg)."""
+    from repro_torch.models.pointnet2 import PointNet2Params
+
+    model = PointNet2Params(cfg, device="cpu")
+    batch = 8
+    counts = {"sa": [cfg.n_points] + [sa.n_centroids for sa in cfg.sa]}
+    shapes = []
+    for i, mlp in enumerate(model.sa):
+        shapes += [(batch * counts["sa"][i], *layer.lin.w.shape) for layer in mlp.layers]
+    if cfg.task == "cls":
+        rows = [batch * cfg.sa[-1].n_centroids] * len(model.global_mlp.layers) + [batch] * len(
+            model.head.layers)
+        mlps = [*model.global_mlp.layers, *model.head.layers]
+    else:
+        fine = counts["sa"][-2::-1]
+        mlps, rows = [], []
+        for level, mlp in zip(fine, model.fp):
+            mlps += list(mlp.layers)
+            rows += [batch * level] * len(mlp.layers)
+        mlps += list(model.head.layers)
+        rows += [batch * cfg.n_points] * len(model.head.layers)
+    shapes += [(r, *layer.lin.w.shape) for r, layer in zip(rows, mlps)]
+    return shapes
+
+
+def test_sc_matmul_k_splits_at_main_path_shapes():
+    """Only the cls head (M = 8) splits K; every share is non-empty."""
+    from repro_torch.configs.pointnet2_cls import CONFIG as CLS
+    from repro_torch.configs.pointnet2_seg import CONFIG as SEG
+    from repro_torch.kernels.sc_matmul.kernel import TILE_K, k_splits
+
+    cls, seg = _linear_shapes(CLS), _linear_shapes(SEG)
+    assert len(cls) == len(seg) == 12
+    assert cls[-3:] == [(8, 1024, 512), (8, 512, 256), (8, 256, 8)]
+    assert seg[8] == (32768, 259, 128)
+    got = {shape: k_splits(shape[0], shape[2], shape[1]) for shape in cls + seg}
+    assert {s: v for s, v in got.items() if v > 1} == {
+        (8, 1024, 512): 16, (8, 512, 256): 8, (8, 256, 8): 4}
+    for m in (1, 8, 64, 65):
+        for n in (1, 8, 64, 1000):
+            for k in (1, 31, 33, 64, 259, 1024, 4096):
+                s = k_splits(m, n, k)
+                steps = -(-k // TILE_K)
+                per = -(-steps // s)
+                assert 1 <= s <= steps and (s - 1) * per < steps
+                assert s == 1 or m <= 64
+
+
+@pytest.mark.parametrize("bad", [0, -3, 2.0, True, None])
+def test_sc_matmul_k_splits_refuses_bad_sizes(bad):
+    from repro_torch.kernels.sc_matmul.kernel import k_splits
+
+    with pytest.raises(ValueError):
+        k_splits(bad, 8, 8)
+    with pytest.raises(ValueError):
+        k_splits(8, 8, bad)
 
 
 def test_sc_matmul_op_rejects_bad_bits():
@@ -263,6 +324,31 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 # -- build ------------------------------------------------------------------------------
+
+
+_PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__3e5b17f8_12_sc_matmul_cu_aa688ff616sc_matmul_kernelILi4ELb1ELb0EEEvPKiS2_PfPiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__3e5b17f8_12_sc_matmul_cu_aa688ff616sc_matmul_kernelILi4ELb1ELb0EEEvPKiS2_PfPiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 16 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__ef20d935_6_fps_cu_aa688ff615fps_warp_kernelILi16ELb1EEEvPKfPiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN38_GLOBAL__N__ef20d935_6_fps_cu_aa688ff615fps_warp_kernelILi16ELb1EEEvPKfPiiii
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 94 registers, 384 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_smem_and_spills():
+    report = build.ptxas_report(_PTXAS_LOG)
+    assert report == [
+        {"kernel": "sc_matmul_kernel<4,1,0>", "registers": 168, "smem_bytes": 16,
+         "stack_bytes": 0, "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "fps_warp_kernel<16,1>", "registers": 94, "smem_bytes": 0,
+         "stack_bytes": 8, "spill_stores": 4, "spill_loads": 4},
+    ]
+    assert build.ptxas_report("") == []
+    assert build.kernel_label("_ZN12_GLOBAL__N_16kernelILi2EEEvv") == "kernel<2>"
+    assert build.kernel_label("_Z6kernelPf") == "_Z6kernelPf"
 
 
 def test_build_targets_hopper_without_fma_contraction(tmp_path):
