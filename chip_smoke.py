@@ -79,6 +79,16 @@ LOGIT_ATOL = {"none": 1e-4, "sc_w16a16": 2e-3}
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS = 67e12
 PEAK_INT8_OPS = 1979e12
+# Single f32 instructions a second on the FP32 pipes: 132 SMs x 128 lanes x
+# 1.98 GHz.  Half of PEAK_F32_OPS, which counts a fused multiply-add as two
+# operations; the FPS, lattice and knn3 kernels issue no FMA (the build
+# passes --fmad=false), so their count of single instructions is held to
+# this rate.  An abs is no instruction: it is a free source modifier of the
+# add that takes it.
+PEAK_F32_INSTR = 33.5e12
+# Single f32 instructions a (query, point) distance: 3 sub and 2 add, plus
+# 3 mul under squared L2.
+DISTANCE_INSTR = {"l1": 5, "l2": 8}
 
 KERNELS = {
     "fps_tiles": {
@@ -219,8 +229,9 @@ def bound(name: str, args, kw, plain_out) -> tuple[float, float, float]:
         pts, k = args
         t, p, _ = pts.shape
         nbytes = t * p * 3 * 4 + t * k * 4
-        ops = 10 * t * p * (k - 1)  # 3 sub, 3 abs, 2 add, min, compare a point a step
-        return nbytes, ops, PEAK_F32_OPS
+        # a point a step: its distance to the newest sample, min, compare
+        ops = (DISTANCE_INSTR[kw["metric"]] + 2) * t * p * (k - 1)
+        return nbytes, ops, PEAK_F32_INSTR
     if name in ("lattice_tiles", "lattice_query"):
         # the flat query is the per-tile one with T = 1
         coords, cents = (a if a.ndim == 3 else a[None] for a in args)
@@ -233,15 +244,15 @@ def bound(name: str, args, kw, plain_out) -> tuple[float, float, float]:
             mask[..., -1].cpu().numpy(), idx[..., -1].cpu().numpy() + 1, p
         ).astype(np.int64)
         nbytes = t * kk * 3 * 4 + t * p * 3 * 4 + t * kk * ns * (4 + 1)
-        ops = 9 * int(scanned.sum())  # 3 sub, 3 abs, 2 add, compare
-        return nbytes, ops, PEAK_F32_OPS
+        ops = (DISTANCE_INSTR["l1"] + 1) * int(scanned.sum())  # an L1 distance, compare
+        return nbytes, ops, PEAK_F32_INSTR
     if name == "knn3":
         queries, points = args
         b, q, _ = queries.shape
         p = points.shape[1]
         nbytes = b * (q + p) * 3 * 4 + b * q * kw["k"] * 8
-        ops = 9 * b * q * p  # 3 sub, 3 mul (or abs), 2 add, compare a pair
-        return nbytes, ops, PEAK_F32_OPS
+        ops = (DISTANCE_INSTR[kw["metric"]] + 1) * b * q * p  # distance, compare
+        return nbytes, ops, PEAK_F32_INSTR
     x, w = args
     m, k = x.shape
     n = w.shape[1]

@@ -31,6 +31,7 @@ import threading
 SRC_DIR = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fps", "lattice", "sc_matmul", "knn3")
+N_SMS = 132  # SMs of the card the kernels are built and planned for (H100 SXM)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",

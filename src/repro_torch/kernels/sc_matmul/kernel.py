@@ -8,11 +8,11 @@ import functools
 import torch
 
 from repro_torch.kernels import build, registry
+from repro_torch.kernels.build import N_SMS
 
 # Block tile of csrc/sc_matmul.cu (rows, columns, k a step; the C entry point
-# refuses a workspace too small for its own tile) and the card's SMs.
+# refuses a workspace too small for its own tile).
 TILE_M, TILE_N, TILE_K = 64, 64, 32
-N_SMS = 132
 MAX_SPLITS = 16
 MIN_STEPS_PER_SPLIT = 2
 

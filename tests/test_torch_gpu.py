@@ -25,10 +25,15 @@ from repro_torch.kernels import registry
 from repro_torch.kernels.fps.kernel import fps_tiles_cuda
 from repro_torch.kernels.fps.ops import fps_tiles
 from repro_torch.kernels.fps.ref import fps_tiles_plain
-from repro_torch.kernels.knn3.kernel import knn3_cuda
+from repro_torch.kernels.knn3.kernel import Knn3Plan, knn3_cuda, knn3_plan
 from repro_torch.kernels.knn3.ops import knn3
 from repro_torch.kernels.knn3.ref import knn3_plain
-from repro_torch.kernels.lattice.kernel import lattice_query_cuda, lattice_tiles_cuda
+from repro_torch.kernels.lattice.kernel import (
+    LatticePlan,
+    lattice_plan,
+    lattice_query_cuda,
+    lattice_tiles_cuda,
+)
 from repro_torch.kernels.lattice.ref import lattice_query_plain, lattice_tiles_plain
 from repro_torch.kernels.sc_matmul.kernel import sc_matmul_cuda
 from repro_torch.kernels.sc_matmul.ref import sc_matmul_plain
@@ -173,13 +178,18 @@ def test_lattice_kernel_matches_plain(cuda, stage, snapped):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("p,k,ns,l_range", [(70, 9, 32, 0.2), (300, 40, 4, 3.0), (33, 5, 64, 0.0)])
+@pytest.mark.parametrize("p,k,ns,l_range", [(70, 9, 32, 0.2), (300, 40, 4, 3.0), (33, 5, 64, 0.0),
+                                             (33, 5, 64, float("inf")), (100, 7, 128, 1e39)])
 def test_lattice_kernel_ragged_sizes(cuda, p, k, ns, l_range):
+    """Ragged tiles under every plan (a tile's rows split across blocks and warps),
+    and a range of inf (or one that rounds to inf) with fewer points than slots, so
+    that the staged padding is all that is left to hit."""
     pts = _tiles(4, p, cuda, seed=p, snapped=True)
     cents = pts[:, :k].contiguous()
-    got = lattice_tiles_cuda(pts, cents, nsample=ns, l_range=l_range)
     want = lattice_tiles_plain(pts, cents, nsample=ns, l_range=l_range)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for plan in _lattice_plans(4, k, p, ns):
+        got = lattice_tiles_cuda(pts, cents, nsample=ns, l_range=l_range, _plan=plan)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), plan
 
 
 def _int_operands(m, k, n, bits, device, seed=0):
@@ -274,29 +284,89 @@ def test_knn3_kernel_matches_plain(cuda, stage, metric, snapped):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _knn3_plans(b, q, p, k):
+    """knn3_plan's choice and groups of 1 to 32 lanes in blocks of 64 to 256
+    threads (csrc/knn3.cu refuses none of them)."""
+    plans = [knn3_plan(b, q, p, k)]
+    for g, n in ((1, 128), (2, 128), (4, 128), (8, 128), (16, 128), (32, 128), (8, 64),
+                 (16, 256), (32, 256)):
+        plans.append(Knn3Plan(g, n))
+    return plans
+
+
 @pytest.mark.parametrize("b,q,p,k", [(1, 1, 5, 5), (3, 130, 1, 1), (2, 1000, 2500, 8),
-                                     (1, 129, 1024, 3), (5, 77, 1025, 2)])
+                                     (1, 129, 1024, 3), (5, 77, 1025, 2), (2, 300, 7, 3),
+                                     (3, 257, 61, 8), (4, 513, 1000, 1), (1, 64, 4100, 8),
+                                     (8, 1024, 256, 3)])
 def test_knn3_kernel_ragged_sizes(cuda, b, q, p, k):
+    """P not a multiple of any lane group, step or staged chunk (and P < G * k),
+    k = 1 to 8, L1 and L2, under every plan: on snapped clouds (ties), on identical
+    points, and with coordinates whose distances overflow to inf (1e20 squares to
+    inf; 2e38 overflows either metric), where slots nothing finite fills read
+    (inf, 0)."""
     queries = _tiles(b, q, cuda, seed=q, snapped=True)
     points = _tiles(b, p, cuda, seed=p + 1, snapped=True)
-    for metric in ("l1", "l2"):
-        got = knn3_cuda(queries, points, k=k, metric=metric)
-        want = knn3_plain(queries, points, k=k, metric=metric)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    far_q, far_p = queries.clone(), points.clone()
+    far_q[:, ::5] = -1e20
+    far_p[:, ::3] = 1e20
+    huge_q, huge_p = queries.clone(), points.clone()
+    huge_q[:, 1::2] = 2e38
+    huge_p[:, ::2] = -2e38
+    inputs = {"snapped": (queries, points), "far": (far_q, far_p), "huge": (huge_q, huge_p),
+              "identical": (torch.full_like(queries, 0.25), torch.full_like(points, 0.25))}
+    for kind, (qs, ps) in inputs.items():
+        for metric in ("l1", "l2"):
+            want = knn3_plain(qs, ps, k=k, metric=metric)
+            for plan in _knn3_plans(b, q, p, k):
+                got = knn3_cuda(qs, ps, k=k, metric=metric, _plan=plan)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (
+                    kind, metric, plan)
+    assert torch.isinf(knn3_plain(*inputs["huge"], k=k)[1]).any()
+
+
+def _lattice_plans(t, k, p, ns):
+    """lattice_plan's choice and plans of 1 to 8 warps a row, several rows a warp
+    group, both unrolls, and small chunks that make several staged passes."""
+    plans = [lattice_plan(t, k, p, ns)]
+    for w in (1, 2, 4, 8):
+        for rows in (1, 3, 8, 16):
+            for unroll in (2, 4):
+                plans.append(LatticePlan(w, min(k, rows), unroll, min(p, 4096), 256))
+    plans += [LatticePlan(4, 2, 4, 100, 256), LatticePlan(1, 5, 2, 33, 128),
+              LatticePlan(2, 4, 4, 1000, 64), LatticePlan(8, 40, 2, 70, 256)]
+    return plans
 
 
 @pytest.mark.parametrize("p,m,radius,ns", [(2048, 64, 0.3, 16), (4096, 1024, 0.2, 32),
-                                           (200, 50, 0.5, 8)])
+                                           (200, 50, 0.5, 8), (4096, 1, 0.2, 32),
+                                           (4100, 64, 0.1, 16), (10000, 3, 0.05, 40),
+                                           (333, 1024, 0.3, 300)])
 @pytest.mark.parametrize("snapped", [False, True])
 def test_lattice_query_kernel_matches_plain(cuda, p, m, radius, ns, snapped):
-    """The flat query at the example's shapes, at a seg-sized set and a ragged one."""
+    """The flat query at the example's shapes, at a seg-sized set, ragged ones (P
+    not a multiple of a chunk of 32, a step, a segment or the staged chunk), M = 1,
+    64 and 1024, under every plan: on the cloud's own neighbourhoods, on dense ones
+    (every point in range), on empty ones (no hit: slots and fill read 0) and with a
+    range of inf (with P < nsample, only the staged padding is left to hit)."""
     pts = _tiles(1, p, cuda, seed=p, snapped=snapped)[0]
-    cents = pts[:: p // m][:m].contiguous()
+    cents = pts[(torch.arange(m, device=cuda) * max(1, p // m)) % p].contiguous()
     l_range = float(radius * 1.6)
-    got = lattice_query_cuda(pts, cents, nsample=ns, l_range=l_range)
-    torch.cuda.synchronize()
-    want = lattice_query_plain(pts, cents, nsample=ns, l_range=l_range)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    hoods = {"cloud": (cents, l_range), "dense": (cents, 10.0), "empty": (cents + 5.0, l_range),
+             "unbounded": (cents, float("inf"))}
+    for hood, (c, lr) in hoods.items():
+        want = lattice_query_plain(pts, c, nsample=ns, l_range=lr)
+        for plan in _lattice_plans(1, m, p, ns):
+            if plan.smem_bytes(ns) > 232448:
+                continue
+            got = lattice_query_cuda(pts, c, nsample=ns, l_range=lr, _plan=plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (hood, plan)
+        if hood == "empty":
+            assert not want[1].any() and not want[0].any()
+        if hood == "dense":
+            assert want[1].all()
+        if hood == "unbounded":
+            assert int(want[1].sum()) == m * min(p, ns)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -181,6 +181,257 @@ def test_knn3_rejects_bad_shapes():
         knn3(q, p, metric="cos")
 
 
+
+# -- the split-and-merge rules of csrc/knn3.cu and csrc/lattice.cu, modelled ------------
+#
+# Small torch models of what the kernels do with the work a plan splits, held
+# against the plain versions, so that a fault in the design shows before the
+# card runs it.  The package does not use them.
+
+
+def _knn_split_merge(queries, points, k, metric, group, unroll=4, chunk=1024):
+    """csrc/knn3.cu's rules for one cloud: lane g of a group takes points g, g + G, ...
+    of each staged chunk (padded with inf points to whole steps of G * unroll), in
+    index order, and inserts (d, j) behind every equal entry when d is below its own
+    k-th; the lanes' lists then merge by (distance, index)."""
+    from repro_torch.core.fps import pairwise_distance
+
+    d = pairwise_distance(queries, points, metric)  # (Q, P), the kernel's sums
+    q, p = d.shape
+    bd = torch.full((q, group, k), float("inf"))
+    bi = torch.zeros((q, group, k), dtype=torch.int64)
+    lanes = torch.arange(group)
+    step_pts = group * unroll
+    for base in range(0, p, chunk):
+        n = min(chunk, p - base)
+        for i0 in range(0, -(-n // step_pts) * step_pts, step_pts):
+            for u in range(unroll):
+                i = i0 + u * group + lanes
+                j = base + i
+                dd = torch.where(i < n, d[:, j.clamp(max=p - 1)], float("inf"))  # (Q, G)
+                ins = dd < bd[..., -1]
+                # behind every equal entry: a stable sort with the old entries first
+                cat_d = torch.cat([bd, dd[..., None]], dim=-1)
+                cat_i = torch.cat([bi, j.expand(q, group)[..., None]], dim=-1)
+                order = torch.sort(cat_d, dim=-1, stable=True).indices[..., :k]
+                bd = torch.where(ins[..., None], torch.take_along_dim(cat_d, order, -1), bd)
+                bi = torch.where(ins[..., None], torch.take_along_dim(cat_i, order, -1), bi)
+    flat_d, flat_i = bd.reshape(q, -1), bi.reshape(q, -1)
+    by_idx = torch.sort(flat_i, dim=-1, stable=True).indices  # (distance, index) order
+    flat_d, flat_i = (torch.take_along_dim(a, by_idx, -1) for a in (flat_d, flat_i))
+    order = torch.sort(flat_d, dim=-1, stable=True).indices[..., :k]
+    return (torch.take_along_dim(flat_i, order, -1).to(torch.int32),
+            torch.take_along_dim(flat_d, order, -1))
+
+
+def _knn_model_cases():
+    rng = np.random.default_rng(7)
+    snapped = np.round(rng.uniform(-1, 1, (90, 3)) * 2) / 2  # 125 grid values: many ties
+    huge = rng.uniform(-1, 1, (40, 3))
+    huge[::3] = 1e20  # squared distances overflow to inf
+    return {
+        "snapped": (snapped[:50], snapped[10:], 5),
+        "identical": (np.full((6, 3), 0.5), np.full((37, 3), 0.5), 3),
+        "p_below_g_times_k": (rng.uniform(-1, 1, (9, 3)), rng.uniform(-1, 1, (13, 3)), 3),
+        "overflow": (np.concatenate([huge[:9], [[1e20] * 3, [-1e20] * 3]]), huge, 8),
+        "all_inf": (np.full((3, 3), 2e38), np.full((9, 3), -2e38), 4),  # inf in either metric
+        "ragged_chunks": (rng.uniform(-1, 1, (20, 3)), rng.uniform(-1, 1, (203, 3)), 3),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_knn_model_cases()))
+@pytest.mark.parametrize("group,chunk", [(1, 1024), (4, 64), (8, 1024), (16, 96), (32, 1024)])
+@pytest.mark.parametrize("metric", ["l1", "l2"])
+def test_knn3_split_merge_model_matches_plain(case, group, chunk, metric):
+    """Lanes scanning interleaved shares, merged by (distance, index): the first k of
+    a stable sort among finite distances, and (inf, 0) wherever no finite distance
+    is left."""
+    qs, pts, k = (torch.from_numpy(np.asarray(a, np.float32)) if isinstance(a, np.ndarray) else a
+                  for a in _knn_model_cases()[case])
+    got = _knn_split_merge(qs, pts, k, metric, group, chunk=chunk)
+    want = knn3(qs[None], pts[None], k=k, metric=metric)
+    assert torch.equal(got[0], want[0][0]) and torch.equal(got[1], want[1][0])
+    if case == "all_inf":
+        assert torch.isinf(got[1]).all() and not got[0].any()
+
+
+def _lattice_segments(points, cents, l_range, nsample, warps, chunk, unroll=4):
+    """csrc/lattice.cu's rules for one tile: per staged chunk, padded with NaN points
+    to whole steps of 32 * unroll points in each of W equal segments, warp w keeps
+    the hits of segment w up to the row's remaining slots; an exclusive scan of the
+    warps' counts gives each its first slot, and the first warp with a hit (none
+    before it) holds the row's first hit."""
+    from repro_torch.core.fps import pairwise_distance
+
+    lim = torch.tensor(np.float32(l_range))
+    m, p = cents.shape[0], points.shape[0]
+    out = torch.zeros((m, nsample), dtype=torch.int32)
+    count = [0] * m
+    first = [0] * m
+    for cb in range(0, p, chunk):
+        cn = min(chunk, p - cb)
+        step = 32 * unroll * warps
+        cpad = -(-cn // step) * step
+        seg = cpad // warps
+        staged = torch.cat([points[cb:cb + cn], torch.full((cpad - cn, 3), float("nan"))])
+        hit = pairwise_distance(cents, staged, "l1") <= lim  # (M, cpad), padding included
+        for r in range(m):
+            cap = nsample - count[r]
+            kept = []
+            for s in range(warps):  # an all-padding segment keeps nothing
+                kept.append((torch.nonzero(hit[r, s * seg:(s + 1) * seg])[:, 0] + cb + s * seg)
+                            [:cap])
+            before = 0
+            for s in range(warps):
+                if count[r] == 0 and before == 0 and len(kept[s]):
+                    first[r] = int(kept[s][0])
+                for i, j in enumerate(kept[s]):
+                    if count[r] + before + i < nsample:
+                        out[r, count[r] + before + i] = int(j)
+                before += len(kept[s])
+            count[r] += min(before, cap)
+    msk = torch.arange(nsample)[None, :] < torch.tensor(count)[:, None]
+    fill = torch.tensor(first, dtype=torch.int32)[:, None]
+    return torch.where(msk, out, fill), msk
+
+
+def _lattice_model_cases():
+    rng = np.random.default_rng(8)
+    snapped = (np.round(rng.uniform(-1, 1, (300, 3)) * 4) / 4).astype(np.float32)
+    return {
+        "snapped": (snapped, snapped[::7], 0.3, 8),
+        "identical": (np.full((100, 3), 0.25, np.float32), np.full((5, 3), 0.25, np.float32),
+                      0.1, 16),
+        "no_hit": (rng.uniform(-1, 1, (130, 3)).astype(np.float32),
+                   np.full((4, 3), 9.0, np.float32), 0.5, 8),
+        "all_in_range": (rng.uniform(-1, 1, (260, 3)).astype(np.float32),
+                         rng.uniform(-1, 1, (6, 3)).astype(np.float32), 10.0, 32),
+        "sparse_long_rows": (rng.uniform(-1, 1, (700, 3)).astype(np.float32),
+                             rng.uniform(-1, 1, (12, 3)).astype(np.float32), 0.15, 16),
+        # a range of inf, and a finite one that rounds to inf in float32: every
+        # point hits, fewer points than slots, so only the padding is left
+        "unbounded": (rng.uniform(-1, 1, (40, 3)).astype(np.float32),
+                      rng.uniform(-1, 1, (5, 3)).astype(np.float32), float("inf"), 64),
+        "rounds_to_inf": (rng.uniform(-1, 1, (90, 3)).astype(np.float32),
+                          rng.uniform(-1, 1, (3, 3)).astype(np.float32), 1e39, 128),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_lattice_model_cases()))
+@pytest.mark.parametrize("warps,chunk,unroll", [(1, 4096, 4), (2, 64, 2), (4, 4096, 4),
+                                                (8, 100, 2), (8, 4096, 4), (8, 50, 4)])
+def test_lattice_segment_scan_model_matches_plain(case, warps, chunk, unroll):
+    """Segment counts, their exclusive scan and the first non-empty segment's first
+    hit give the plain version's slots, fill and mask, chunk after chunk."""
+    pts, cents, radius, ns = _lattice_model_cases()[case]
+    pts, cents = torch.from_numpy(pts), torch.from_numpy(cents)
+    l_range = float(radius * 1.6)
+    got = _lattice_segments(pts, cents, l_range, ns, warps, chunk, unroll)
+    want = lattice_query_fused(pts, cents, radius, ns)
+    assert torch.equal(got[0], want.idx) and torch.equal(got[1], want.mask)
+    if case == "no_hit":
+        assert not got[1].any() and not got[0].any()
+    if case == "all_in_range":
+        assert got[1].all()
+    if case in ("unbounded", "rounds_to_inf"):
+        assert int(got[1].sum()) == pts.shape[0] * cents.shape[0]
+
+
+# -- the plans of the knn3 and lattice kernels ----------------------------------------
+
+
+def _fp_shapes():
+    """(B, Q, P) of the seg forward's two 3-NN calls over 8 clouds: FP0, FP1."""
+    from repro_torch.configs.pointnet2_seg import CONFIG as SEG
+
+    sizes = [SEG.n_points] + [sa.n_centroids for sa in SEG.sa]
+    return [(8, sizes[i - 1], sizes[i]) for i in range(len(sizes) - 1, 0, -1)]
+
+
+def _tile_shapes():
+    """(T, K, P, nsample) of each SA stage's lattice query over 8 clouds, cls then seg."""
+    from repro_torch.configs.pointnet2_cls import CONFIG as CLS
+    from repro_torch.configs.pointnet2_seg import CONFIG as SEG
+    from repro_torch.core.engine import clamp_depth
+
+    shapes = []
+    for cfg in (CLS, SEG):
+        n = cfg.n_points
+        for sa in cfg.sa:
+            depth = clamp_depth(n, sa.n_centroids, cfg.msp_depth)
+            shapes.append((8 << depth, sa.n_centroids >> depth, n >> depth, sa.nsample))
+            n = sa.n_centroids
+    return shapes
+
+
+def test_knn3_plan_at_main_path_shapes():
+    """FP0 and FP1 get the plans the kernel was tuned for; every lane of a group has
+    points of its own; the block is whole groups."""
+    from repro_torch.kernels.knn3.kernel import UNROLL, knn3_plan
+
+    assert _fp_shapes() == [(8, 1024, 256), (8, 4096, 1024)]
+    assert [tuple(knn3_plan(b, q, p, 3)) for b, q, p in _fp_shapes()] == [(8, 256), (4, 256)]
+    for b in (1, 3, 8):
+        for q in (1, 5, 129, 1024, 4097):
+            for p in (1, 2, 7, 31, 64, 100, 1025, 5000):
+                for k in (1, 3, 8):
+                    if k > p:
+                        continue
+                    plan = knn3_plan(b, q, p, k)
+                    assert plan.group & (plan.group - 1) == 0 and plan.group <= 32
+                    assert plan.group == 1 or plan.group * UNROLL <= p
+                    assert plan.threads % 32 == 0
+                    assert plan.threads % plan.group == 0 and plan.queries_per_block() >= 1
+
+
+@pytest.mark.parametrize("args", [(0, 8, 8, 3), (8, -1, 8, 3), (8, 8, 2.0, 1), (8, 8, 8, True),
+                                  (8, 8, 8, 9), (8, 8, 2, 3), (None, 8, 8, 3)])
+def test_knn3_plan_refuses_bad_sizes(args):
+    from repro_torch.kernels.knn3.kernel import knn3_plan
+
+    with pytest.raises(ValueError):
+        knn3_plan(*args)
+
+
+def test_lattice_plan_at_main_path_shapes():
+    """The four tile shapes and the two flat sets get the plans the kernel was tuned
+    for; a split row's segments are whole steps; a plan never needs more shared
+    memory than a block has."""
+    from repro_torch.kernels.lattice.kernel import MAX_SMEM, lattice_plan
+
+    assert _tile_shapes() == [(32, 64, 256, 32), (32, 16, 64, 32), (64, 128, 512, 32),
+                              (64, 32, 128, 32)]
+    got = [tuple(lattice_plan(*s)) for s in _tile_shapes()]
+    assert got == [(1, 8, 4, 256, 256), (1, 8, 2, 64, 256), (1, 16, 4, 512, 256),
+                   (1, 8, 4, 128, 256)]
+    flat = [tuple(lattice_plan(1, m, p, ns)) for p, m, ns in ((2048, 64, 16), (4096, 1024, 32))]
+    assert flat == [(8, 1, 4, 2048, 256), (2, 4, 4, 4096, 256)]
+    for t in (1, 7, 64):
+        for k in (1, 3, 64, 1024):
+            for p in (1, 33, 200, 2048, 4097, 20000):
+                for ns in (1, 16, 300):
+                    plan = lattice_plan(t, k, p, ns)
+                    w, warps = plan.warps_per_row, plan.threads // 32
+                    assert plan.threads % 32 == 0 and warps % w == 0 and w & (w - 1) == 0
+                    assert 1 <= plan.rows_per_block <= k and plan.unroll in (2, 4)
+                    assert 1 <= plan.chunk <= p and plan.smem_bytes(ns) <= MAX_SMEM
+                    assert w == 1 or ns <= 256
+                    # W equal segments of whole steps cover the padded chunk; one that
+                    # holds only padding is walked as empty (the model test above)
+                    padded = plan.padded_chunk()
+                    assert padded % w == 0 and (padded // w) % (32 * plan.unroll) == 0
+                    assert 0 <= padded - plan.chunk < 32 * plan.unroll * w
+
+
+@pytest.mark.parametrize("args", [(0, 8, 8, 3), (1, -1, 8, 3), (1, 8, 2.0, 1), (1, 8, 8, True),
+                                  (1, 8, 8, 0), (None, 8, 8, 3)])
+def test_lattice_plan_refuses_bad_sizes(args):
+    from repro_torch.kernels.lattice.kernel import lattice_plan
+
+    with pytest.raises(ValueError):
+        lattice_plan(*args)
+
+
 # -- SC matmul ---------------------------------------------------------------------
 
 
