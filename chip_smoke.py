@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-It drives three paths of the port, each through the entry points a user
+It drives four paths of the port, each through the entry points a user
 calls: the pointnet2-cls forward (8 clouds of 1024 points), the
 pointnet2-seg forward (8 clouds of 4096 points, whose FP stages run the
 knn3 kernel), both through get_accelerator(CONFIG, policy).infer at full
-width, and the flat lattice query (`lattice_query_fused`) at the example
+width, the flat lattice query (`lattice_query_fused`) at the example
 pipeline's shape (2048 points, 64 centroids) and at a seg-sized set (4096
-points, 1024 centroids).
+points, 1024 centroids), and the serving path: ServingRuntime.submit
+through the queue, the scheduler, the replica pool (its own CUDA streams
+and worker threads), the preprocess cache and the pipelined executor.
 
 Phases, each of which stops the run with a non-zero exit code if it fails:
 
@@ -39,10 +41,25 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
   5. check the outputs against the port's own CPU run (plain versions):
      preprocessing, the seg FP stages' 3-NN indices and the flat query
      bitwise; logits finite, of shape (8, 8) for cls and (8, 4096, 8) for
-     seg, and within the stated tolerance.
+     seg, and within the stated tolerance;
+  6. the serving path at full width, every launch counter set to 0 before
+     each counted run: ServingRuntime (bucket n_points, max_batch 8) serves
+     64 ragged cls clouds of 600-1500 points under quant="none" and
+     "sc_w16a16", each sequential and pipelined, and 16 seg clouds of
+     3000-6000 points; every response must be bitwise equal to a direct
+     infer on the card of the padded micro-batch it rode in (rebuilt from
+     the trace's batch members), the pipelined responses bitwise equal to
+     the sequential ones, the launches equal to the per-forward counts of
+     phase 4 times the batches the metrics record (warmup included), with
+     0 retries, 0 evictions and no failed request.  Then 16 cls clouds
+     twice through the preprocess cache under SC: the second round is all
+     hits, launches no FPS or lattice kernel, and answers bitwise as the
+     first.  It prints requests/s and p50/p99 latency of each run, the
+     device idle share of one micro-batch through the runtime, and the wall
+     time of 8 micro-batches through infer_pipelined against 8 infer calls.
 
 Then it prints one JSON line with every kernel's launches (summed over the
-paths of phase 4), error and times (summed over the calls recorded in
+counted runs of phases 4 and 6), error and times (summed over the calls recorded in
 phase 3, with a breakdown by path), the card line again, and as its last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Inputs and weights come from numpy / torch generators seeded with SEED;
@@ -56,7 +73,9 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -74,6 +93,11 @@ FLAT_SETS = ((2048, 64, 0.3, 16), (4096, 1024, 0.2, 32))
 # activation across a rounding boundary of the 16-bit quantizer, one
 # quantum (max|x| / 32767) at a time.  Both models get the same bounds.
 LOGIT_ATOL = {"none": 1e-4, "sc_w16a16": 2e-3}
+# Serving phase: (model, clouds, smallest and largest cloud) of its traffic,
+# served at the model's full width in one bucket of n_points.
+SERVE_TRAFFIC = {"cls": (64, 600, 1500), "seg": (16, 3000, 6000)}
+SERVE_CACHE_CLOUDS = 16  # cls clouds served twice through the preprocess cache
+SERVE_WAIT_S = 300  # bound on every future the serving phase waits for
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -274,9 +298,15 @@ def profile_forward(torch, accel, params, batch, wall_ms: float, tries: int = 3)
     """
     accel.infer(params, batch)
     torch.cuda.synchronize()
+    return profile_run(torch, lambda: accel.infer(params, batch), wall_ms, tries)
+
+
+def profile_run(torch, fn, wall_ms: float, tries: int = 3) -> dict:
+    """profile_forward's sessions and report for any fn() that enqueues the
+    same kernels each call on one stream at a time."""
     sessions = []
     for _ in range(tries):
-        by_name = device_kernels(torch, lambda: accel.infer(params, batch))
+        by_name = device_kernels(torch, fn)
         sessions.append(by_name)
         counts = [n_events(b) for b in sessions]
         if max(counts) > 0 and counts.count(max(counts)) >= 2:
@@ -313,6 +343,305 @@ def expected_launches(path: str, quant: str, cfg=None) -> dict[str, int]:
     if path == "seg":
         want["knn3"] = len(cfg.sa)
     return want
+
+
+def ragged_clouds(rng: np.random.Generator, k: int, lo: int, hi: int) -> list:
+    """k clouds of lo..hi points each, of make_clouds's kinds in turn."""
+    out = []
+    for i in range(k):
+        n = int(rng.integers(lo, hi + 1))
+        out.append(make_clouds(rng, i % 4 + 1, n)[i % 4])
+    return out
+
+
+def median_ms(fn, reps: int = TIMED_FORWARDS, warmup: bool = True) -> float:
+    """Median host-clock time of fn() over `reps` calls (fn must wait for its work)."""
+    if warmup:
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+# Spans of one micro-batch's life in the serving runtime, as (from, to) trace
+# events: request spans are medians over requests, batch spans over batches.
+LAYER_SPANS = {
+    "queue (submit -> drained)": ("request.submit", "request.drained"),
+    "scheduler (drained -> assembled)": ("request.drained", "request.assembled"),
+    "pool (assembled -> execute_start)": ("batch.assembled", "batch.execute_start"),
+    "replica (execute: H2D, forward, D2H)": ("batch.execute_start", "batch.execute_end"),
+    "completion (execute_end -> completed)": ("batch.execute_end", "batch.completed"),
+    "request (submit -> completed)": ("request.submit", "request.completed"),
+}
+
+
+def layer_ms(rt) -> dict[str, float]:
+    """Median ms of each LAYER_SPANS span over the runtime's traced micro-batches."""
+    by_trace, by_batch = {}, {}
+    for e in rt.tracer.events():
+        if e.trace_id != -1:
+            by_trace.setdefault(e.trace_id, {})[e.name] = e.t
+        elif e.batch_id != -1:
+            by_batch.setdefault(e.batch_id, {})[e.name] = e.t
+    out = {}
+    for label, (a, b) in LAYER_SPANS.items():
+        spans = by_trace if a.startswith("request.") else by_batch
+        vals = [(d[b] - d[a]) * 1e3 for d in spans.values() if a in d and b in d]
+        if not vals:
+            fail(f"the runtime's trace has no {a} -> {b} span")
+        out[label] = float(np.median(vals))
+    return out
+
+
+def batch_members(rt) -> list[list[int]]:
+    """Which submitted clouds (by submit order) rode in each real micro-batch,
+    read from the runtime's trace: `batch.assembled` lists its members' trace ids."""
+    events = rt.tracer.events()
+    order = {e.trace_id: k for k, e in enumerate(e for e in events if e.name == "request.submit")}
+    return [[order[t] for t in e.args["members"]]
+            for e in events if e.name == "batch.assembled"]
+
+
+def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple[dict, dict]:
+    """Phase 6: ServingRuntime on the card, counted, and held against direct infer.
+
+    Returns the launch counts of each counted run and the numbers to report.
+    """
+    from repro_torch.core.accelerator import get_accelerator
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.serve import (
+        Request, RuntimeConfig, SchedulerConfig, ServingRuntime, TraceConfig, assemble_batch,
+        inverse_subsample_indices,
+    )
+
+    rng = np.random.default_rng(SEED + 1)
+    traffic = {m: ragged_clouds(rng, *SERVE_TRAFFIC[m]) for m in SERVE_TRAFFIC}
+    counted, report = {}, {"card": card}
+
+    def direct(m, q, clouds, members):
+        """Default-stream infer of each padded micro-batch the runtime assembled."""
+        cfg = cfgs[m]
+        accel = get_accelerator(cfg, ExecutionPolicy(quant=q), device="cuda")
+        out = {}
+        for idx in members:
+            reqs = [Request(id=i, cloud=clouds[i], n_orig=clouds[i].shape[0],
+                            bucket=cfg.n_points, policy=accel.policy, deadline_t=None,
+                            submit_t=0.0, future=None) for i in idx]
+            batch = assemble_batch(reqs, cfg.n_points, 3 + cfg.in_features, BATCH)
+            logits = accel.infer(params[m], batch).cpu().numpy()
+            for j, i in enumerate(idx):
+                n = clouds[i].shape[0]
+                if cfg.task != "seg":
+                    out[i] = logits[j]
+                elif n <= cfg.n_points:
+                    out[i] = logits[j, :n]
+                else:
+                    out[i] = logits[j, inverse_subsample_indices(n, cfg.n_points)]
+        return out
+
+    def per_batch_launches(m, q, skipped: bool) -> dict:
+        want = expected_launches(m, q, cfgs[m])
+        if skipped:  # feature_from_cached: no preprocessing kernel
+            want["fps_tiles"] = want["lattice_tiles"] = 0
+        return want
+
+    def settle(rt, start: int, n_requests: int) -> list:
+        """The batch records since `start` once they hold n_requests requests.
+
+        A request's future is set before its batch is recorded, so the
+        records of the last batch may land a moment after its responses.
+        """
+        deadline = time.monotonic() + SERVE_WAIT_S
+        while True:
+            records = rt.metrics.batch_records[start:]
+            if sum(r.n_real for r in records) >= n_requests:
+                return list(records)
+            if time.monotonic() > deadline:
+                fail(f"batch records of {n_requests} requests never landed")
+            time.sleep(0.001)
+
+    def serve(label, m, q, pipeline, clouds, rounds=1, **cfg_kw):
+        """Warm, then serve `clouds` `rounds` times (each queued whole, then
+        waited for), each round counted on its own (the first with the
+        warmup); check counts, health and responses.  The first round is
+        queued before the scheduler starts, so it drains as full batches in
+        submit order; later rounds need a max_wait_s long enough for that.
+        Returns the runtime, each round's responses and the last round's
+        batch members."""
+        policy = ExecutionPolicy(quant=q, pipeline=pipeline)
+        rt = ServingRuntime(cfgs[m], params[m],
+                            RuntimeConfig(max_batch=BATCH, buckets=(cfgs[m].n_points,),
+                                          trace=TraceConfig(), **cfg_kw),
+                            policy=policy, device="cuda")
+        outs, members, start = [], [], 0
+        try:
+            registry.reset_launches()
+            rt.warmup()
+            for r in range(rounds):
+                tag = f"{label}, round {r + 1}" if rounds > 1 else label
+                if r:  # the all-miss cache fills land on their own thread
+                    deadline = time.monotonic() + SERVE_WAIT_S
+                    while rt.cache.stats().insertions < len(clouds):
+                        if time.monotonic() > deadline:
+                            fail(f"{tag}: cache fills never landed: {rt.cache.stats()}")
+                        time.sleep(0.01)
+                    registry.reset_launches()
+                futs = [rt.submit(c) for c in clouds]
+                if not r:  # queued before the scheduler starts: full batches in order
+                    rt.start()
+                outs.append([f.result(timeout=SERVE_WAIT_S) for f in futs])
+                records = settle(rt, start, len(clouds))
+                start += len(records)
+                got = {n: registry.launches()[n] for n in KERNELS}
+                want = dict.fromkeys(KERNELS, 0)
+                for rec in records:
+                    for n, v in per_batch_launches(m, q, rec.preprocess_skipped).items():
+                        want[n] += v
+                counted[tag] = got
+                if got != want:
+                    fail(f"{tag}: launches {got}, expected {want} for {len(records)} batches "
+                         f"({sum(not r.n_real for r in records)} warmup, "
+                         f"{sum(r.preprocess_skipped for r in records)} all-hit)")
+                real = sum(1 for rec in records if rec.n_real)
+                # each round submits the same clouds: index them within the round
+                members = [[i % len(clouds) for i in idx] for idx in batch_members(rt)[-real:]]
+                want_out = direct(m, q, clouds, members)
+                for i, o in enumerate(outs[-1]):
+                    if not np.array_equal(o, want_out[i]):
+                        fail(f"{tag}: response {i} differs from direct infer of its padded batch")
+                say(f"{tag}: {len(clouds)} responses over {real} batches bitwise equal to "
+                    f"direct infer; launches {got}")
+        finally:
+            rt.stop()
+        snap = rt.metrics.snapshot()
+        if snap.retries or snap.evictions or snap.failed or snap.completed != rounds * len(clouds):
+            fail(f"{label}: retries={snap.retries} evictions={snap.evictions} "
+                 f"failed={snap.failed} completed={snap.completed}")
+        say(f"{label}: {snap.throughput_rps:.1f} requests/s, p50 "
+            f"{snap.latency_p50_s * 1e3:.2f} ms, p99 {snap.latency_p99_s * 1e3:.2f} ms; "
+            f"0 retries, 0 evictions ({card})")
+        report[label] = {"requests_per_s": snap.throughput_rps,
+                         "p50_ms": snap.latency_p50_s * 1e3, "p99_ms": snap.latency_p99_s * 1e3,
+                         "batches": snap.batches}
+        return rt, outs, members
+
+    cls_clouds = traffic["cls"]
+    for q in ("none", "sc_w16a16"):
+        _, seq_outs, seq_members = serve(f"serve cls quant={q} sequential", "cls", q,
+                                         "sequential", cls_clouds)
+        _, pip_outs, pip_members = serve(f"serve cls quant={q} pipelined", "cls", q,
+                                         "pipelined", cls_clouds)
+        if pip_members != seq_members:
+            fail(f"cls quant={q}: pipelined batches {pip_members} differ from sequential "
+                 f"{seq_members}")
+        if not all(np.array_equal(a, b) for a, b in zip(seq_outs[0], pip_outs[0])):
+            fail(f"cls quant={q}: pipelined responses differ from the sequential ones")
+        say(f"cls quant={q}: pipelined responses bitwise equal the sequential ones")
+    _, seg_outs, _ = serve("serve seg quant=none sequential", "seg", "none", "sequential",
+                           traffic["seg"])
+    for c, o in zip(traffic["seg"], seg_outs[0]):
+        if o.shape != (c.shape[0], cfgs["seg"].n_classes) or not np.isfinite(o).all():
+            fail(f"seg response of shape {o.shape} for a cloud of {c.shape[0]} points")
+    # the preprocess cache: the same clouds twice, as full batches under SC
+    # (one max_wait long enough that only full batches flush)
+    cache_clouds = cls_clouds[:SERVE_CACHE_CLOUDS]
+    rt, rounds, _ = serve("serve cls quant=sc_w16a16 cached", "cls", "sc_w16a16",
+                          "sequential", cache_clouds, rounds=2, cache_max_bytes=1 << 28,
+                          max_wait_s=1.0)
+    skipped = [r for r in rt.metrics.batch_records if r.n_real and r.preprocess_skipped]
+    if len(skipped) != SERVE_CACHE_CLOUDS // BATCH:
+        fail(f"cached cls: {len(skipped)} all-hit batches in the second round, expected "
+             f"{SERVE_CACHE_CLOUDS // BATCH}")
+    if not all(np.array_equal(a, b) for a, b in zip(*rounds)):
+        fail("cached cls: all-hit responses differ from the first round's")
+    say(f"cached cls: second round all hits ({len(skipped)} batches, no FPS or lattice "
+        "launch), responses bitwise equal the first round's")
+
+    # timings, outside the counted runs (host clock: compared only within this
+    # run): one micro-batch through the runtime, by layer from its trace and
+    # profiled; the same forward bare on this thread, and on a worker thread on
+    # a side stream, alone and beside a thread that wakes every drain tick (as
+    # the scheduler's loop does); 8 micro-batches pipelined against 8 infers
+    accel = get_accelerator(cfgs["cls"], ExecutionPolicy(), device="cuda")
+    padded = []
+    for lo in range(0, len(cls_clouds), BATCH):
+        reqs = [Request(id=i, cloud=c, n_orig=c.shape[0], bucket=cfgs["cls"].n_points,
+                        policy=accel.policy, deadline_t=None, submit_t=0.0, future=None)
+                for i, c in enumerate(cls_clouds[lo:lo + BATCH])]
+        padded.append(torch.from_numpy(assemble_batch(reqs, cfgs["cls"].n_points, 3, BATCH))
+                      .cuda())
+
+    def forward():
+        return accel.infer(params["cls"], padded[0]).cpu()
+
+    side = torch.cuda.Stream()
+
+    def forward_on_side():
+        with torch.cuda.stream(side):
+            return forward()
+
+    threads = {"bare forward, this thread": median_ms(forward)}
+    with ThreadPoolExecutor(max_workers=1) as worker:
+        threads["forward on a worker thread, side stream"] = median_ms(
+            lambda: worker.submit(forward_on_side).result())
+        tick = SchedulerConfig().drain_tick_s
+        stop = threading.Event()
+
+        def ticker():
+            cond = threading.Condition()
+            while not stop.is_set():
+                with cond:
+                    cond.wait(tick)
+
+        thread = threading.Thread(target=ticker)
+        thread.start()
+        try:
+            threads[f"same, beside a thread waking every {tick * 1e3:g} ms"] = median_ms(
+                lambda: worker.submit(forward_on_side).result())
+        finally:
+            stop.set()
+            thread.join()
+    rt = ServingRuntime(cfgs["cls"], params["cls"],
+                        RuntimeConfig(max_batch=BATCH, trace=TraceConfig()),
+                        device="cuda").warmup().start()
+    try:
+        def one_batch():
+            futs = [rt.submit(c) for c in cls_clouds[:BATCH]]
+            return [f.result(timeout=SERVE_WAIT_S) for f in futs]
+
+        one_batch()
+        rt.tracer.clear()
+        threads["one micro-batch through the runtime"] = median_ms(one_batch, warmup=False)
+        layers = layer_ms(rt)
+        prof = profile_run(torch, one_batch, threads["one micro-batch through the runtime"])
+    finally:
+        rt.stop()
+    report["runtime_micro_batch"] = {"wall_ms": threads, "layers_ms": layers, "profile": prof}
+    say(f"one cls micro-batch (host clock, median of {TIMED_FORWARDS}; {card}): "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in threads.items()))
+    say("  by layer, from the runtime's trace (median ms): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in layers.items()))
+    say(f"  device busy {prof['busy_ms']:.3f} ms, idle share {prof['idle_share']:.3f}")
+    times = {"pipelined": [], "sequential": []}
+    for _ in range(5):
+        for mode in times:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "pipelined":
+                accel.infer_pipelined(params["cls"], padded)
+            else:
+                for b in padded:
+                    accel.infer(params["cls"], b)
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+    report["eight_micro_batches_ms"] = {k: float(np.median(v)) for k, v in times.items()}
+    eight = report["eight_micro_batches_ms"]
+    say(f"{len(padded)} cls micro-batches: pipelined {eight['pipelined']:.3f} ms, sequential "
+        f"infer {eight['sequential']:.3f} ms (median of 5, host clock; {card})")
+    return counted, report
 
 
 def main() -> None:
@@ -575,6 +904,13 @@ def main() -> None:
                  "CPU run")
     say("flat: lattice_query_fused equals the CPU run bitwise at "
         + ", ".join(f"P={p} M={m}" for p, m, _, _ in FLAT_SETS))
+
+    # -- 6. the serving path --------------------------------------------------
+    serve_counted, serve_report = serving_phase(
+        torch, configs, params, registry, card)
+    for n in KERNELS:
+        launches[n] += sum(c[n] for c in serve_counted.values())
+    say(json.dumps({"serving": serve_report, "serving_launches": serve_counted}))
 
     kernels = []
     for name, meta in KERNELS.items():

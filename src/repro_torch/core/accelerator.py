@@ -15,6 +15,14 @@ halves on their own:
 The same holds for `get_config("pointnet2-seg")`, whose logits are per
 point: (B, N, 3+F) -> (B, N, C).
 
+The serving layer adds three entry points over the same two halves:
+`feature_from_cached` (the preprocess cache's hit path), `infer_with_preprocess`
+(logits and the preprocessing in one call, the cache's all-miss path) and
+`infer_pipelined` (a stream of batches through `PipelinedExecutor`, which
+overlaps batch k+1's preprocessing with batch k's feature stage on two CUDA
+streams).  Each returns logits bitwise equal to `infer`: all of them run
+`feature_stage(preprocess_stage(...))`, which is what `forward` is.
+
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`, which runs the plain versions of the kernels).  Without a
 card the default device raises: nothing drifts to the CPU.  PyTorch runs
@@ -24,14 +32,17 @@ eagerly, so there is nothing to compile; the cache keys one accelerator per
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import threading
 
 import torch
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import on_streams, resolve_device
+from repro_torch.core.engine import result_leaves, result_to
 from repro_torch.core.policy import ExecutionPolicy, resolve_policy
 from repro_torch.models import pointnet2 as PN
+from repro_torch.parallel.pipeline import two_stage_schedule
 
 
 class PC2IMAccelerator:
@@ -57,6 +68,9 @@ class PC2IMAccelerator:
             engines.append(PN.stage_engine(config, sa, n, self.policy))
             n = sa.n_centroids
         self.engines = tuple(engines)
+        # PipelinedExecutor cache of infer_pipelined, keyed by (devices, depth)
+        self._executors: dict = {}
+        self._executors_lock = threading.Lock()
 
     def init(self, generator: torch.Generator | None = None) -> PN.PointNet2Params:
         """Fresh parameters on this accelerator's device (drawn on the CPU from `generator`)."""
@@ -102,12 +116,176 @@ class PC2IMAccelerator:
                 params, self.config, self._points(points), preproc, policy=self.policy
             )
 
+    def feature_from_cached(self, params: PN.PointNet2Params, points, preproc) -> torch.Tensor:
+        """Feature stage over cache-restacked neighbourhoods: the cache's hit path.
+
+        `preproc` is a result tree reassembled from per-row cache entries
+        (`core.engine.result_stack`), numpy or tensors; its leaves are
+        placed on this accelerator's device and the feature stage runs as
+        in `feature_stage`.  A batch whose rows are the cached canonical
+        clouds therefore gets logits bitwise equal to an uncached `infer`
+        of those clouds, with the whole preprocessing half skipped.
+        """
+        return self.feature_stage(params, points, result_to(preproc, self.device))
+
+    def infer_with_preprocess(self, params: PN.PointNet2Params, points) -> tuple:
+        """(logits, preprocessing) of one batch in one call: the cache's all-miss path.
+
+        The logits are `infer`'s (the same composition); the per-stage
+        PreprocessResults come out beside them for the cache fill.
+        """
+        with torch.inference_mode():
+            pts = self._points(points)
+            pre = PN.preprocess_stage(self.config, pts, policy=self.policy)
+            return PN.feature_stage(params, self.config, pts, pre, policy=self.policy), pre
+
+    def infer_pipelined(self, params: PN.PointNet2Params, batches, *, devices=None,
+                        depth: int = 2) -> list:
+        """Run a stream of micro-batches through the two-stage pipeline.
+
+        Convenience wrapper over `PipelinedExecutor`: batch k+1's
+        preprocessing overlaps batch k's feature stage.  Returns one logits
+        tensor per input batch, in order, each bitwise equal to
+        `infer(params, batch)`.  The executor is cached per (devices,
+        depth), so repeated calls reuse its streams and placed parameters.
+        """
+        key = (tuple(resolve_device(d) for d in devices) if devices is not None else None,
+               depth)
+        with self._executors_lock:
+            ex = self._executors.get(key)
+            if ex is None:
+                ex = self._executors[key] = PipelinedExecutor(self, devices=devices, depth=depth)
+        return ex.run(params, batches)
+
     def __repr__(self) -> str:
         return (
             f"PC2IMAccelerator({self.config.name}, quant={self.policy.quant!r}, "
             f"backend={self.policy.backend!r}, device={str(self.device)!r}, "
             f"stages={len(self.engines)})"
         )
+
+
+def params_device(params: PN.PointNet2Params) -> torch.device:
+    """The device a parameter module lies on (that of its first parameter)."""
+    return next(params.parameters()).device
+
+
+def params_copy_on(params: PN.PointNet2Params, device: torch.device) -> PN.PointNet2Params:
+    """A copy of `params` on `device`; the caller's module is never moved.
+
+    `nn.Module.to` moves a module in place, where `jax.device_put` returns
+    a new copy: a replica or a second pipeline device that called `.to` on
+    the caller's params would move them under every other user.
+    """
+    with torch.no_grad():
+        return copy.deepcopy(params).to(device)
+
+
+class PipelinedExecutor:
+    """Double-buffered two-stage executor over one accelerator's halves.
+
+    Streams micro-batches through preprocessing -> feature stage so batch
+    k+1's preprocessing (FPS and lattice kernels) overlaps batch k's
+    feature MLPs:
+
+        ex = PipelinedExecutor(get_accelerator(cfg, policy))
+        logits = ex.run(params, batches)     # list, one per batch, in order
+
+    `parallel.pipeline.two_stage_schedule` runs stage A in a producer
+    thread and stage B in the caller's.  On one card each stage has its own
+    CUDA stream: stage A enqueues preprocessing on the preprocess stream
+    and records an event; stage B makes the feature stream wait on that
+    event, marks the hand-off tensors as used there (`record_stream`, so
+    the caching allocator does not hand their memory out while the feature
+    stream still reads them) and enqueues the feature stage.  Neither
+    thread synchronises the device.  With two or more devices, stage A runs
+    on `devices[0]` and stage B on `devices[1]`, with a copy of the
+    parameters resident there; the hand-off copies the batch and its
+    preprocessing across.  On the CPU both stages run plainly.
+
+    Results are bitwise equal to sequential `infer` calls: both run the
+    same composition.  The returned logits are ordered after the feature
+    stream on the caller's current stream.
+    """
+
+    def __init__(self, accel: PC2IMAccelerator, *, devices=None, depth: int = 2):
+        self.accel = accel
+        self.devices = (tuple(resolve_device(d) for d in devices) if devices is not None
+                        else (accel.device,))
+        if not self.devices:
+            raise ValueError("devices must name at least one device")
+        if len({d.type for d in self.devices}) > 1:
+            raise ValueError(f"devices must all be CUDA devices or all the CPU, got {self.devices}")
+        self.depth = depth
+        # last (params, copy on the feature device) pair, reused across run()
+        # calls so a serving loop does not copy the weights every stream
+        self._placed: tuple = (None, None)
+        self._streams: tuple | None = None  # (preprocess, feature), made at the first run
+        self._lock = threading.Lock()
+
+    def _params_on(self, params, device):
+        if params_device(params) == device:
+            return params
+        cached_key, cached_placed = self._placed
+        if cached_key is params:
+            return cached_placed
+        # return the LOCAL: a concurrent run() with other params may
+        # overwrite the cache, and this stream must keep ITS weights
+        placed = params_copy_on(params, device)
+        self._placed = (params, placed)
+        return placed
+
+    def _stage_streams(self, dev_pre, dev_feat) -> tuple:
+        if dev_pre.type != "cuda":
+            return None, None
+        with self._lock:
+            if self._streams is None:
+                self._streams = (torch.cuda.Stream(dev_pre), torch.cuda.Stream(dev_feat))
+            return self._streams
+
+    def run(self, params: PN.PointNet2Params, batches) -> list:
+        """Execute every (B, N, 3+F) batch; returns per-batch logits in order."""
+        cfg, pol = self.accel.config, self.accel.policy
+        dev_pre = self.devices[0]
+        dev_feat = self.devices[1] if len(self.devices) >= 2 else dev_pre
+        params_feat = self._params_on(params, dev_feat) if dev_feat != dev_pre else params
+        s_pre, s_feat = self._stage_streams(dev_pre, dev_feat)
+        if s_pre is not None:
+            # inputs already on the card were written on the caller's stream
+            s_pre.wait_stream(torch.cuda.current_stream(dev_pre))
+        cross = dev_feat != dev_pre
+
+        def stage_a(batch):
+            with torch.inference_mode(), on_streams(s_pre):
+                pts = torch.as_tensor(batch, dtype=torch.float32, device=dev_pre)
+                pre = PN.preprocess_stage(cfg, pts, policy=pol)
+                done = None
+                if s_pre is not None:
+                    done = torch.cuda.Event()
+                    done.record(s_pre)
+            return pts, pre, done
+
+        def stage_b(handoff):
+            pts, pre, done = handoff
+            # across devices, a copy runs on the source device's current
+            # stream (the preprocess stream, after the preprocessing) and the
+            # destination's current stream (the feature stream) waits for it
+            with torch.inference_mode(), on_streams(*((s_pre, s_feat) if cross else (s_feat,))):
+                if cross:
+                    pts, pre = pts.to(dev_feat), result_to(pre, dev_feat)
+                elif done is not None:
+                    s_feat.wait_event(done)
+                    for t in (pts, *result_leaves(pre)):
+                        t.record_stream(s_feat)
+                return PN.feature_stage(params_feat, cfg, pts, pre, policy=pol)
+
+        out = two_stage_schedule(stage_a, stage_b, batches, depth=self.depth)
+        if s_feat is not None:
+            caller = torch.cuda.current_stream(dev_feat)
+            caller.wait_stream(s_feat)
+            for logits in out:
+                logits.record_stream(caller)
+        return out
 
 
 @dataclasses.dataclass(frozen=True)

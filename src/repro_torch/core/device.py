@@ -6,6 +6,8 @@ bridge resolve devices the same way without importing the accelerator.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -24,3 +26,16 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def on_streams(*streams) -> contextlib.ExitStack:
+    """Make each given CUDA stream current on this thread; None entries (the CPU) are skipped.
+
+    The kernel wrappers launch on `torch.cuda.current_stream`, which is per
+    thread, so a worker thread enters its stream before it runs a stage.
+    """
+    stack = contextlib.ExitStack()
+    for s in streams:
+        if s is not None:
+            stack.enter_context(torch.cuda.stream(s))
+    return stack

@@ -21,8 +21,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import io
 from typing import Literal
 
+import numpy as np
 import torch
 
 from repro_torch.core import partition as part_mod
@@ -172,3 +174,170 @@ class PreprocessEngine:
 def get_engine(config: EngineConfig) -> PreprocessEngine:
     """Engine cache: one engine per distinct config (models build one per SA stage)."""
     return PreprocessEngine(config)
+
+
+# -- result trees: size accounting, per-row access, serialization -------------
+#
+# A "result tree" is a PreprocessResult, or the tuple of them (one per SA
+# stage) that the accelerator's preprocess_stage returns: NamedTuples and
+# tuples whose leaves are torch tensors (on any device) or numpy arrays.
+# The cross-request preprocess cache (serve/preprocess_cache.py) stores
+# these per request row and re-assembles them per micro-batch.  The walk
+# below visits leaves in field order, which is JAX's tree-flatten order for
+# the same NamedTuples, so `serialize_result` writes the same npz leaves in
+# both packages.
+
+
+def _is_node(x) -> bool:
+    return isinstance(x, tuple)
+
+
+def result_leaves(res) -> list:
+    """Every leaf of a result tree, depth first in field order."""
+    if _is_node(res):
+        return [leaf for child in res for leaf in result_leaves(child)]
+    return [res]
+
+
+def result_map(fn, res, *rest):
+    """Apply fn leaf-wise over one or more result trees of the same structure.
+
+    NamedTuples are rebuilt as their own type, plain tuples as tuples; the
+    structures must match (a ValueError names the first mismatch).
+    """
+    if _is_node(res):
+        for other in rest:
+            if not _is_node(other) or len(other) != len(res):
+                raise ValueError("result trees differ in structure")
+        children = [result_map(fn, *parts) for parts in zip(res, *rest)]
+        return type(res)(*children) if hasattr(res, "_fields") else tuple(children)
+    for other in rest:
+        if _is_node(other):
+            raise ValueError("result trees differ in structure")
+    return fn(res, *rest)
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return int(np.asarray(x).nbytes)
+
+
+def result_nbytes(res) -> int:
+    """Total bytes of every leaf of a result tree (tensor or numpy leaves)."""
+    return int(sum(_nbytes(x) for x in result_leaves(res)))
+
+
+def result_to_host(res):
+    """Every leaf of a result tree as a WRITABLE numpy array of its own.
+
+    A CUDA leaf may have been written on any stream of its device, so the
+    device is synchronised once before the (synchronous) copies: the host
+    reads the finished values whichever stream or thread made them.  Every
+    leaf is copied, so writing a returned array (`result_set_row`) never
+    touches the tensor it came from.
+    """
+    leaves = result_leaves(res)
+    for dev in {x.device for x in leaves if isinstance(x, torch.Tensor) and x.is_cuda}:
+        torch.cuda.synchronize(dev)
+
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().to("cpu", copy=True).numpy()
+        return np.array(x, copy=True)
+
+    return result_map(one, res)
+
+
+def result_to(res, device: torch.device):
+    """A result tree with every leaf as a tensor on `device`.
+
+    Tensor leaves already there are kept as they are; numpy leaves are
+    copied (cached payloads are read-only arrays, which a tensor must not
+    alias).
+    """
+
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        return torch.tensor(x, device=device)
+
+    return result_map(one, res)
+
+
+def result_row(res, i: int):
+    """Slice row `i` off every leaf's leading (batch) dim of a result tree.
+
+    The per-request payload the preprocess cache stores: one cloud's
+    centroids/neighborhoods out of a batched PreprocessResult.
+    """
+    return result_map(lambda x: x[i], res)
+
+
+def _zeros_like(x):
+    if isinstance(x, torch.Tensor):
+        return torch.zeros_like(x)
+    return np.zeros_like(x)
+
+
+def _stack(*xs):
+    if isinstance(xs[0], torch.Tensor):
+        return torch.stack(xs)
+    return np.stack(xs)
+
+
+def result_stack(rows, total: int | None = None):
+    """Stack per-row result trees back into one batched tree.
+
+    `rows` are `result_row`-shaped trees (all the same structure, all numpy
+    or all tensors on one device); `total` > len(rows) appends zero filler
+    rows so the stacked batch has the static batch dim — filler rows mirror
+    assemble_batch's zero batch rows, whose outputs the scatter step drops.
+    """
+    rows = list(rows)
+    if not rows:
+        raise ValueError("need at least one row to stack")
+    if total is not None and total > len(rows):
+        filler = result_map(_zeros_like, rows[0])
+        rows.extend([filler] * (total - len(rows)))
+    return result_map(_stack, *rows)
+
+
+def result_set_row(res, i: int, row) -> None:
+    """Write a per-row tree into row `i` of a batched HOST result tree.
+
+    In-place: `res` leaves must be writable numpy arrays (use
+    `result_to_host` first).  This is the cache-hit splice — a hit row's
+    cached neighborhoods replace whatever the batched preprocess computed
+    for that row before the feature stage consumes the tree.
+    """
+
+    def put(dst, src):
+        dst[i] = src
+
+    result_map(put, res, row)
+
+
+def serialize_result(res) -> bytes:
+    """Pack a result tree's leaves into one portable npz byte blob.
+
+    Leaves are stored in tree order (that of JAX's tree-flatten for the
+    same result); the tree STRUCTURE is not encoded — pass a structurally
+    identical template to `deserialize_result` to rebuild.
+    """
+    leaves = result_leaves(result_to_host(res))
+    buf = io.BytesIO()
+    np.savez(buf, *leaves)
+    return buf.getvalue()
+
+
+def deserialize_result(blob: bytes, like):
+    """Rebuild a result tree from `serialize_result` bytes.
+
+    `like` supplies the tree structure (any tree with the same topology,
+    e.g. a live entry's payload); leaves come back as numpy arrays, dtype
+    and shape preserved bitwise.
+    """
+    with np.load(io.BytesIO(blob)) as data:
+        leaves = iter([data[k] for k in data.files])
+    return result_map(lambda _: next(leaves), like)

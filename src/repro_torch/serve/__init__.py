@@ -1,0 +1,73 @@
+"""Serving subsystem of the port — the PC2IM serving runtime on the card.
+
+Layered back to front: `queue` (bounded admission, deadlines, futures),
+`scheduler` (shape-bucketed dynamic micro-batching keyed by the full
+ExecutionPolicy — pipeline schedule included), `dispatch` (per-device
+replica pool with heartbeat eviction, CUDA streams per replica and the
+two-stage pipelined path), `metrics`, and `runtime` (the `ServingRuntime`
+facade most callers want).  `hashing` / `preprocess_cache` implement the
+cross-request preprocess cache: content-addressed duplicate clouds skip
+the preprocess stage and enter the feature stage directly.  `slo` names
+service classes (priority, deadline, shed policy) and `trace` is the
+ring-buffered lifecycle tracer every component reports into.
+`pointcloud` is the synchronous per-batch serve function.
+
+Not ported yet (ROADMAP.md queue A item 8): the exporters of `obs`, the
+`autoscaler`, `chaos` and the adaptive controller of `adapt`.
+"""
+
+from repro_torch.serve.dispatch import NoReplicaAvailable, Replica, ReplicaPool  # noqa: F401
+from repro_torch.serve.hashing import (  # noqa: F401
+    DEFAULT_QUANT_STEP,
+    content_key,
+    quantize_cloud,
+)
+from repro_torch.serve.metrics import (  # noqa: F401
+    BatchRecord,
+    ClassSnapshot,
+    MetricsSnapshot,
+    ServeMetrics,
+)
+from repro_torch.serve.pointcloud import (  # noqa: F401
+    PointCloudServeConfig,
+    inverse_subsample_indices,
+    make_pointcloud_serve_fns,
+    pad_cloud,
+    subsample_indices,
+)
+from repro_torch.serve.preprocess_cache import (  # noqa: F401
+    CacheConfig,
+    CacheEntry,
+    PreprocessCache,
+    PreprocessCacheStats,
+)
+from repro_torch.serve.queue import (  # noqa: F401
+    AdmissionError,
+    AdmissionQueue,
+    DeadlineExceeded,
+    QueueClosed,
+    QueueFull,
+    Request,
+    Shed,
+)
+from repro_torch.serve.runtime import (  # noqa: F401
+    RuntimeConfig,
+    ServingRuntime,
+    make_serving_runtime,
+)
+from repro_torch.serve.scheduler import (  # noqa: F401
+    BatchScheduler,
+    MicroBatch,
+    SchedulerConfig,
+    assemble_batch,
+    bucket_for,
+    scatter_results,
+)
+from repro_torch.serve.slo import BULK, DEFAULT, INTERACTIVE, SLOClass  # noqa: F401
+from repro_torch.serve.trace import (  # noqa: F401
+    EVENTS,
+    TERMINAL_EVENTS,
+    TraceConfig,
+    TraceEvent,
+    Tracer,
+)

@@ -12,6 +12,8 @@ torch.cuda.is_available() is false.  On the card:
 Imports neither jax nor the JAX package: the card's host has neither.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -396,3 +398,80 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         knn3_cuda(pts, pts[:, :2].contiguous(), k=3)
     with pytest.raises(ValueError):
         lattice_query_cuda(pts, pts, nsample=4, l_range=0.5)  # 3-D: use the per-tile wrapper
+
+
+# -- the serving path on the card: streams, replicas, host reads ---------------
+
+
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_pipelined_two_streams_equal_sequential_infer(cuda, quant):
+    """infer_pipelined (preprocess and feature streams, two threads) over 4
+    full-width micro-batches: each bitwise equal to a default-stream infer."""
+    accel = get_accelerator(CONFIG, ExecutionPolicy(quant=quant), device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    batches = [rng.uniform(-1, 1, (BATCH, CONFIG.n_points, 3)).astype(np.float32)
+               for _ in range(4)]
+    registry.reset_launches()
+    got = accel.infer_pipelined(params, batches)
+    torch.cuda.synchronize()
+    assert registry.launches()["fps_tiles"] == 2 * len(batches)
+    for g, b in zip(got, batches):
+        assert torch.equal(g, accel.infer(params, b))
+
+
+def test_runtime_two_replicas_on_one_card_equal_direct_infer(cuda):
+    """Two replicas (each with its own params copy and streams) on one card, 16
+    ragged clouds: every response bitwise equal to a default-stream infer of
+    the padded micro-batch it rode in, rebuilt from the batch records."""
+    from repro_torch.serve import Request, RuntimeConfig, ServingRuntime, assemble_batch
+
+    accel = get_accelerator(CONFIG, device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    clouds = [rng.uniform(-1, 1, (int(n), 3)).astype(np.float32)
+              for n in rng.integers(600, 1500, 16)]
+    rt = ServingRuntime(CONFIG, params, RuntimeConfig(max_batch=BATCH, n_replicas=2),
+                        device=cuda)
+    try:
+        futs = [rt.submit(c) for c in clouds]  # queued before start: two full batches
+        rt.start()
+        outs = [f.result(timeout=300) for f in futs]
+    finally:
+        rt.stop()
+    deadline = time.monotonic() + 60  # a batch is recorded after its responses
+    while sum(b.n_real for b in rt.metrics.batch_records) < len(clouds):
+        assert time.monotonic() < deadline
+        time.sleep(0.001)
+    records = [b for b in rt.metrics.batch_records if b.n_real]
+    assert sorted(b.n_real for b in records) == [BATCH, BATCH]
+    assert {b.replica_id for b in records} == {0, 1}
+    assert all(r.params is not params for r in rt.pool.replicas)
+    for lo in (0, BATCH):
+        reqs = [Request(id=i, cloud=c, n_orig=c.shape[0], bucket=CONFIG.n_points,
+                        policy=rt.default_policy, deadline_t=None, submit_t=0.0, future=None)
+                for i, c in enumerate(clouds[lo:lo + BATCH])]
+        batch = assemble_batch(reqs, CONFIG.n_points, 3, BATCH)
+        direct = accel.infer(params, batch).cpu().numpy()
+        for i in range(BATCH):
+            np.testing.assert_array_equal(outs[lo + i], direct[i])
+
+
+def test_result_to_host_reads_a_side_streams_finished_values(cuda):
+    """A tensor written on a side stream behind a long spin: result_to_host,
+    called from the default stream's thread, still reads the written values."""
+    from repro_torch.core.engine import result_to_host
+    from repro_torch.core.preprocess import PreprocessResult
+    from repro_torch.core.query import NeighborSet
+
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        idx = torch.zeros((8, 1 << 20), dtype=torch.int32, device=cuda)
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning before the writes
+        idx.fill_(7)
+        xyz = torch.full((8, 64, 3), 0.5, device=cuda)
+        res = PreprocessResult(idx, xyz, NeighborSet(idx[:, :4], idx[:, :4] > 0),
+                               torch.ones((8, 64), dtype=torch.bool, device=cuda))
+    host = result_to_host((res,))
+    assert (host[0].centroid_idx == 7).all() and (host[0].centroid_xyz == 0.5).all()
+    assert host[0].neighbors.mask.all()
