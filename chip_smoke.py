@@ -11,7 +11,10 @@ width, the flat lattice query (`lattice_query_fused`) at the example
 pipeline's shape (2048 points, 64 centroids) and at a seg-sized set (4096
 points, 1024 centroids), and the serving path: ServingRuntime.submit
 through the queue, the scheduler, the replica pool (its own CUDA streams
-and worker threads), the preprocess cache and the pipelined executor.
+and worker threads), the preprocess cache and the pipelined executor.  On
+the card the entry points replay captured CUDA graphs (core/graphs.py, the
+counterpart of the JAX package's jit artifacts) unless the caller enters
+graphs.eager(), which is the reference side of every graph check.
 
 Phases, each of which stops the run with a non-zero exit code if it fails:
 
@@ -20,7 +23,8 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      sm_90a, one nvcc per source, all at once, and print ptxas's report of
      every instantiation (registers, shared memory, stack, spills);
   3. run one cls and one seg forward (quant="sc_w16a16") and the flat path
-     while recording every kernel call's inputs, then hold each kernel
+     eagerly (graphs.eager(): a graph replay calls no kernel wrapper from
+     Python) while recording every kernel call's inputs, then hold each kernel
      against its plain PyTorch version on those inputs on the card
      (bitwise), and time kernel, plain version and, for the SC matmul, one
      float64 torch.matmul of the same operands: the card's busy time a call
@@ -34,32 +38,52 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      quant="none" and quant="sc_w16a16"; a cls forward must launch 2 FPS,
      2 lattice and (under SC) 12 SC-matmul kernels, a seg forward 2 FPS,
      2 lattice, 2 knn3 and (under SC) 12 SC-matmul kernels, and the flat
-     path one flat lattice kernel a query.  Then a forward per batch is
+     path one flat lattice kernel a query.  The first infer of a shape runs
+     eagerly and captures its graph, which counts nothing; each later one
+     replays it, which adds the captured launches.  Then a forward per batch is
      timed under both policies and one is profiled (device time by kernel,
      and the device's idle share) until two profiler sessions agree on the
-     largest kernel count seen, up to three;
+     largest kernel count seen, up to five (PROFILE_TRIES); the port's
+     kernels the profiler saw in that session, by symbol (KERNEL_SYMBOLS),
+     must equal the launches the counters were credited in it;
   5. check the outputs against the port's own CPU run (plain versions):
      preprocessing, the seg FP stages' 3-NN indices and the flat query
      bitwise; logits finite, of shape (8, 8) for cls and (8, 4096, 8) for
      seg, and within the stated tolerance;
-  6. the serving path at full width, every launch counter set to 0 before
+  6. the graphs: for cls and seg under both policies, with a fresh params
+     copy, each entry point (infer, infer_with_preprocess, preprocess_stage,
+     feature_stage, feature_from_cached) is captured on one batch and
+     replayed on another, bitwise equal to graphs.eager() on that batch
+     (every leaf of the preprocessing too), with the launches of each
+     replay equal to the per-forward counts, each replay profiled and its
+     credited launches held against the port's kernels the card ran, and no
+     capture after the first calls; the flat path is captured and replayed
+     likewise.  It prints the
+     eager and the replayed forward (host clock, median of 10), the device
+     busy time and the idle share of each;
+  7. the serving path at full width, every launch counter set to 0 before
      each counted run: ServingRuntime (bucket n_points, max_batch 8) serves
      64 ragged cls clouds of 600-1500 points under quant="none" and
      "sc_w16a16", each sequential and pipelined, and 16 seg clouds of
      3000-6000 points; every response must be bitwise equal to a direct
-     infer on the card of the padded micro-batch it rode in (rebuilt from
-     the trace's batch members), the pipelined responses bitwise equal to
+     eager infer (graphs.eager()) on the card of the padded micro-batch it
+     rode in (rebuilt from the trace's batch members), no graph captured
+     after the runtime's warmup, the pipelined responses bitwise equal to
      the sequential ones, the launches equal to the per-forward counts of
      phase 4 times the batches the metrics record (warmup included), with
      0 retries, 0 evictions and no failed request.  Then 16 cls clouds
      twice through the preprocess cache under SC: the second round is all
      hits, launches no FPS or lattice kernel, and answers bitwise as the
      first.  It prints requests/s and p50/p99 latency of each run, the
-     device idle share of one micro-batch through the runtime, and the wall
-     time of 8 micro-batches through infer_pipelined against 8 infer calls.
+     device idle share of one micro-batch through the runtime (whose
+     profile holds the credited launches against the kernels seen), and the wall
+     time of 8 micro-batches through infer_pipelined against 8 infer calls,
+     all replaying graphs.
 
 Then it prints one JSON line with every kernel's launches (summed over the
-counted runs of phases 4 and 6), error and times (summed over the calls recorded in
+counted runs of phases 4, 6 and 7; a replay's are the launches its capture
+recorded, which the profiled replays of phases 4, 6 and 7 show the card
+running), error and times (summed over the calls recorded in
 phase 3, with a breakdown by path), the card line again, and as its last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Inputs and weights come from numpy / torch generators seeded with SEED;
@@ -71,6 +95,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -84,6 +109,10 @@ SEED = 0
 BATCH = 8
 N_BATCHES = {"cls": 3, "seg": 2}
 TIMED_FORWARDS = 10
+# Profiler sessions of one forward before a run gives up on two agreeing on
+# the largest device-event count: a session now and then loses events, and
+# the run profiles twelve forwards (phases 4 and 6) and a served batch.
+PROFILE_TRIES = 5
 # The flat lattice query: (points, centroids, radius, nsample), one cloud each.
 # examples/preprocess_pipeline.py's query, and a seg-sized one (SA1's counts).
 FLAT_SETS = ((2048, 64, 0.3, 16), (4096, 1024, 0.2, 32))
@@ -136,6 +165,17 @@ KERNELS = {
         "replaces": "src/repro/kernels/lattice/kernel.py:97",
     },
 }
+
+# The port's CUDA kernels by their symbols in csrc/, each under the launch
+# counters it serves: the two lattice wrappers launch one kernel.  A graph
+# replay adds the launches its capture recorded; a profiled run holds what
+# the counters were credited against the kernels the card ran.
+KERNEL_SYMBOLS = {"fps_warp_kernel": "fps", "fps_tiles_kernel": "fps", "lattice_kernel": "lattice",
+                  "knn3_kernel": "knn3", "sc_matmul_kernel": "sc_matmul",
+                  "sc_matmul_res_kernel": "sc_matmul"}
+SYMBOL_OF = {"fps_tiles": "fps", "lattice_tiles": "lattice", "lattice_query": "lattice",
+             "knn3": "knn3", "sc_matmul": "sc_matmul"}
+SYMBOL_RE = re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(KERNEL_SYMBOLS) + r")(?![A-Za-z0-9_])")
 
 
 def fail(msg: str) -> None:
@@ -286,42 +326,76 @@ def bound(name: str, args, kw, plain_out) -> tuple[float, float, float]:
     return nbytes, ops, PEAK_INT8_OPS
 
 
-def profile_forward(torch, accel, params, batch, wall_ms: float, tries: int = 3) -> dict:
+def profile_forward(torch, accel, params, batch, wall_ms: float, registry, label: str) -> dict:
     """Device time of one forward by kernel name, from torch.profiler's CUDA events.
 
     The forward enqueues the same kernels every time, so a session that lost
     events records fewer of them: the forward is profiled until two sessions
-    agree on the largest count seen, up to `tries` sessions, else the phase
-    fails.  busy_ms sums the kernels' durations (one stream, so they do not
-    overlap); idle_share compares it with the unprofiled forward's median
+    agree on the largest count seen, up to PROFILE_TRIES sessions, else the
+    phase fails.  busy_ms sums the kernels' durations (one stream, so they do
+    not overlap); idle_share compares it with the unprofiled forward's median
     wall time.
     """
     accel.infer(params, batch)
     torch.cuda.synchronize()
-    return profile_run(torch, lambda: accel.infer(params, batch), wall_ms, tries)
+    return profile_run(torch, lambda: accel.infer(params, batch), wall_ms, registry, label)
 
 
-def profile_run(torch, fn, wall_ms: float, tries: int = 3) -> dict:
+def by_counter(launches: dict[str, int]) -> dict[str, int]:
+    """Launch counts summed by the kernel symbol group they count (SYMBOL_OF)."""
+    out = dict.fromkeys(sorted(set(KERNEL_SYMBOLS.values())), 0)
+    for name, n in launches.items():
+        out[SYMBOL_OF[name]] += n
+    return out
+
+
+def port_kernel_events(by_name: dict[str, list]) -> dict[str, int]:
+    """How many of the port's kernels a profiler session saw, by symbol group."""
+    out = dict.fromkeys(sorted(set(KERNEL_SYMBOLS.values())), 0)
+    for name, (n, _) in by_name.items():
+        hit = SYMBOL_RE.search(name)
+        if hit:
+            out[KERNEL_SYMBOLS[hit.group(1)]] += n
+    return out
+
+
+def profile_run(torch, fn, wall_ms: float | None, registry, label: str,
+                tries: int = PROFILE_TRIES) -> dict:
     """profile_forward's sessions and report for any fn() that enqueues the
-    same kernels each call on one stream at a time."""
-    sessions = []
+    same kernels each call on one stream at a time.
+
+    Every launch counter is set to 0 before each session: the session
+    chosen must have seen on the card as many of the port's kernels, by
+    symbol, as its call credited to the counters, or the phase fails.
+    """
+    sessions, credited = [], []
     for _ in range(tries):
+        registry.reset_launches()
         by_name = device_kernels(torch, fn)
+        credited.append(by_counter(registry.launches()))
         sessions.append(by_name)
         counts = [n_events(b) for b in sessions]
         if max(counts) > 0 and counts.count(max(counts)) >= 2:
             break
     else:
-        fail(f"torch.profiler sessions of one forward recorded {counts} device events: "
+        fail(f"{label}: torch.profiler sessions of one call recorded {counts} device events: "
              "no two agree on the largest count")
-    by_name = sessions[counts.index(max(counts))]
+    best = counts.index(max(counts))
+    by_name = sessions[best]
+    seen = port_kernel_events(by_name)
+    if seen != credited[best]:
+        fail(f"{label}: the card ran {seen} of the port's kernels in a profiled call, the "
+             f"launch counters were credited {credited[best]}")
     busy_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    return {
-        "kernels_launched": n_events(by_name), "sessions": counts,
-        "busy_ms": busy_ms, "wall_ms": wall_ms, "idle_share": 1.0 - busy_ms / wall_ms,
-        "top": [{"name": name[:80], "count": n, "ms": ms} for name, (n, ms) in top],
+    out = {
+        "kernels_launched": n_events(by_name), "port_kernels_seen": seen, "sessions": counts,
+        "busy_ms": busy_ms, "top": [{"name": name[:80], "count": n, "ms": ms}
+                                    for name, (n, ms) in top],
     }
+    if wall_ms is not None:
+        out.update(wall_ms=wall_ms, idle_share=1.0 - busy_ms / wall_ms)
+    return out
 
 
 def n_linears(cfg) -> int:
@@ -378,8 +452,10 @@ LAYER_SPANS = {
 }
 
 
-def layer_ms(rt) -> dict[str, float]:
-    """Median ms of each LAYER_SPANS span over the runtime's traced micro-batches."""
+def layer_ms(rt, reduce=np.median, strict: bool = True) -> dict[str, float]:
+    """`reduce` (the median) in ms of each LAYER_SPANS span over the runtime's
+    traced micro-batches; a span the trace lacks fails the run if `strict`,
+    else is left out (a pipelined batch has no execute span)."""
     by_trace, by_batch = {}, {}
     for e in rt.tracer.events():
         if e.trace_id != -1:
@@ -390,9 +466,10 @@ def layer_ms(rt) -> dict[str, float]:
     for label, (a, b) in LAYER_SPANS.items():
         spans = by_trace if a.startswith("request.") else by_batch
         vals = [(d[b] - d[a]) * 1e3 for d in spans.values() if a in d and b in d]
-        if not vals:
+        if vals:
+            out[label] = float(reduce(vals))
+        elif strict:
             fail(f"the runtime's trace has no {a} -> {b} span")
-        out[label] = float(np.median(vals))
     return out
 
 
@@ -405,11 +482,128 @@ def batch_members(rt) -> list[list[int]]:
             for e in events if e.name == "batch.assembled"]
 
 
+def graph_phase(torch, accels: dict, cfgs: dict, params: dict, batches: dict, flat_sets: list,
+                registry, card: str) -> tuple[dict, dict]:
+    """Phase 6: every entry point's graph replayed against graphs.eager(), bitwise.
+
+    Returns the launch counts of each counted replay and the numbers to report.
+    """
+    from repro_torch.core import graphs
+    from repro_torch.core.accelerator import params_copy_on
+    from repro_torch.core.engine import result_leaves, result_to_host
+    from repro_torch.kernels.lattice.ops import lattice_query_fused
+
+    counted, report = {}, {"card": card}
+
+    def same(label, got, want):
+        for i, (g, w) in enumerate(zip(result_leaves(got), result_leaves(want))):
+            if not torch.equal(g, w):
+                fail(f"graphs, {label}: leaf {i} of the replay differs from eager "
+                     f"(max |diff| {(g.double() - w.double()).abs().max().item()})")
+
+    def counted_replay(label, run, want):
+        registry.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        got = {n: registry.launches()[n] for n in KERNELS}
+        counted[label] = got
+        if got != want:
+            fail(f"graphs, {label}: launches {got} a replay, expected {want}")
+        profile_run(torch, run, None, registry, f"graphs, {label}")  # the card ran them
+        return out
+
+    def sync(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    for (m, q), accel in accels.items():
+        cfg = cfgs[m]
+        p = params_copy_on(params[m], torch.device("cuda"))  # a fresh owner: captured here
+        cap, new = batches[m][0], batches[m][1]
+        first = graphs.captures()
+        pre_cap = accel.preprocess_stage(cap)
+        accel.feature_stage(p, cap, pre_cap)
+        accel.infer(p, cap)
+        captured = graphs.captures() - first
+        with graphs.eager():
+            ref_logits, ref_pre = accel.infer_with_preprocess(p, new)
+            host_pre = result_to_host(ref_pre)
+            ref = {"infer": ref_logits, "infer_with_preprocess": (ref_logits, ref_pre),
+                   "preprocess_stage": ref_pre,
+                   "feature_stage": accel.feature_stage(p, new, ref_pre),
+                   "feature_from_cached": accel.feature_from_cached(p, new, host_pre)}
+        whole = expected_launches(m, q, cfg)
+        halves = {"preprocess": {n: v if n in ("fps_tiles", "lattice_tiles") else 0
+                                 for n, v in whole.items()}}
+        halves["feature"] = {n: whole[n] - halves["preprocess"][n] for n in whole}
+        calls = {"infer": (lambda: accel.infer(p, new), whole),
+                 "infer_with_preprocess": (lambda: accel.infer_with_preprocess(p, new), whole),
+                 "preprocess_stage": (lambda: accel.preprocess_stage(new), halves["preprocess"]),
+                 "feature_stage": (lambda: accel.feature_stage(p, new, ref_pre),
+                                   halves["feature"]),
+                 "feature_from_cached": (lambda: accel.feature_from_cached(p, new, host_pre),
+                                         halves["feature"])}
+        before = graphs.captures()
+        for entry, (run, want) in calls.items():
+            same(f"{m} quant={q} {entry}",
+                 counted_replay(f"{m} quant={q} {entry}", run, want), ref[entry])
+        if graphs.captures() != before:
+            fail(f"graphs, {m} quant={q}: {graphs.captures() - before} captures during replays")
+        with graphs.eager():
+            infer_eager_ms = median_ms(sync(lambda: accel.infer(p, new)))
+            eager_prof = profile_run(torch, lambda: accel.infer(p, new), infer_eager_ms,
+                                     registry, f"graphs, {m} quant={q} eager infer")
+        replay_ms = median_ms(sync(lambda: accel.infer(p, new)))
+        replay_prof = profile_run(torch, lambda: accel.infer(p, new), replay_ms, registry,
+                                  f"graphs, {m} quant={q} replayed infer")
+        report[f"{m} quant={q}"] = {
+            "captures_at_first_calls": captured,
+            "eager": {k: eager_prof[k] for k in ("wall_ms", "busy_ms", "idle_share",
+                                                 "kernels_launched", "sessions")},
+            "replay": {k: replay_prof[k] for k in ("wall_ms", "busy_ms", "idle_share",
+                                                  "kernels_launched", "sessions")},
+        }
+        say(f"graphs, {m} quant={q}: {len(calls)} entry points replayed on a batch other than "
+            f"the captured one, bitwise equal to eager, launches = per-forward counts; "
+            f"{captured} captures at the first calls, 0 after.  forward (host clock, median of "
+            f"{TIMED_FORWARDS}; {card}): eager {infer_eager_ms:.3f} ms, busy "
+            f"{eager_prof['busy_ms']:.3f} ms, idle {eager_prof['idle_share']:.3f}; replay "
+            f"{replay_ms:.3f} ms, busy {replay_prof['busy_ms']:.3f} ms, idle "
+            f"{replay_prof['idle_share']:.3f}")
+
+    # the flat path: no model, so an artifact cache of its own
+    flat_cache = graphs.ArtifactCache(torch.device("cuda"))
+    specs = [(radius, ns) for _, _, radius, ns in flat_sets]
+
+    def flat_fn(*sets):
+        return tuple(lattice_query_fused(sets[2 * i], sets[2 * i + 1], radius, ns)
+                     for i, (radius, ns) in enumerate(specs))
+
+    rng = np.random.default_rng(SEED + 2)
+    args_new = []
+    for pts, cents, _, _ in flat_sets:
+        cloud = make_clouds(rng, 1, pts.shape[0])[0]
+        pick = np.sort(rng.choice(pts.shape[0], cents.shape[0], replace=False))
+        args_new += [torch.from_numpy(cloud).cuda(), torch.from_numpy(cloud[pick]).cuda()]
+    flat_cache.run(None, "flat", flat_fn, [a for s in flat_sets for a in s[:2]])
+    with graphs.eager():
+        want = flat_fn(*args_new)
+    got = counted_replay("flat", lambda: flat_cache.run(None, "flat", flat_fn, args_new),
+                         expected_launches("flat", "none"))
+    same("flat path", got, want)
+    say("graphs, flat: the flat path's replay on other sets equals eager bitwise, "
+        f"launches {counted['flat']}")
+    return counted, report
+
+
 def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple[dict, dict]:
-    """Phase 6: ServingRuntime on the card, counted, and held against direct infer.
+    """Phase 7: ServingRuntime on the card, counted, and held against eager direct infer.
 
     Returns the launch counts of each counted run and the numbers to report.
     """
+    from repro_torch.core import graphs
     from repro_torch.core.accelerator import get_accelerator
     from repro_torch.core.policy import ExecutionPolicy
     from repro_torch.serve import (
@@ -422,7 +616,7 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
     counted, report = {}, {"card": card}
 
     def direct(m, q, clouds, members):
-        """Default-stream infer of each padded micro-batch the runtime assembled."""
+        """Eager default-stream infer of each padded micro-batch the runtime assembled."""
         cfg = cfgs[m]
         accel = get_accelerator(cfg, ExecutionPolicy(quant=q), device="cuda")
         out = {}
@@ -431,7 +625,8 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
                             bucket=cfg.n_points, policy=accel.policy, deadline_t=None,
                             submit_t=0.0, future=None) for i in idx]
             batch = assemble_batch(reqs, cfg.n_points, 3 + cfg.in_features, BATCH)
-            logits = accel.infer(params[m], batch).cpu().numpy()
+            with graphs.eager():
+                logits = accel.infer(params[m], batch).cpu().numpy()
             for j, i in enumerate(idx):
                 n = clouds[i].shape[0]
                 if cfg.task != "seg":
@@ -469,8 +664,8 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
         warmup); check counts, health and responses.  The first round is
         queued before the scheduler starts, so it drains as full batches in
         submit order; later rounds need a max_wait_s long enough for that.
-        Returns the runtime, each round's responses and the last round's
-        batch members."""
+        No graph may be captured after the warmup.  Returns the runtime,
+        each round's responses and the last round's batch members."""
         policy = ExecutionPolicy(quant=q, pipeline=pipeline)
         rt = ServingRuntime(cfgs[m], params[m],
                             RuntimeConfig(max_batch=BATCH, buckets=(cfgs[m].n_points,),
@@ -480,6 +675,7 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
         try:
             registry.reset_launches()
             rt.warmup()
+            warm = graphs.captures()
             for r in range(rounds):
                 tag = f"{label}, round {r + 1}" if rounds > 1 else label
                 if r:  # the all-miss cache fills land on their own thread
@@ -493,6 +689,8 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
                 if not r:  # queued before the scheduler starts: full batches in order
                     rt.start()
                 outs.append([f.result(timeout=SERVE_WAIT_S) for f in futs])
+                if graphs.captures() != warm:
+                    fail(f"{tag}: {graphs.captures() - warm} graphs captured after the warmup")
                 records = settle(rt, start, len(clouds))
                 start += len(records)
                 got = {n: registry.launches()[n] for n in KERNELS}
@@ -513,19 +711,26 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
                     if not np.array_equal(o, want_out[i]):
                         fail(f"{tag}: response {i} differs from direct infer of its padded batch")
                 say(f"{tag}: {len(clouds)} responses over {real} batches bitwise equal to "
-                    f"direct infer; launches {got}")
+                    f"eager direct infer; 0 captures after the warmup; launches {got}")
         finally:
             rt.stop()
         snap = rt.metrics.snapshot()
         if snap.retries or snap.evictions or snap.failed or snap.completed != rounds * len(clouds):
             fail(f"{label}: retries={snap.retries} evictions={snap.evictions} "
                  f"failed={snap.failed} completed={snap.completed}")
+        # where a slow run lost its time: each span's slowest instance, and
+        # the real batches' durations on the replica
+        slowest = layer_ms(rt, reduce=np.max, strict=False)
+        durations = [r.duration_s * 1e3 for r in rt.metrics.batch_records if r.n_real]
         say(f"{label}: {snap.throughput_rps:.1f} requests/s, p50 "
             f"{snap.latency_p50_s * 1e3:.2f} ms, p99 {snap.latency_p99_s * 1e3:.2f} ms; "
-            f"0 retries, 0 evictions ({card})")
+            f"0 retries, 0 evictions ({card}); batch on the replica: median "
+            f"{np.median(durations):.3f} ms, max {max(durations):.3f} ms; slowest span (ms): "
+            + "; ".join(f"{k} {v:.3f}" for k, v in slowest.items()))
         report[label] = {"requests_per_s": snap.throughput_rps,
                          "p50_ms": snap.latency_p50_s * 1e3, "p99_ms": snap.latency_p99_s * 1e3,
-                         "batches": snap.batches}
+                         "batches": snap.batches, "batch_ms_median": float(np.median(durations)),
+                         "batch_ms_max": max(durations), "slowest_span_ms": slowest}
         return rt, outs, members
 
     cls_clouds = traffic["cls"]
@@ -583,7 +788,10 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
         with torch.cuda.stream(side):
             return forward()
 
-    threads = {"bare forward, this thread": median_ms(forward)}
+    with graphs.eager():
+        bare_eager = median_ms(forward)
+    threads = {"bare forward, this thread": median_ms(forward),
+               "bare eager forward, this thread": bare_eager}
     with ThreadPoolExecutor(max_workers=1) as worker:
         threads["forward on a worker thread, side stream"] = median_ms(
             lambda: worker.submit(forward_on_side).result())
@@ -616,7 +824,8 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
         rt.tracer.clear()
         threads["one micro-batch through the runtime"] = median_ms(one_batch, warmup=False)
         layers = layer_ms(rt)
-        prof = profile_run(torch, one_batch, threads["one micro-batch through the runtime"])
+        prof = profile_run(torch, one_batch, threads["one micro-batch through the runtime"],
+                           registry, "one served cls micro-batch")
     finally:
         rt.stop()
     report["runtime_micro_batch"] = {"wall_ms": threads, "layers_ms": layers, "profile": prof}
@@ -624,7 +833,10 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
         + "; ".join(f"{k} {v:.3f} ms" for k, v in threads.items()))
     say("  by layer, from the runtime's trace (median ms): "
         + "; ".join(f"{k} {v:.3f}" for k, v in layers.items()))
-    say(f"  device busy {prof['busy_ms']:.3f} ms, idle share {prof['idle_share']:.3f}")
+    span = layers["replica (execute: H2D, forward, D2H)"] / threads["bare forward, this thread"]
+    say(f"  device busy {prof['busy_ms']:.3f} ms, idle share {prof['idle_share']:.3f}; the "
+        f"replica's execute span is {span:.2f}x a bare replay")
+    accel.infer_pipelined(params["cls"], padded)  # captures the pipelined pair's graphs
     times = {"pipelined": [], "sequential": []}
     for _ in range(5):
         for mode in times:
@@ -656,6 +868,7 @@ def main() -> None:
 
     from repro_torch.configs.pointnet2_cls import CONFIG as CLS_CONFIG
     from repro_torch.configs.pointnet2_seg import CONFIG as SEG_CONFIG
+    from repro_torch.core import graphs
     from repro_torch.core.accelerator import get_accelerator
     from repro_torch.core.policy import ExecutionPolicy
     from repro_torch.kernels import build, registry
@@ -735,11 +948,13 @@ def main() -> None:
                 registry.register(name, plain=spec.plain, cuda=spec.cuda)
         return calls
 
-    recorded = {
-        m: record_calls(functools.partial(accels[m, "sc_w16a16"].infer, params[m], batches[m][0]))
-        for m in configs
-    }
-    recorded["flat"] = record_calls(flat_path)
+    with graphs.eager():
+        recorded = {
+            m: record_calls(functools.partial(accels[m, "sc_w16a16"].infer, params[m],
+                                              batches[m][0]))
+            for m in configs
+        }
+        recorded["flat"] = record_calls(flat_path)
     for path, calls in recorded.items():
         say(f"kernel calls of one {path} run"
             f"{' (sc_w16a16 forward)' if path != 'flat' else ''}: "
@@ -855,7 +1070,8 @@ def main() -> None:
     say(json.dumps({"forward_per_batch": forward_ms}))
     say(json.dumps({"forward_profile": {
         m: {q: profile_forward(torch, accels[m, q], params[m], batches[m][0],
-                               forward_ms[m][q]["median_ms"]) for q in policies}
+                               forward_ms[m][q]["median_ms"], registry, f"{m} quant={q} forward")
+            for q in policies}
         for m in configs
     }}))
 
@@ -905,7 +1121,14 @@ def main() -> None:
     say("flat: lattice_query_fused equals the CPU run bitwise at "
         + ", ".join(f"P={p} M={m}" for p, m, _, _ in FLAT_SETS))
 
-    # -- 6. the serving path --------------------------------------------------
+    # -- 6. the graphs ------------------------------------------------------------
+    graph_counted, graph_report = graph_phase(
+        torch, accels, configs, params, batches, flat_sets, registry, card)
+    for n in KERNELS:
+        launches[n] += sum(c[n] for c in graph_counted.values())
+    say(json.dumps({"graphs": graph_report, "graph_launches": graph_counted}))
+
+    # -- 7. the serving path --------------------------------------------------
     serve_counted, serve_report = serving_phase(
         torch, configs, params, registry, card)
     for n in KERNELS:

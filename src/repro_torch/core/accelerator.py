@@ -25,21 +25,35 @@ streams).  Each returns logits bitwise equal to `infer`: all of them run
 
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`, which runs the plain versions of the kernels).  Without a
-card the default device raises: nothing drifts to the CPU.  PyTorch runs
-eagerly, so there is nothing to compile; the cache keys one accelerator per
-(config, policy, device) so every caller of a triple shares its engines.
+card the default device raises: nothing drifts to the CPU.  The cache keys
+one accelerator per (config, policy, device) so every caller of a triple
+shares its engines and its compiled artifacts.
+
+The artifacts are captured CUDA graphs (`core/graphs.py`), the counterpart
+of the JAX package's jit of `forward`, `preprocess_stage`, `feature_stage`
+and the fused `infer_with_pre`.  On the card, `infer`,
+`infer_with_preprocess`, `preprocess_stage`, `feature_stage` and
+`feature_from_cached` replay the graph of their stage for the params and
+input shapes, capturing it at the first call of a shape as `jax.jit`
+traces; `warmup` captures them ahead of traffic.  `forward` stays eager with
+autograd on, and on the CPU everything runs eagerly.  Inside
+`graphs.eager()` the entry points run eagerly on the card too: that is the
+reference side of every graph-against-eager check.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import operator
 import threading
 
+import numpy as np
 import torch
 
-from repro_torch.core.device import on_streams, resolve_device
-from repro_torch.core.engine import result_leaves, result_to
+from repro_torch.core import graphs
+from repro_torch.core.device import CAPTURE_LOCK, on_streams, resolve_device
+from repro_torch.core.engine import result_leaves, result_map, result_to
 from repro_torch.core.policy import ExecutionPolicy, resolve_policy
 from repro_torch.models import pointnet2 as PN
 from repro_torch.parallel.pipeline import two_stage_schedule
@@ -54,6 +68,8 @@ class PC2IMAccelerator:
         device  : where inputs are placed and every kernel runs.
         engines : per-SA-stage PreprocessEngines, stage i consuming stage
                   i-1's centroid count.
+        artifacts : the captured CUDA graphs of the entry points
+                  (`graphs.ArtifactCache`), None on the CPU.
     """
 
     def __init__(self, config: PN.PointNet2Config, policy: ExecutionPolicy | None = None,
@@ -71,6 +87,8 @@ class PC2IMAccelerator:
         # PipelinedExecutor cache of infer_pipelined, keyed by (devices, depth)
         self._executors: dict = {}
         self._executors_lock = threading.Lock()
+        # the captured CUDA graphs of the entry points (None on the CPU)
+        self.artifacts = graphs.ArtifactCache(self.device) if self.device.type == "cuda" else None
 
     def init(self, generator: torch.Generator | None = None) -> PN.PointNet2Params:
         """Fresh parameters on this accelerator's device (drawn on the CPU from `generator`)."""
@@ -79,8 +97,44 @@ class PC2IMAccelerator:
     def _points(self, points) -> torch.Tensor:
         return torch.as_tensor(points, dtype=torch.float32, device=self.device)
 
+    def _graphed(self) -> bool:
+        """Whether the entry points replay graphs here: on the card, outside `graphs.eager()`."""
+        return self.artifacts is not None and not graphs.is_eager()
+
+    @staticmethod
+    def _graph_points(points):
+        """The points as a static buffer takes them: float32, a tensor or a host array."""
+        if isinstance(points, torch.Tensor):
+            return points if points.dtype == torch.float32 else points.to(torch.float32)
+        return np.asarray(points, dtype=np.float32)
+
+    # -- the captured stages, each a function of its static inputs ------------
+
+    def _forward_fn(self, params):
+        def forward(pts):
+            pre = PN.preprocess_stage(self.config, pts, policy=self.policy)
+            return PN.feature_stage(params, self.config, pts, pre, policy=self.policy), pre
+        return forward
+
+    def _preprocess_fn(self):
+        return lambda pts: PN.preprocess_stage(self.config, pts, policy=self.policy)
+
+    def _feature_fn(self, params, like):
+        """The feature stage over `like`'s tree structure, its leaves passed flat."""
+        def feature(pts, *leaves):
+            it = iter(leaves)
+            pre = result_map(lambda _: next(it), like)
+            return PN.feature_stage(params, self.config, pts, pre, policy=self.policy)
+        return feature
+
+    def _replay_feature(self, params, points, preproc) -> torch.Tensor:
+        return self.artifacts.run(params, "feature", self._feature_fn(params, preproc),
+                                [self._graph_points(points), *result_leaves(preproc)])
+
+    # -- entry points ----------------------------------------------------------
+
     def forward(self, params: PN.PointNet2Params, points) -> torch.Tensor:
-        """Batched forward, autograd on: (B, N, 3+F) -> logits.
+        """Batched forward, autograd on, always eager: (B, N, 3+F) -> logits.
 
         Logits are (B, n_classes) for a cls config and (B, N, n_classes),
         one row a point, for a seg config.
@@ -91,7 +145,11 @@ class PC2IMAccelerator:
         """Inference entry point: `forward` under torch.inference_mode().
 
         (B, N, 3+F) -> (B, n_classes) for cls, (B, N, n_classes) for seg.
+        On the card it replays the "forward" graph.
         """
+        if self._graphed():
+            return self.artifacts.run(params, "forward", self._forward_fn(params),
+                                    [self._graph_points(points)], pick=operator.itemgetter(0))
         with torch.inference_mode():
             return self.forward(params, points)
 
@@ -99,8 +157,12 @@ class PC2IMAccelerator:
         """Params-free preprocessing half, one PreprocessResult per SA stage.
 
         Chains MSP partition + FPS + lattice query stage after stage; reads
-        only coordinates.
+        only coordinates.  On the card it replays the "preprocess" graph of
+        the current stream.
         """
+        if self._graphed():
+            return self.artifacts.run(None, "preprocess", self._preprocess_fn(),
+                                    [self._graph_points(points)])
         with torch.inference_mode():
             return PN.preprocess_stage(self.config, self._points(points), policy=self.policy)
 
@@ -109,8 +171,11 @@ class PC2IMAccelerator:
         seg the feature-propagation stages (3-NN interpolation + MLPs).
 
         `feature_stage(params, pts, preprocess_stage(pts))` equals
-        `infer(params, pts)`: `forward` is exactly that composition.
+        `infer(params, pts)`: `forward` is exactly that composition.  On the
+        card it replays the "feature" graph.
         """
+        if self._graphed():
+            return self._replay_feature(params, points, preproc)
         with torch.inference_mode():
             return PN.feature_stage(
                 params, self.config, self._points(points), preproc, policy=self.policy
@@ -124,20 +189,50 @@ class PC2IMAccelerator:
         placed on this accelerator's device and the feature stage runs as
         in `feature_stage`.  A batch whose rows are the cached canonical
         clouds therefore gets logits bitwise equal to an uncached `infer`
-        of those clouds, with the whole preprocessing half skipped.
+        of those clouds, with the whole preprocessing half skipped.  On the
+        card it replays the "feature" graph, a host leaf copied straight
+        into the graph's input buffer.
         """
+        if self._graphed():
+            return self._replay_feature(params, points, preproc)
         return self.feature_stage(params, points, result_to(preproc, self.device))
 
     def infer_with_preprocess(self, params: PN.PointNet2Params, points) -> tuple:
         """(logits, preprocessing) of one batch in one call: the cache's all-miss path.
 
         The logits are `infer`'s (the same composition); the per-stage
-        PreprocessResults come out beside them for the cache fill.
+        PreprocessResults come out beside them for the cache fill.  On the
+        card it replays the "forward" graph, as `infer` does.
         """
+        if self._graphed():
+            return self.artifacts.run(params, "forward", self._forward_fn(params),
+                                    [self._graph_points(points)])
         with torch.inference_mode():
-            pts = self._points(points)
-            pre = PN.preprocess_stage(self.config, pts, policy=self.policy)
-            return PN.feature_stage(params, self.config, pts, pre, policy=self.policy), pre
+            return self._forward_fn(params)(self._points(points))
+
+    def warmup(self, params: PN.PointNet2Params, points) -> tuple:
+        """One eager forward of `points`, then the graph of every stage at its shapes.
+
+        Returns the forward's (logits, preprocessing); its launches are the
+        only ones counted, since a capture runs nothing.  Stages already
+        captured are kept.  The "preprocess" graph is keyed by the current
+        stream: warm on the stream that traffic preprocesses on.  On the CPU,
+        or inside `graphs.eager()`, this is `infer_with_preprocess`.
+        """
+        if not self._graphed():
+            return self.infer_with_preprocess(params, points)
+        with CAPTURE_LOCK:  # the forward and the captures as one warm-up
+            with graphs.eager():
+                logits, pre = self.infer_with_preprocess(params, points)
+            pts = self._graph_points(points)
+            how = {"forward": (params, self._forward_fn(params), [pts]),
+                   "preprocess": (None, self._preprocess_fn(), [pts]),
+                   "feature": (params, self._feature_fn(params, pre),
+                               [pts, *result_leaves(pre)])}
+            for stage in graphs.STAGES:
+                owner, fn, args = how[stage]
+                self.artifacts.ensure(owner, stage, fn, args)
+        return logits, pre
 
     def infer_pipelined(self, params: PN.PointNet2Params, batches, *, devices=None,
                         depth: int = 2) -> list:
@@ -193,13 +288,18 @@ class PipelinedExecutor:
 
     `parallel.pipeline.two_stage_schedule` runs stage A in a producer
     thread and stage B in the caller's.  On one card each stage has its own
-    CUDA stream: stage A enqueues preprocessing on the preprocess stream
-    and records an event; stage B makes the feature stream wait on that
-    event, marks the hand-off tensors as used there (`record_stream`, so
-    the caching allocator does not hand their memory out while the feature
-    stream still reads them) and enqueues the feature stage.  Neither
-    thread synchronises the device.  With two or more devices, stage A runs
-    on `devices[0]` and stage B on `devices[1]`, with a copy of the
+    CUDA stream: stage A replays the accelerator's preprocess graph on the
+    preprocess stream and records an event; stage B makes the feature
+    stream wait on that event, marks the hand-off tensors as used there
+    (`record_stream`, so the caching allocator does not hand their memory
+    out while the feature stream still reads them) and replays the feature
+    graph.  Stage A runs a batch ahead, and its next replay overwrites the
+    preprocess graph's static outputs while stage B may still read the
+    previous batch's: the hand-off is therefore the replay's CLONES, made
+    on the preprocess stream before the event (`core/graphs.py`), not a
+    ring of graphs.  Neither thread synchronises the device.  With two or
+    more devices, stage A runs on `devices[0]` and stage B on `devices[1]`
+    (each through the accelerator of its device), with a copy of the
     parameters resident there; the hand-off copies the batch and its
     preprocessing across.  On the CPU both stages run plainly.
 
@@ -248,17 +348,21 @@ class PipelinedExecutor:
         cfg, pol = self.accel.config, self.accel.policy
         dev_pre = self.devices[0]
         dev_feat = self.devices[1] if len(self.devices) >= 2 else dev_pre
-        params_feat = self._params_on(params, dev_feat) if dev_feat != dev_pre else params
+        params_feat = self._params_on(params, dev_feat)
         s_pre, s_feat = self._stage_streams(dev_pre, dev_feat)
         if s_pre is not None:
             # inputs already on the card were written on the caller's stream
             s_pre.wait_stream(torch.cuda.current_stream(dev_pre))
         cross = dev_feat != dev_pre
+        # each stage through the accelerator of its own device, so that its
+        # work lands on its own stream, the one its event records
+        accel_pre, accel_feat = (self.accel if d == self.accel.device
+                                 else get_accelerator(cfg, pol, d) for d in (dev_pre, dev_feat))
 
         def stage_a(batch):
             with torch.inference_mode(), on_streams(s_pre):
                 pts = torch.as_tensor(batch, dtype=torch.float32, device=dev_pre)
-                pre = PN.preprocess_stage(cfg, pts, policy=pol)
+                pre = accel_pre.preprocess_stage(pts)
                 done = None
                 if s_pre is not None:
                     done = torch.cuda.Event()
@@ -277,7 +381,7 @@ class PipelinedExecutor:
                     s_feat.wait_event(done)
                     for t in (pts, *result_leaves(pre)):
                         t.record_stream(s_feat)
-                return PN.feature_stage(params_feat, cfg, pts, pre, policy=pol)
+                return accel_feat.feature_stage(params_feat, pts, pre)
 
         out = two_stage_schedule(stage_a, stage_b, batches, depth=self.depth)
         if s_feat is not None:

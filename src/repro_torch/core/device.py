@@ -2,13 +2,23 @@
 
 Kept apart from `core/accelerator.py` so that the model and the weight
 bridge resolve devices the same way without importing the accelerator.
+It also holds what ties streams, device-wide synchronisation and CUDA graph
+captures together.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
+
+# One CUDA graph capture at a time in the process (core/graphs.py), with the
+# eager warm-up before it, and no device-wide synchronisation while one is
+# under way: a synchronisation from any thread waits on the capturing
+# stream, which invalidates the capture.  Re-entrant, so that a warmup holds
+# it across its forward and several captures.
+CAPTURE_LOCK = threading.RLock()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,3 +49,9 @@ def on_streams(*streams) -> contextlib.ExitStack:
         if s is not None:
             stack.enter_context(torch.cuda.stream(s))
     return stack
+
+
+def synchronize(device: torch.device) -> None:
+    """`torch.cuda.synchronize(device)`, held off while a CUDA graph is captured."""
+    with CAPTURE_LOCK:
+        torch.cuda.synchronize(device)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import partition as part_mod
+from repro_torch.core.device import synchronize
 from repro_torch.core.preprocess import PreprocessResult
 from repro_torch.core.query import NeighborSet
 from repro_torch.kernels.fps.ops import fps_tiles
@@ -233,13 +234,15 @@ def result_to_host(res):
 
     A CUDA leaf may have been written on any stream of its device, so the
     device is synchronised once before the (synchronous) copies: the host
-    reads the finished values whichever stream or thread made them.  Every
+    reads the finished values whichever stream or thread made them (never
+    during another thread's graph capture, which that would invalidate:
+    `core.device.synchronize`).  Every
     leaf is copied, so writing a returned array (`result_set_row`) never
     touches the tensor it came from.
     """
     leaves = result_leaves(res)
     for dev in {x.device for x in leaves if isinstance(x, torch.Tensor) and x.is_cuda}:
-        torch.cuda.synchronize(dev)
+        synchronize(dev)
 
     def one(x):
         if isinstance(x, torch.Tensor):
@@ -286,19 +289,23 @@ def _stack(*xs):
     return np.stack(xs)
 
 
-def result_stack(rows, total: int | None = None):
+def result_stack(rows, total: int | None = None, filler=None):
     """Stack per-row result trees back into one batched tree.
 
     `rows` are `result_row`-shaped trees (all the same structure, all numpy
-    or all tensors on one device); `total` > len(rows) appends zero filler
-    rows so the stacked batch has the static batch dim — filler rows mirror
-    assemble_batch's zero batch rows, whose outputs the scatter step drops.
+    or all tensors on one device); `total` > len(rows) appends filler rows
+    so the stacked batch has the static batch dim.  The filler is `filler`
+    (a row tree of the same kind), else zeros.  A batch whose feature stage
+    must equal `infer` of the padded batch passes the preprocessing of
+    assemble_batch's zero filler cloud: under SC the activation scale spans
+    every row, so zero rows in its place move the real rows' logits.
     """
     rows = list(rows)
     if not rows:
         raise ValueError("need at least one row to stack")
     if total is not None and total > len(rows):
-        filler = result_map(_zeros_like, rows[0])
+        if filler is None:
+            filler = result_map(_zeros_like, rows[0])
         rows.extend([filler] * (total - len(rows)))
     return result_map(_stack, *rows)
 

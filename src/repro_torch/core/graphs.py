@@ -1,0 +1,353 @@
+"""Captured CUDA graphs: the port's counterpart of the JAX package's jit artifacts.
+
+The JAX accelerator is a set of compiled artifacts: `jax.jit` of the
+forward, of each half and of the fused forward-with-preprocessing, one per
+(config, policy), traced again for each input shape.  Here an artifact is
+a CUDA graph captured once per (accelerator, params, stage, input shapes)
+and replayed: one graph launch in place of the few hundred kernels a
+forward enqueues op by op from Python.
+
+An `Artifact` holds
+
+  * static input buffers (the points, and for the feature stage every leaf
+    of the preprocessing tree), which each replay overwrites with the
+    caller's inputs on the current stream, a host array in one H2D copy;
+  * the `torch.cuda.CUDAGraph`, which `replay()` launches on the current
+    stream, so a replica's or a pipeline stage's stream keeps working;
+  * its static outputs, which the next replay overwrites.  A replay
+    therefore returns CLONES: a caller never holds memory that a later
+    replay writes (the cache-fill thread reads `infer_with_preprocess`'s
+    preprocessing long after the call returned);
+  * the kernel launches counted while it was captured, added to the
+    registry's counters on every replay (`registry.add_launches`).
+
+Three stages are captured, and the accelerator's entry points replay them:
+
+    "forward"     infer, infer_with_preprocess      -> (logits, preprocessing)
+    "preprocess"  preprocess_stage                  -> preprocessing
+    "feature"     feature_stage, feature_from_cached -> logits
+
+Keys.  An `ArtifactCache` belongs to one accelerator, whose config, policy
+and device it shares.  A graph bakes in the addresses of the parameters it
+reads, and each serving replica has its own copy (`params_copy_on`), so the
+stages that read parameters are keyed weakly by the params module (an
+artifact goes when its parameters do).  The params-free preprocess stage is
+keyed by the stream it is called on, so two replicas never share one.
+Under that key: the stage, and the shapes and dtypes of the static inputs.
+A parameter updated in place is seen by the next replay.  One replaced by
+a new tensor (`.cpu()` then `.cuda()`, `.half()`,
+`load_state_dict(assign=True)`) would leave the graph reading freed
+memory, so an artifact keeps the parameters and buffers it read alive and
+a call first compares their addresses with those the module holds now: on
+a change the artifact goes (after its last replay) and the call captures
+again, as `jax.jit` always sees the params it is given.  The module's own
+tree is walked once; a submodule replaced inside it is not seen.
+
+Capture.  The first call for a key runs the stage eagerly on the caller's
+stream (its launches count, and its result is the call's answer, as
+`jax.jit`'s first call traces, compiles and runs), then captures it on a
+side stream, both under `core.device.CAPTURE_LOCK`.  The eager run is the warm-up: it loads the kernel libraries'
+modules and sets their shared-memory attributes (csrc/lattice.cu,
+csrc/sc_matmul.cu), creates this thread's cuBLAS handle and fills the
+caching allocator, none of which may happen first inside a capture.  The
+cuBLAS workspaces are cleared before and after the capture, so the graph's
+matmuls take a workspace of their own from the graph's memory pool rather
+than one that eager work goes on using, or that another graph captured on
+the same pooled stream baked in.  A capture takes no workspace of its own
+(PyTorch's own CUDA-graph trees clear the same way around each recording,
+`torch/_inductor/cudagraph_trees.py`).  The clear is process-wide: PyTorch
+keeps the workspace map behind a mutex (`WorkspaceMapWithMutex`), and a
+workspace it frees under another thread's feet goes back to the caching
+allocator for the stream it was made on, where only work enqueued after
+that thread's matmul can take it, since each of the port's threads that
+runs matmuls does so on a stream of its own.  The capture mode is
+"thread_local": a serving runtime has other threads running eager work
+meanwhile.  Captures are serialised process-wide (one at a time, the CUDA
+graph rule), with Python's cyclic collector off (a collection could
+destroy an unreachable graph on the capturing thread, which invalidates
+the capture), and no other thread's first-use set-up runs beside one; the
+port's device-wide synchronisations take the lock too, since one from any
+thread would invalidate a capture under way.  Every graph has a memory pool of its own, so no two
+artifacts share memory, the pipelined pair that replays concurrently on two
+streams included.  A capture that fails raises with the stage and shapes:
+nothing on the card falls back to eager.
+
+Sharing.  An artifact replayed from two threads or on two streams stays
+right: a lock covers each replay's copy-in, launch and clone-out, and a
+replay on another stream than the last one first waits for the last
+replay's event.
+
+`eager()` is the counterpart of `jax.disable_jit()`: inside it the entry
+points run op by op on the card, as before graphs.  It is the reference
+side of every graph-against-eager check and is never entered on a caller's
+behalf.  `captures()` counts captures, as the JAX `CacheStats` count
+compiles: a serving run checks that it stays flat after warmup.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import gc
+import threading
+import weakref
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import CAPTURE_LOCK
+from repro_torch.core.engine import result_map
+from repro_torch.kernels import registry
+
+STAGES = ("forward", "preprocess", "feature")
+
+# how deep the current context is in eager() blocks; every thread starts in a
+# fresh context, outside eager()
+_eager_depth = contextvars.ContextVar("repro_torch_eager_depth", default=0)
+_stats_lock = threading.Lock()
+_captures = 0
+
+
+@contextlib.contextmanager
+def eager():
+    """Run the accelerator entry points eagerly on the card, on this thread, inside the block.
+
+    Nests; the previous mode comes back on exit.  Other threads are not
+    affected.
+    """
+    token = _eager_depth.set(_eager_depth.get() + 1)
+    try:
+        yield
+    finally:
+        _eager_depth.reset(token)
+
+
+def is_eager() -> bool:
+    """Whether this thread is inside an `eager()` block."""
+    return _eager_depth.get() > 0
+
+
+def captures() -> int:
+    """How many graphs this process has captured."""
+    with _stats_lock:
+        return _captures
+
+
+def _torch_dtype(x) -> torch.dtype:
+    """The torch dtype of a tensor, or of a numpy array's values."""
+    if isinstance(x, torch.Tensor):
+        return x.dtype
+    return torch.from_numpy(np.empty(0, dtype=np.asarray(x).dtype)).dtype
+
+
+def _signature(args) -> tuple:
+    """(shape, torch dtype) of each input: what the static buffers are made of.
+
+    A numpy array and a tensor of the same shape and dtype have the same
+    signature, so a host tree and a device tree replay one artifact.
+    """
+    return tuple((tuple(x.shape), _torch_dtype(x)) for x in args)
+
+
+def _host_tensor(x) -> torch.Tensor:
+    """A numpy input as a CPU tensor over its own memory (a copy only if read-only)."""
+    x = np.asarray(x)
+    if not x.flags.writeable:
+        x = x.copy()
+    return torch.from_numpy(x)
+
+
+def _on(device: torch.device, x) -> torch.Tensor:
+    """An input as a tensor on `device` (the eager run's inputs)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return _host_tensor(x).to(device)
+
+
+class Artifact:
+    """One captured graph with its static inputs and outputs and its launch counts.
+
+    `reads` are the parameters and buffers the graph reads: kept alive
+    (detached, so a parameter given new data leaves this storage in place)
+    and their addresses kept to compare with the module's.
+    """
+
+    def __init__(self, graph, inputs: list, outputs, launches: dict[str, int], reads=()):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.launches = dict(launches)
+        self.reads = tuple(t.detach() for t in reads)
+        self.addresses = tuple(t.data_ptr() for t in reads)
+        self.device = inputs[0].device
+        self._lock = threading.Lock()
+        self._done = None  # CUDA event after the last replay's clones
+        self._stream = None  # the stream of the last replay
+
+    def replay(self, args, pick=None):
+        """Copy `args` into the static inputs, launch the graph, return clones of its outputs.
+
+        Everything runs on the current stream.  `pick` selects the outputs
+        to return (all of them by default), so a caller clones only what it
+        uses.
+        """
+        outs = self.outputs if pick is None else pick(self.outputs)
+        cuda = self.device.type == "cuda"
+        with self._lock, torch.inference_mode():
+            if cuda:
+                stream = torch.cuda.current_stream(self.device)
+                if self._done is not None and stream != self._stream:
+                    stream.wait_event(self._done)
+            for dst, src in zip(self.inputs, args):
+                dst.copy_(src if isinstance(src, torch.Tensor) else _host_tensor(src))
+            self.graph.replay()
+            got = result_map(torch.clone, outs)
+            if cuda:
+                if self._done is None:
+                    self._done = torch.cuda.Event()
+                self._done.record(stream)
+                self._stream = stream
+        registry.add_launches(self.launches)
+        return got
+
+
+def capture_graph(fn, static: list, what: str):
+    """Capture fn(*static) into a new CUDA graph on a side stream.
+
+    Returns (graph, static outputs, launches counted during the capture).
+    The caller has run fn eagerly at these shapes on this thread first.
+    """
+    graph = torch.cuda.CUDAGraph()
+    # PyTorch hands streams out round-robin from pools of 32 per priority, so
+    # a capture stream from the pool every replica draws on could be a live
+    # replica's stream, whose work would land in the graph.  No code of the
+    # port takes a high-priority stream; a graph runs at the priority of the
+    # stream it is replayed on.
+    side = torch.cuda.Stream(static[0].device, priority=-1)
+    torch._C._cuda_clearCublasWorkspaces()
+    # A cyclic collection run by an allocation inside the capture could free
+    # an unreachable graph on this thread, whose destruction a capturing
+    # thread may not call (it invalidates the capture): the collector is off
+    # until the capture ends.  Captures are serialised (CAPTURE_LOCK).
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(side), registry.recording(side.cuda_stream) as launches:
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                outputs = fn(*static)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):  # end the capture; fn's error wins
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+    except Exception as e:  # noqa: BLE001 — re-raised with what was being captured
+        raise RuntimeError(f"capturing {what} failed: {e}") from e
+    finally:
+        if collecting:
+            gc.enable()
+        torch._C._cuda_clearCublasWorkspaces()
+    return graph, outputs, launches
+
+
+class _Owned:
+    """The artifacts of one owner (a params module, or a stream's None), and
+    where the tensors they read live."""
+
+    def __init__(self, owner):
+        # the parameter and buffer dicts of the owner's modules, walked once
+        # rather than on every call: a tensor put in place of another shows
+        # in them
+        self.slots = [] if owner is None else [
+            d for m in owner.modules() for d in (m._parameters, m._buffers) if d]
+        self.artifacts: dict = {}
+
+    def reads(self) -> tuple:
+        return tuple(t for d in self.slots for t in d.values() if t is not None)
+
+    def addresses(self) -> tuple:
+        return tuple(t.data_ptr() for t in self.reads())
+
+
+class ArtifactCache:
+    """The captured artifacts of one accelerator (see the module docstring).
+
+    `capture` makes one graph (`capture_graph`); the CPU tests pass a stub.
+    """
+
+    def __init__(self, device: torch.device, capture=capture_graph):
+        self.device = device
+        self._capture = capture
+        self._by_params: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+        self._by_stream: dict = {}
+        self._lock = threading.Lock()
+
+    def _owned(self, owner) -> _Owned:
+        with self._lock:
+            if owner is not None:
+                owned = self._by_params.get(owner)
+                if owned is None:
+                    owned = self._by_params[owner] = _Owned(owner)
+                return owned
+            stream = (torch.cuda.current_stream(self.device).cuda_stream
+                      if self.device.type == "cuda" else None)
+            return self._by_stream.setdefault(stream, _Owned(None))
+
+    def _lookup(self, owned: _Owned, key) -> Artifact | None:
+        """The artifact under `key`, unless the tensors it read were replaced:
+        then it is dropped, once its last replay has run."""
+        art = owned.artifacts.get(key)
+        if art is None or art.addresses == owned.addresses():
+            return art
+        with self._lock:
+            if owned.artifacts.get(key) is art:
+                del owned.artifacts[key]
+        if art._done is not None:
+            art._done.synchronize()
+        return None
+
+    def get(self, owner, stage: str, args) -> Artifact | None:
+        """The artifact of (owner, stage, the inputs' shapes and dtypes), if captured
+        over the tensors the owner holds now.
+
+        `owner` is the params module, or None for the params-free stage
+        (keyed by the current stream).
+        """
+        return self._lookup(self._owned(owner), (stage, _signature(args)))
+
+    def run(self, owner, stage: str, fn, args, pick=None):
+        """fn(*args) through the artifact of (owner, stage, args).
+
+        A hit replays it.  A miss runs fn eagerly on the inputs (this call's
+        answer), then captures it (`ensure`).
+        """
+        art = self.get(owner, stage, args)
+        if art is not None:
+            return art.replay(args, pick)
+        with CAPTURE_LOCK, torch.inference_mode():
+            out = fn(*[_on(self.device, a) for a in args])
+            self.ensure(owner, stage, fn, args)
+        return out if pick is None else pick(out)
+
+    def ensure(self, owner, stage: str, fn, args) -> Artifact:
+        """The artifact of (owner, stage, args), captured now if there is none.
+
+        Runs nothing eagerly: the caller has run fn at these shapes on this
+        thread (the forward warms every stage).
+        """
+        global _captures
+        owned = self._owned(owner)
+        key = (stage, _signature(args))
+        with CAPTURE_LOCK:
+            art = self._lookup(owned, key)
+            if art is None:
+                what = f"the {stage} stage at input shapes {[list(s) for s, _ in key[1]]}"
+                with torch.inference_mode():
+                    static = [torch.empty(s, dtype=d, device=self.device) for s, d in key[1]]
+                    graph, outputs, launches = self._capture(fn, static, what)
+                art = Artifact(graph, static, outputs, launches, owned.reads())
+                with self._lock:
+                    owned.artifacts[key] = art
+                with _stats_lock:
+                    _captures += 1
+        return art

@@ -28,7 +28,8 @@ def masked_maxpool(grouped: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
     Centroids with no neighbour get 0 features.
     """
-    neg = torch.tensor(_NEG, dtype=grouped.dtype, device=grouped.device)
+    # made on the device (a fill, no host copy), so a CUDA graph can capture it
+    neg = torch.full((), _NEG, dtype=grouped.dtype, device=grouped.device)
     out = torch.where(mask[..., None], grouped, neg).amax(dim=-2)
     any_valid = mask.any(dim=-1)[..., None]
     return torch.where(any_valid, out, torch.zeros_like(out))

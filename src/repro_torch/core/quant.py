@@ -43,7 +43,7 @@ def quantize_symmetric(x: torch.Tensor, bits: int = 16) -> Quantized:
     """
     qmax = (1 << (bits - 1)) - 1
     amax = x.abs().amax()
-    qmax_t = torch.tensor(qmax, dtype=x.dtype, device=x.device)
+    qmax_t = torch.full((), qmax, dtype=x.dtype, device=x.device)  # no host copy: capturable
     scale = torch.clamp(amax, min=1e-12) / qmax_t
     q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax).to(torch.int32)
     return Quantized(q=q, scale=scale)

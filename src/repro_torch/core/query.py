@@ -39,7 +39,7 @@ def _first_k_in_range(
     d: torch.Tensor, thresh: float, nsample: int, valid: torch.Tensor | None
 ) -> NeighborSet:
     """First-k selection per row of a distance matrix d: (..., M, N)."""
-    limit = torch.tensor(np.float32(thresh), device=d.device)
+    limit = torch.full((), float(np.float32(thresh)), dtype=torch.float32, device=d.device)
     hit = d <= limit
     if valid is not None:
         hit = hit & valid[..., None, :]

@@ -214,6 +214,9 @@ __global__ void __launch_bounds__(1024) fps_tiles_kernel(const float* __restrict
   if (tid == 0) to[k - 1] = last;
 }
 
+// Both launchers set the shared-memory attribute on every call that needs more
+// than 48 KB.  No main-path call does (512 points a tile at most: 24 KB), so
+// under a CUDA graph capture of the forward they launch and set nothing else.
 template <int ITEMS, bool L1>
 cudaError_t launch(const float* points, int* out, int T, int P, int k,
                    cudaStream_t stream) {

@@ -48,5 +48,5 @@ def fps_tiles_cuda(points: torch.Tensor, k: int, *, metric: str = "l1") -> torch
         t, p, k, int(metric == "l1"), stream,
     )
     build.check(status, "fps")
-    registry.count_launch("fps_tiles")
+    registry.count_launch("fps_tiles", stream)
     return out

@@ -103,5 +103,5 @@ def knn3_cuda(
         plan.group, plan.threads, stream,
     )
     build.check(status, "knn3")
-    registry.count_launch("knn3")
+    registry.count_launch("knn3", stream)
     return idx, dist

@@ -127,7 +127,7 @@ def _launch(
         ctypes.c_float(np.float32(l_range)), *plan, stream,
     )
     build.check(status, "lattice")
-    registry.count_launch(name)
+    registry.count_launch(name, stream)
     return idx, mask
 
 

@@ -12,14 +12,19 @@ version, and is refused for a CUDA tensor, since there is no second GPU path
 and a kernel must never be bypassed silently.  Nothing falls back: a CUDA
 tensor reaches the kernel or an exception.
 
-Each CUDA wrapper calls `count_launch(name)` right after its kernel launched,
-and nowhere else, so a run can show that its main path went through the
-kernels (`reset_launches()` before, `launches()` after).  The GPU needs none
-of the TPU's lane padding: the kernels take any tile size.
+Each CUDA wrapper calls `count_launch(name, stream)` right after its kernel
+launched, and nowhere else, so a run can show that its main path went
+through the kernels (`reset_launches()` before, `launches()` after).  A CUDA
+graph capture launches nothing: a wrapper names the stream it enqueued on,
+a launch onto a stream under capture goes into the dict that
+`recording(stream)` yields, and every replay of the graph adds that dict
+once (`add_launches`), so the counters count the kernels the card ran.  The
+GPU needs none of the TPU's lane padding: the kernels take any tile size.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Callable
@@ -41,6 +46,7 @@ class KernelSpec:
 _REGISTRY: dict[str, KernelSpec] = {}
 _launches: dict[str, int] = {}
 _count_lock = threading.Lock()
+_recordings: dict[int, dict[str, int]] = {}  # stream under capture -> launches enqueued there
 
 
 def register(name: str, *, plain: Callable, cuda: Callable) -> KernelSpec:
@@ -87,10 +93,45 @@ def dispatch(name: str, tensor: torch.Tensor, backend: str | None = "auto") -> C
     raise ValueError(f"no implementation of {name} for device {tensor.device}")
 
 
-def count_launch(name: str) -> None:
-    """Add one launch of kernel `name` (called by its CUDA wrapper only)."""
+def count_launch(name: str, stream: int | None = None) -> None:
+    """Add one launch of kernel `name` (called by its CUDA wrapper only).
+
+    `stream` is the handle of the stream the kernel was enqueued on; a
+    launch onto a stream under `recording` goes to that recording instead.
+    """
     with _count_lock:
-        _launches[name] = _launches.get(name, 0) + 1
+        counts = _launches if stream is None else _recordings.get(stream, _launches)
+        counts[name] = counts.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording(stream: int):
+    """Record the launches enqueued on `stream` into a fresh dict, which it yields.
+
+    Used around a CUDA graph capture on that stream, which enqueues the
+    kernels without running them; launches on other streams count as usual.
+    """
+    counts: dict[str, int] = {}
+    with _count_lock:
+        if stream in _recordings:
+            raise RuntimeError(f"stream {stream:#x} is already being recorded")
+        _recordings[stream] = counts
+    try:
+        yield counts
+    finally:
+        with _count_lock:
+            del _recordings[stream]
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add `counts` ({kernel name: launches}) to the counters.
+
+    Called once for each replay of a captured graph, with the launches its
+    capture recorded.
+    """
+    with _count_lock:
+        for name, n in counts.items():
+            _launches[name] = _launches.get(name, 0) + n
 
 
 def launches() -> dict[str, int]:

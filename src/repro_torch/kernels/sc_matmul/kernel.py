@@ -86,5 +86,5 @@ def sc_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *, n_planes: int = 4) -
         m, n, k, n_planes, splits, stream,
     )
     build.check(status, "sc_matmul")
-    registry.count_launch("sc_matmul")
+    registry.count_launch("sc_matmul", stream)
     return out

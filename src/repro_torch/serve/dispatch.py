@@ -31,9 +31,16 @@ their memory out while the feature stream still reads it.  Host reads of
 device results (`.cpu()`, `core.engine.result_to_host`) synchronise what
 they read.
 
+On the card every batch replays captured CUDA graphs (`core/graphs.py`)
+keyed by the replica's own params copy (the preprocess graph by the stream
+it runs on), and a warmup batch captures every graph a batch of its
+(bucket, policy) can replay on that replica, so nothing is captured
+mid-traffic.
+
 Eviction is two-way: `rejoin()` rebuilds an evicted replica in place — a
 fresh params copy on its device, fresh streams, stage executors and
-heartbeat pumps, every registered warmup batch replayed, and (when the
+heartbeat pumps, every registered warmup batch replayed (which captures the
+new replica's graphs), and (when the
 runtime runs a preprocess cache) the hottest cache entries pre-staged on
 the device so the new replica's first all-hit batches skip the host
 restack.  `add_replica()`/`retire()` grow and shrink the pool the same way.
@@ -55,7 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.accelerator import get_accelerator, params_copy_on
-from repro_torch.core.device import on_streams, resolve_device
+from repro_torch.core.device import on_streams, resolve_device, synchronize
 from repro_torch.core.engine import (
     result_leaves,
     result_row,
@@ -142,7 +149,7 @@ class Replica:
         if cuda:
             # the copy ran on this thread's current stream, which the
             # replica's streams do not wait on
-            torch.cuda.synchronize(self.device)
+            synchronize(self.device)
         self.alive = True
         self.retired = False  # scale-down (don't auto-rejoin) vs fault eviction
         self.evicted_t: float | None = None  # when evict() ran (rejoin delay base)
@@ -152,6 +159,9 @@ class Replica:
         # entries so the first all-hit batches skip the host restack; the
         # entry id guards against an entry replaced under the same key.
         self.staged: dict[tuple, tuple[int, object]] = {}
+        # (bucket, policy) -> (host, device) preprocessing of one zero filler
+        # cloud: the filler rows of an all-hit batch (ReplicaPool._filler)
+        self.fillers: dict[tuple, tuple] = {}
         self.inflight: dict[int, _Entry] = {}
         self.straggler = StragglerMonitor(on_straggler=on_straggler)
         self.heartbeat: HeartbeatMonitor | None = None
@@ -503,16 +513,16 @@ class ReplicaPool:
         rep.submit(self._execute, rep, entry)
         entry.future.result(timeout=300)
 
-    def _staged_stack(self, rep: Replica, entries, total: int):
+    def _staged_stack(self, rep: Replica, entries, total: int, filler):
         """Device-side restack of an all-hit batch from pre-staged entries.
 
         Returns the device tree when EVERY entry is staged on this replica
         and still current (the recorded entry id must match — an entry
         replaced under the same content address invalidates its staged
         copy); otherwise None, and the caller falls back to the host
-        restack.  Mirrors `result_stack` exactly — zero filler rows, then a
-        leaf-wise stack — so the result is bitwise-identical to the host
-        path.  Runs on the caller's current stream.
+        restack.  Mirrors `result_stack` exactly — the same filler rows,
+        then a leaf-wise stack — so the result is bitwise-identical to the
+        host path.  Runs on the caller's current stream.
         """
         rows = []
         for e in entries:
@@ -520,13 +530,39 @@ class ReplicaPool:
             if rec is None or rec[0] != id(e):
                 return None
             rows.append(rec[1])
-        return result_stack(rows, total=total)
+        return result_stack(rows, total=total, filler=filler)
 
-    def _hit_payload(self, rep: Replica, entries, total: int):
-        """The device tree of an all-hit batch: staged rows, else a host restack."""
-        pre = self._staged_stack(rep, entries, total)
+    def _filler(self, rep: Replica, accel, mb, pre=None) -> tuple:
+        """(host, device) row tree of the filler rows of `mb`'s (bucket, policy) on `rep`.
+
+        The preprocessing of assemble_batch's zero filler cloud, which is
+        what `infer` of the padded batch computes for those rows: taken from
+        a warmup batch's preprocessing `pre` (all zero clouds), else
+        computed once from a zero batch, and kept on the replica.
+        """
+        key = (mb.bucket, mb.policy)
+        got = rep.fillers.get(key)
+        if got is None:
+            if pre is None:
+                pre = accel.preprocess_stage(np.zeros_like(mb.batch))
+            row = result_row(pre, 0)
+            got = rep.fillers[key] = (result_to_host(row), row)
+        return got
+
+    def _hit_payload(self, rep: Replica, accel, mb, entries):
+        """The device tree of an all-hit batch: staged rows, else a host restack.
+
+        Filler rows (a batch with fewer requests than rows) are the zero
+        cloud's preprocessing, so the logits equal `infer` of the padded
+        batch.
+        """
+        total = mb.batch.shape[0]
+        host_fill, dev_fill = (self._filler(rep, accel, mb) if total > len(entries)
+                               else (None, None))
+        pre = self._staged_stack(rep, entries, total, dev_fill)
         if pre is None:
-            pre = result_to(result_stack([e.pre for e in entries], total=total), rep.device)
+            pre = result_to(result_stack([e.pre for e in entries], total=total,
+                                         filler=host_fill), rep.device)
         return pre
 
     # -- dispatch -------------------------------------------------------------
@@ -621,12 +657,13 @@ class ReplicaPool:
             accel = get_accelerator(self.model_cfg, mb.policy, device=rep.device)
             rep.straggler.step_start()
             with on_streams(rep.stream):
-                batch = torch.as_tensor(mb.batch, device=rep.device)
+                # the host batch goes straight into a graph's input buffer
+                # (a warmup batch's first infer captures the forward graph)
                 if mb.cache is not None:
-                    logits, skipped = self._run_cached(accel, rep, mb, batch)
+                    logits, skipped = self._run_cached(accel, rep, mb)
                 else:
                     self._emit("batch.execute_start", mb, rep_id=rep.id)
-                    logits = _to_host(accel.infer(rep.params, batch))
+                    logits = _to_host(accel.infer(rep.params, mb.batch))
                     self._emit("batch.execute_end", mb, rep_id=rep.id)
                     skipped = False
             dt = rep.straggler.step_end(rep.n_batches)
@@ -683,31 +720,36 @@ class ReplicaPool:
                     )
         return tuple(entries)
 
-    def _run_cached(self, accel, rep, mb, batch):
+    def _run_cached(self, accel, rep, mb):
         """Cache-aware execution of one batch on the current stream; returns (logits, skipped).
 
         All-hit: the preprocess stage is skipped outright — the per-row
-        cached neighborhoods are restacked (zero filler rows matching the
-        zero filler batch rows) and fed straight to `feature_from_cached`.
+        cached neighborhoods are restacked (filler rows: the zero filler
+        cloud's preprocessing, `_filler`) and fed straight to
+        `feature_from_cached`.
         All-miss: `infer_with_preprocess` — one forward whose second output
         feeds the background cache fill, so the 0%-duplicate workload pays
         nothing over the uncached path.
         Mixed: the batch runs `preprocess_stage` (the staged composition is
         bitwise-equal to `infer`, so miss parity is preserved), hit rows
         are spliced in on the host, and miss rows populate the cache before
-        the feature stage runs.
+        the feature stage reads the host tree.
         """
+        batch = mb.batch
         if mb.n_real == 0:
-            # warmup batch: eager PyTorch has nothing to trace; one forward
-            # through the all-miss entry point builds the kernels and warms
-            # the stream's library state
-            logits, _pre = accel.infer_with_preprocess(rep.params, batch)
+            # warmup batch: one eager forward builds the kernels and warms
+            # the thread's library state, then the graphs of all three
+            # paths are captured on this stream (as the reference's warmup
+            # traces every artifact a cached batch can touch), and the zero
+            # clouds' preprocessing is kept as the filler row
+            logits, pre = accel.warmup(rep.params, batch)
+            self._filler(rep, accel, mb, pre)
             return _to_host(logits), False
         self._emit("batch.cache_start", mb, rep_id=rep.id)
         entries = self._resolve_entries(mb)
         n_hits = sum(1 for e in entries if e is not None)
         if n_hits == mb.n_real:
-            pre = self._hit_payload(rep, entries, mb.batch.shape[0])
+            pre = self._hit_payload(rep, accel, mb, entries)
             self._emit("batch.cache_end", mb, rep_id=rep.id,
                        args={"hits": n_hits, "skip": True})
             self._emit("batch.feature_start", mb, rep_id=rep.id)
@@ -726,25 +768,26 @@ class ReplicaPool:
         pre_host = result_to_host(accel.preprocess_stage(batch))
         self._emit("batch.preprocess_end", mb, rep_id=rep.id)
         self._emit("batch.splice_start", mb, rep_id=rep.id)
-        pre = result_to(self._cached_splice(mb, pre_host, entries), rep.device)
+        pre = self._cached_splice(mb, pre_host, entries)
         self._emit("batch.splice_end", mb, rep_id=rep.id)
         self._emit("batch.feature_start", mb, rep_id=rep.id)
-        logits = _to_host(accel.feature_stage(rep.params, batch, pre))
+        logits = _to_host(accel.feature_from_cached(rep.params, batch, pre))
         self._emit("batch.feature_end", mb, rep_id=rep.id)
         return logits, False
 
-    def _splice_or_insert(self, rep, mb, pre, entries):
+    def _splice_or_insert(self, mb, pre, entries):
         """Route one non-all-hit pipelined cache batch's preprocess output.
 
         Mixed (some hits): the host splice path — hit rows must replace the
-        freshly computed ones before the feature stage consumes them.
+        freshly computed ones before the feature stage consumes the host
+        tree (`feature_from_cached`).
         All-miss: the device tree is returned UNTOUCHED (no host round trip
         on the critical path) and miss insertion happens on the pool's
         background insert thread — cache fill is bookkeeping, not part of
         the response.
         """
         if any(e is not None for e in entries):
-            return result_to(self._cached_splice(mb, pre, entries), rep.device)
+            return self._cached_splice(mb, pre, entries)
         self._insert_executor.submit(self._insert_misses, mb, pre, entries)
         return pre
 
@@ -858,7 +901,7 @@ class ReplicaPool:
                         # the cache skip composes with the pipeline: the
                         # worker hands the restacked payload straight to the
                         # feature thread, with no preprocessing at all
-                        pre = self._hit_payload(rep, entries, mb.batch.shape[0])
+                        pre = self._hit_payload(rep, accel, mb, entries)
                         self._emit("batch.cache_end", mb, rep_id=rep.id,
                                    args={"skip": True})
                         skipped = True
@@ -871,6 +914,9 @@ class ReplicaPool:
                         pre = accel.preprocess_stage(batch)
                         self._emit("batch.preprocess_end", mb, rep_id=rep.id)
                         skipped = False
+                        if mb.n_real == 0 and mb.cache is not None:
+                            # warmup: its zero clouds' preprocessing is the filler row
+                            self._filler(rep, accel, mb, pre)
                     done = None
                     if rep.pre_stream is not None:
                         done = torch.cuda.Event()
@@ -915,22 +961,19 @@ class ReplicaPool:
                         rep.feat_stream.wait_event(done)
                         for t in (batch, *result_leaves(pre)):
                             t.record_stream(rep.feat_stream)
-                    if skipped:
-                        feature = accel.feature_from_cached
-                    else:
-                        if mb.cache is not None:
-                            # mixed cache batch: host splice on the feature
-                            # thread; all-miss batches keep the device tree
-                            # and insert in the background
-                            mixed = any(e is not None for e in entries)
-                            if mixed:
-                                self._emit("batch.splice_start", mb, rep_id=rep.id)
-                            pre = self._splice_or_insert(rep, mb, pre, entries)
-                            if mixed:
-                                self._emit("batch.splice_end", mb, rep_id=rep.id)
-                        feature = accel.feature_stage
+                    if not skipped and mb.cache is not None:
+                        # mixed cache batch: host splice on the feature
+                        # thread; all-miss batches keep the device tree
+                        # and insert in the background
+                        mixed = any(e is not None for e in entries)
+                        if mixed:
+                            self._emit("batch.splice_start", mb, rep_id=rep.id)
+                        pre = self._splice_or_insert(mb, pre, entries)
+                        if mixed:
+                            self._emit("batch.splice_end", mb, rep_id=rep.id)
                     self._emit("batch.feature_start", mb, rep_id=rep.id)
-                    logits = _to_host(feature(rep.params, batch, pre))
+                    # a host (spliced) or device tree alike
+                    logits = _to_host(accel.feature_from_cached(rep.params, batch, pre))
                     self._emit("batch.feature_end", mb, rep_id=rep.id)
                 dt = time.monotonic() - t0
                 if rep.feature_heartbeat is not None:
@@ -948,9 +991,12 @@ class ReplicaPool:
     def warmup(self, mb):
         """Run one batch synchronously on EVERY alive replica.
 
-        Builds the kernels and warms each replica's streams for this
-        (bucket, policy) before real traffic arrives — for pipelined
-        policies through the two-stage path, so both streams are warmed.
+        Builds the kernels and captures each replica's graphs for this
+        (bucket, policy) before real traffic arrives: the forward's, and
+        under the preprocess cache the two halves' as well; for pipelined
+        policies through the two-stage path, which captures the preprocess
+        graph of the replica's preprocess stream and the feature graph.
+        Under the cache it also keeps the filler row of all-hit batches.
         Each distinct (bucket, policy) batch is also REGISTERED:
         rejoin/add_replica replay the registered set on a fresh replica so
         it joins warm.

@@ -291,16 +291,19 @@ class ServingRuntime:
     def warmup(self, policies: tuple[ExecutionPolicy | None, ...] = (None,)):
         """Run one zero batch per (bucket, policy) on every replica.
 
-        Eager PyTorch traces nothing, but the first batch on a replica
-        builds the CUDA kernels (nvcc, once per process) and sets up each
-        stream's library state, so the first real request should not pay
-        for it (and load measurements measure serving, not set-up).  A
-        policy with pipeline="pipelined" warms the replica's two-stage path
-        (both streams); with the preprocess cache enabled the warmup batch
-        carries the cache too.  Each warmup batch is recorded in the
-        metrics as a batch with n_real == 0.  A None policy is the runtime's
-        default policy, as in `submit` (the JAX package warms the config's
-        default policy for None instead).
+        The first batch on a replica builds the CUDA kernels (nvcc, once per
+        process), runs one eager forward and captures, with that replica's
+        params copy and streams, every CUDA graph a batch of this (bucket,
+        policy) can replay there (`core/graphs.py`): the forward's, and with
+        the preprocess cache enabled also the two halves' (mixed and
+        all-hit batches), so that nothing is captured mid-traffic, as the
+        JAX package's warmup traces every artifact.  A policy with
+        pipeline="pipelined" warms the replica's two-stage path, which
+        captures the preprocess graph of its preprocess stream and the
+        feature graph.  Each warmup batch is recorded in the metrics as a
+        batch with n_real == 0, and counts the launches of one forward.  A
+        None policy is the runtime's default policy, as in `submit` (the
+        JAX package warms the config's default policy for None instead).
         """
         width = 3 + self.model_cfg.in_features
         for pol in policies:

@@ -2,7 +2,10 @@
 the main-path shapes of full-width forwards over 8 clouds (pointnet2-cls:
 1024 points; pointnet2-seg: 4096 points, whose FP stages run the knn3
 kernel), at the flat lattice query's shapes, and at ragged sizes that
-exercise the kernels' other paths.
+exercise the kernels' other paths.  Then the captured CUDA graphs
+(core/graphs.py): every entry point's replay bitwise equal to
+graphs.eager() at smoke and full width, on side streams, on the pipelined
+pair and in the serving runtime, where nothing is captured after warmup.
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test skips where
 torch.cuda.is_available() is false.  On the card:
@@ -12,16 +15,21 @@ torch.cuda.is_available() is false.  On the card:
 Imports neither jax nor the JAX package: the card's host has neither.
 """
 
+import gc
+import threading
 import time
+import weakref
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.configs.pointnet2_cls import CONFIG
 from repro_torch.configs.pointnet2_seg import CONFIG as SEG_CONFIG
+from repro_torch.core import graphs
 from repro_torch.core.accelerator import get_accelerator
-from repro_torch.core.engine import clamp_depth
+from repro_torch.core.engine import clamp_depth, result_leaves, result_to_host
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.kernels import registry
 from repro_torch.kernels.fps.kernel import fps_tiles_cuda
@@ -475,3 +483,339 @@ def test_result_to_host_reads_a_side_streams_finished_values(cuda):
     host = result_to_host((res,))
     assert (host[0].centroid_idx == 7).all() and (host[0].centroid_xyz == 0.5).all()
     assert host[0].neighbors.mask.all()
+
+
+# -- captured graphs (core/graphs.py): replays against graphs.eager() ---------------
+
+
+def _clouds_for(cfg, k, seed, b=BATCH):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(-1, 1, (b, cfg.n_points, 3)).astype(np.float32) for _ in range(k)]
+
+
+def _same_tree(got, want):
+    got, want = result_leaves(got), result_leaves(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("model", ["pointnet2-cls", "pointnet2-seg"])
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_every_entry_point_replays_bitwise_equal_to_eager(cuda, model, smoke, quant):
+    """Captured on one batch, replayed on another: infer, infer_with_preprocess
+    (every leaf), preprocess_stage, feature_stage and feature_from_cached (a
+    host tree) equal graphs.eager() on that batch; replays capture nothing."""
+    cfg = get_config(model, smoke=smoke)
+    accel = get_accelerator(cfg, ExecutionPolicy(quant=quant), device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    cap, new = _clouds_for(cfg, 2, seed=10)
+    accel.feature_stage(params, cap, accel.preprocess_stage(cap))
+    accel.infer(params, cap)
+    with graphs.eager():
+        logits, pre = accel.infer_with_preprocess(params, new)
+        host = result_to_host(pre)
+        feat = accel.feature_stage(params, new, pre)
+        cached = accel.feature_from_cached(params, new, host)
+    before = graphs.captures()
+    assert torch.equal(accel.infer(params, new), logits)
+    _same_tree(accel.infer_with_preprocess(params, new), (logits, pre))
+    _same_tree(accel.preprocess_stage(new), pre)
+    assert torch.equal(accel.feature_stage(params, new, pre), feat)
+    assert torch.equal(accel.feature_from_cached(params, new, host), cached)
+    assert graphs.captures() == before
+
+
+def test_replays_on_a_side_stream_equal_the_default_stream(cuda):
+    accel = get_accelerator(CONFIG, device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    batches = _clouds_for(CONFIG, 3, seed=11)
+    on_default = [accel.infer(params, b) for b in batches]  # the first captures
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        on_side = [accel.infer(params, b) for b in batches]
+        pre_side = accel.preprocess_stage(batches[1])  # the side stream's own graph
+    torch.cuda.synchronize()
+    with graphs.eager():
+        want = [accel.infer(params, b) for b in batches]
+        pre = accel.preprocess_stage(batches[1])
+    for a, b, w in zip(on_default, on_side, want):
+        assert torch.equal(a, w) and torch.equal(b, w)
+    _same_tree(pre_side, pre)
+
+
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_pipelined_graphs_equal_sequential_infer_over_8_batches(cuda, quant):
+    """8 distinct micro-batches through the pipelined pair (preprocess graph
+    on one stream, feature graph on the other), twice: bitwise equal to
+    sequential infer and to eager."""
+    accel = get_accelerator(CONFIG, ExecutionPolicy(quant=quant), device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    batches = _clouds_for(CONFIG, 8, seed=12)
+    sequential = [accel.infer(params, b) for b in batches]
+    first = accel.infer_pipelined(params, batches)
+    again = accel.infer_pipelined(params, batches[::-1])[::-1]
+    torch.cuda.synchronize()
+    with graphs.eager():
+        want = [accel.infer(params, b) for b in batches]
+    for s, a, b, w in zip(sequential, first, again, want):
+        assert torch.equal(s, w) and torch.equal(a, w) and torch.equal(b, w)
+
+
+@pytest.mark.parametrize("order", [(1, 0), (0, 1)], ids=["pre_on_1", "pre_on_0"])
+def test_pipelined_graphs_across_two_cards_equal_eager_infer(cuda, order, monkeypatch):
+    """The executor of an accelerator on card 0 with its stages on two cards,
+    8 distinct micro-batches: stage A replays through devices[0]'s
+    accelerator (card 0's own or not) and its preprocessing lies there,
+    stage B runs on devices[1], and every answer lies on devices[1],
+    bitwise equal to eager infer on card 0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.core.accelerator import PipelinedExecutor
+
+    accel = get_accelerator(CONFIG, device="cuda:0")
+    params = accel.init(torch.Generator().manual_seed(0))
+    batches = _clouds_for(CONFIG, 8, seed=18)
+    devices = [torch.device("cuda", i) for i in order]
+    accel_pre = get_accelerator(CONFIG, device=devices[0])
+    real, seen = accel_pre.preprocess_stage, []
+
+    def preprocess_stage(pts):
+        out = real(pts)
+        seen.extend(t.device for t in result_leaves(out))
+        return out
+
+    monkeypatch.setattr(accel_pre, "preprocess_stage", preprocess_stage)
+    ex = PipelinedExecutor(accel, devices=devices)
+    first = ex.run(params, batches)
+    assert seen and set(seen) == {devices[0]}
+    again = ex.run(params, batches[::-1])[::-1]
+    for d in devices:
+        torch.cuda.synchronize(d)
+    with graphs.eager():
+        want = [accel.infer(params, b) for b in batches]
+    for a, b, w in zip(first, again, want):
+        assert a.device == devices[1] and b.device == devices[1]
+        assert torch.equal(a.to(w.device), w) and torch.equal(b.to(w.device), w)
+
+
+def test_infer_with_preprocess_tree_survives_the_next_replay(cuda):
+    accel = get_accelerator(CONFIG, device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    b0, b1, b2 = _clouds_for(CONFIG, 3, seed=13)
+    accel.infer_with_preprocess(params, b0)  # captures
+    kept = accel.infer_with_preprocess(params, b1)
+    later = accel.infer_with_preprocess(params, b2)
+    torch.cuda.synchronize()
+    with graphs.eager():
+        want1 = accel.infer_with_preprocess(params, b1)
+        want2 = accel.infer_with_preprocess(params, b2)
+    _same_tree(kept, want1)
+    _same_tree(later, want2)
+    assert not torch.equal(kept[1][0].centroid_xyz, later[1][0].centroid_xyz)
+
+
+def test_capture_while_a_cache_fill_thread_reads_to_host(cuda):
+    """New shapes captured while another thread keeps synchronising the
+    device in result_to_host, as the cache-fill thread does."""
+    accel = get_accelerator(CONFIG, device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    tree = accel.preprocess_stage(_clouds_for(CONFIG, 1, seed=14)[0])
+    stop, errors, reads = threading.Event(), [], [0]
+
+    def reader():
+        while not stop.is_set():
+            try:
+                result_to_host(tree)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+                return
+            reads[0] += 1
+
+    thread = threading.Thread(target=reader)
+    thread.start()
+    try:
+        for b in (2, 4):
+            x = _clouds_for(CONFIG, 1, seed=15 + b, b=b)[0]
+            with graphs.eager():
+                want = accel.infer(params, x)
+            before = graphs.captures()
+            first = accel.infer(params, x)
+            got = accel.infer(params, x)
+            assert graphs.captures() == before + 1
+            assert torch.equal(first, want) and torch.equal(got, want)
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+    assert not thread.is_alive() and not errors and reads[0] > 0
+
+
+def test_capture_while_another_thread_runs_float_matmuls_eagerly(cuda):
+    """Captures clear every thread's cuBLAS workspaces (core/graphs.py):
+    new shapes captured while another thread loops full-width float infers
+    eagerly on a stream of its own, as a serving replica's worker does
+    beside a rejoin.  Every eager answer stays bitwise the one computed
+    alone, and every capture's replays equal eager."""
+    cfg = get_config("pointnet2-cls")
+    accel = get_accelerator(cfg, device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    x0 = _clouds_for(cfg, 1, seed=16)[0]
+    with graphs.eager():
+        want0 = accel.infer(params, x0).cpu()
+    stop, warm, errors, loops = threading.Event(), threading.Event(), [], [0]
+
+    def worker():
+        side = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(side), graphs.eager():
+            while not stop.is_set():
+                got = accel.infer(params, x0).cpu()  # waits on this stream only
+                if not torch.equal(got, want0):
+                    errors.append(f"eager answer {loops[0]} differs from the one computed alone")
+                    break
+                loops[0] += 1
+                warm.set()  # the first call made this thread's cuBLAS handle
+        warm.set()
+
+    thread = threading.Thread(target=worker)
+    thread.start()
+    try:
+        assert warm.wait(timeout=60)
+        for b in (1, 2, 3, 5, 6, 7):
+            x = _clouds_for(cfg, 2, seed=17 + b, b=b)
+            before = graphs.captures()
+            accel.infer(params, x[0])
+            assert graphs.captures() == before + 1
+            got = accel.infer(params, x[1])
+            with graphs.eager():
+                want = accel.infer(params, x[1])
+            assert torch.equal(got, want)
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    assert not thread.is_alive() and not errors and loops[0] > 0
+
+
+def test_a_collection_during_a_capture_destroys_no_graph(cuda):
+    """A graph left in a reference cycle, then a capture whose work
+    allocates enough objects to start a cyclic collection: the collector is
+    off inside a capture, so the old graph is not destroyed there (which
+    would invalidate the capture), and it goes at the next collection."""
+    cache = graphs.ArtifactCache(cuda)
+    x = torch.arange(8, dtype=torch.float32, device=cuda)
+    doomed = torch.nn.Linear(2, 2).to(cuda)
+    cache.run(doomed, "probe", lambda t: (t * 2,), [x])
+    gone = weakref.ref(doomed)
+    loop = [doomed]
+    loop.append(loop)
+    del doomed, loop  # now only a collection frees the module and its graph
+    seen = []
+
+    def burst(t):
+        seen.append(gc.isenabled())
+        junk = [[] for _ in range(20000)]  # past the young generation's threshold
+        return (t * 3 + len(junk),)
+
+    assert gc.isenabled()
+    art = cache.ensure(None, "burst", burst, [x])
+    assert seen == [False] and gc.isenabled()
+    got = art.replay([x])[0]
+    assert torch.equal(got, x * 3 + 20000)
+    gc.collect()
+    assert gone() is None
+
+
+def _padded(clouds, policy):
+    from repro_torch.serve import Request, assemble_batch
+
+    reqs = [Request(id=i, cloud=c, n_orig=c.shape[0], bucket=CONFIG.n_points, policy=policy,
+                    deadline_t=None, submit_t=0.0, future=None) for i, c in enumerate(clouds)]
+    return assemble_batch(reqs, CONFIG.n_points, 3, BATCH)
+
+
+def _wait(cond, what):
+    deadline = time.monotonic() + 60
+    while not cond():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.005)
+
+
+def test_warm_rejoin_captures_and_traffic_captures_nothing(cuda):
+    """A cached runtime: the rejoined replica's warmup captures its three
+    graphs (forward, preprocess, feature); two rounds of traffic afterwards (all-miss, then all-hit) capture
+    none and answer bitwise as an eager infer of each padded batch."""
+    from repro_torch.serve import RuntimeConfig, ServingRuntime
+
+    accel = get_accelerator(CONFIG, device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(16)
+    clouds = [rng.uniform(-1, 1, (int(n), 3)).astype(np.float32)
+              for n in rng.integers(600, 1500, 2 * BATCH)]
+    rt = ServingRuntime(CONFIG, params, RuntimeConfig(max_batch=BATCH, max_wait_s=1.0,
+                                                      cache_max_bytes=1 << 26), device=cuda)
+    try:
+        rt.warmup()
+        rt.pool.evict(0, reason="test")
+        before = graphs.captures()
+        assert rt.pool.rejoin(0)
+        assert graphs.captures() > before
+        rep, zeros = rt.pool.replicas[0], np.zeros((BATCH, CONFIG.n_points, 3), np.float32)
+        with graphs.eager():
+            pre = accel.preprocess_stage(zeros)
+        assert accel.artifacts.get(rep.params, "forward", [zeros]) is not None
+        assert accel.artifacts.get(rep.params, "feature", [zeros, *result_leaves(pre)])
+        with torch.cuda.stream(rep.stream):  # the preprocess graph of the replica's stream
+            assert accel.artifacts.get(None, "preprocess", [zeros]) is not None
+        warm = graphs.captures()
+        futs = [rt.submit(c) for c in clouds]  # queued before start: full batches in order
+        rt.start()
+        first = [f.result(timeout=300) for f in futs]
+        _wait(lambda: rt.cache.stats().insertions >= len(clouds), "cache fills")
+        second = [f.result(timeout=300) for f in [rt.submit(c) for c in clouds]]
+        assert graphs.captures() == warm
+    finally:
+        rt.stop()
+    _wait(lambda: sum(b.n_real for b in rt.metrics.batch_records) >= 2 * len(clouds),
+          "batch records")
+    assert sum(b.preprocess_skipped for b in rt.metrics.batch_records) == 2
+    for lo in (0, BATCH):
+        with graphs.eager():
+            want = accel.infer(params, _padded(clouds[lo:lo + BATCH], rt.default_policy))
+        want = want.cpu().numpy()
+        for i in range(BATCH):
+            np.testing.assert_array_equal(first[lo + i], want[i])
+            np.testing.assert_array_equal(second[lo + i], want[i])
+
+
+@pytest.mark.parametrize("pipeline", ["sequential", "pipelined"])
+def test_partial_all_hit_sc_batch_equals_eager_infer_of_the_padded_batch(cuda, pipeline):
+    """One SC request twice through the cache, every 1-D param drawn N(0, 2^2):
+    the all-hit batch's filler rows carry the zero cloud's preprocessing, so
+    it answers bitwise as an eager infer of the padded batch."""
+    from repro_torch.serve import RuntimeConfig, ServingRuntime
+
+    policy = ExecutionPolicy(quant="sc_w16a16", pipeline=pipeline)
+    accel = get_accelerator(CONFIG, policy, device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(17)
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.ndim == 1:
+                p.copy_(torch.from_numpy(rng.normal(0.0, 2.0, p.shape).astype(np.float32)))
+    cloud = rng.uniform(-1, 1, (900, 3)).astype(np.float32)
+    rt = ServingRuntime(CONFIG, params, RuntimeConfig(max_batch=BATCH, cache_max_bytes=1 << 26),
+                        policy=policy, device=cuda)
+    try:
+        rt.warmup()
+        rt.start()
+        first = rt.infer(cloud)
+        _wait(lambda: rt.cache.stats().insertions >= 1, "cache fill")
+        second = rt.infer(cloud)
+    finally:
+        rt.stop()
+    _wait(lambda: sum(b.n_real for b in rt.metrics.batch_records) >= 2, "batch records")
+    assert [b.preprocess_skipped for b in rt.metrics.batch_records if b.n_real] == [False, True]
+    with graphs.eager():
+        want = accel.infer(params, _padded([cloud], accel.policy)).cpu().numpy()[0]
+    np.testing.assert_array_equal(first, want)
+    np.testing.assert_array_equal(second, want)
