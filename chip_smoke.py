@@ -11,7 +11,9 @@ width, the flat lattice query (`lattice_query_fused`) at the example
 pipeline's shape (2048 points, 64 centroids) and at a seg-sized set (4096
 points, 1024 centroids), and the serving path: ServingRuntime.submit
 through the queue, the scheduler, the replica pool (its own CUDA streams
-and worker threads), the preprocess cache and the pipelined executor.  On
+and worker threads), the preprocess cache and the pipelined executor, and
+then its control plane (fault injection, autoscaler, adaptive controller,
+exporters).  On
 the card the entry points replay captured CUDA graphs (core/graphs.py, the
 counterpart of the JAX package's jit artifacts) unless the caller enters
 graphs.eager(), which is the reference side of every graph check.
@@ -78,10 +80,29 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      device idle share of one micro-batch through the runtime (whose
      profile holds the credited launches against the kernels seen), and the wall
      time of 8 micro-batches through infer_pipelined against 8 infer calls,
-     all replaying graphs.
+     all replaying graphs;
+  8. the serving control plane, pointnet2-cls on two replicas of the card
+     with the trace, a Prometheus listener and a Reporter (its lines go to
+     stderr), every launch counter set to 0 before each of its two runs.
+     The chaos run (float and SC, autoscaler on) takes a kill of replica 0,
+     a wedge of replica 1 that the heartbeat monitor evicts, the warm
+     rejoins, and three more kill -> rejoin cycles, reading
+     memory_allocated and memory_reserved around them.  The adaptive run
+     serves clouds skewed small at one bucket, then the controller's
+     poll_once splits the bucket while a feeder thread keeps submitting,
+     and a reconfigure rolls the swap back.  Every response must be
+     bitwise equal to an eager infer of its padded batch at its bucket,
+     every graph capture (timed) must fall inside a warmup, a rejoin or a
+     reconfigure, the rollback must capture nothing, /metrics must report
+     the completed count seen, trace_problems must be empty,
+     batch_crosscheck must cover every real batch, and neither the
+     autoscaler nor the controller may record an error.  It prints the
+     memory of one replica and its graphs, the growth per cycle, the
+     capture time per new shape and p50/p99 inside the swap window, and
+     writes both runs' Chrome traces under build/.
 
 Then it prints one JSON line with every kernel's launches (summed over the
-counted runs of phases 4, 6 and 7; a replay's are the launches its capture
+counted runs of phases 4, 6, 7 and 8; a replay's are the launches its capture
 recorded, which the profiled replays of phases 4, 6 and 7 show the card
 running), error and times (summed over the calls recorded in
 phase 3, with a breakdown by path), the card line again, and as its last
@@ -127,6 +148,35 @@ LOGIT_ATOL = {"none": 1e-4, "sc_w16a16": 2e-3}
 SERVE_TRAFFIC = {"cls": (64, 600, 1500), "seg": (16, 3000, 6000)}
 SERVE_CACHE_CLOUDS = 16  # cls clouds served twice through the preprocess cache
 SERVE_WAIT_S = 300  # bound on every future the serving phase waits for
+# Control-plane phase: pointnet2-cls served by two replicas on the one card,
+# ragged clouds of CONTROL_SIZES points in waves of CONTROL_WAVE (float and
+# SC alternating, so each wave is one full batch of each policy).
+CONTROL_SIZES = (300, 1500)
+CONTROL_WAVE = 16
+CONTROL_WAVES = 8  # most waves the kill and the wedge may take to fire
+# The liveness timeout must exceed a replica's slowest batch, which is its
+# warmup: two graphs captured while the other replica may hold the capture
+# lock.  The wedge outlasts it, so the heartbeat monitor evicts the replica.
+# The monitor checks every timeout / 4 and the pump beats as often, so the
+# eviction lands at most 1.5 timeouts after the wedge starts.
+CONTROL_HEARTBEAT_S = 3.0
+CONTROL_WEDGE_S = 5.5
+CONTROL_REJOIN_DELAY_S = 0.1
+CONTROL_CYCLES = 3  # further kill -> rejoin cycles of replica 0 (memory)
+# A dead replica's frees reach the allocator's count a moment after the last
+# Python reference goes (no Python object holds them by then): each memory
+# reading after a rejoin waits up to this long for the allocation to come back
+# to within 1 MiB of the two warm replicas' level, and reports how long it took.
+CONTROL_SETTLE_S = 5.0
+CONTROL_REPORT_S = 2.0  # the Reporter's period (its lines go to stderr)
+# The adaptive swap: traffic skewed to small clouds (3 in 4 of 300-480
+# points), which makes propose_buckets split the one 1024 bucket.
+ADAPT_BEFORE = 96  # clouds served at the 1024 bucket before the swap
+ADAPT_FEED = 400  # clouds a feeder thread submits, one every ADAPT_FEED_S
+ADAPT_FEED_S = 0.001
+# A crosscheck's |span - recorded| / recorded bound, the JAX package's own
+# (tests/test_trace.py `test_crosscheck_on_real_run`).
+CROSSCHECK_REL = 0.5
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -473,12 +523,13 @@ def layer_ms(rt, reduce=np.median, strict: bool = True) -> dict[str, float]:
     return out
 
 
-def batch_members(rt) -> list[list[int]]:
-    """Which submitted clouds (by submit order) rode in each real micro-batch,
-    read from the runtime's trace: `batch.assembled` lists its members' trace ids."""
+def served_batches(rt) -> list[tuple[list[int], int]]:
+    """Which submitted clouds (by submit order) rode in each real micro-batch, and
+    its bucket, read from the runtime's trace: `batch.assembled` lists its members'
+    trace ids."""
     events = rt.tracer.events()
     order = {e.trace_id: k for k, e in enumerate(e for e in events if e.name == "request.submit")}
-    return [[order[t] for t in e.args["members"]]
+    return [([order[t] for t in e.args["members"]], e.args["bucket"])
             for e in events if e.name == "batch.assembled"]
 
 
@@ -608,34 +659,11 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
     from repro_torch.core.policy import ExecutionPolicy
     from repro_torch.serve import (
         Request, RuntimeConfig, SchedulerConfig, ServingRuntime, TraceConfig, assemble_batch,
-        inverse_subsample_indices,
     )
 
     rng = np.random.default_rng(SEED + 1)
     traffic = {m: ragged_clouds(rng, *SERVE_TRAFFIC[m]) for m in SERVE_TRAFFIC}
     counted, report = {}, {"card": card}
-
-    def direct(m, q, clouds, members):
-        """Eager default-stream infer of each padded micro-batch the runtime assembled."""
-        cfg = cfgs[m]
-        accel = get_accelerator(cfg, ExecutionPolicy(quant=q), device="cuda")
-        out = {}
-        for idx in members:
-            reqs = [Request(id=i, cloud=clouds[i], n_orig=clouds[i].shape[0],
-                            bucket=cfg.n_points, policy=accel.policy, deadline_t=None,
-                            submit_t=0.0, future=None) for i in idx]
-            batch = assemble_batch(reqs, cfg.n_points, 3 + cfg.in_features, BATCH)
-            with graphs.eager():
-                logits = accel.infer(params[m], batch).cpu().numpy()
-            for j, i in enumerate(idx):
-                n = clouds[i].shape[0]
-                if cfg.task != "seg":
-                    out[i] = logits[j]
-                elif n <= cfg.n_points:
-                    out[i] = logits[j, :n]
-                else:
-                    out[i] = logits[j, inverse_subsample_indices(n, cfg.n_points)]
-        return out
 
     def per_batch_launches(m, q, skipped: bool) -> dict:
         want = expected_launches(m, q, cfgs[m])
@@ -705,8 +733,11 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
                          f"{sum(r.preprocess_skipped for r in records)} all-hit)")
                 real = sum(1 for rec in records if rec.n_real)
                 # each round submits the same clouds: index them within the round
-                members = [[i % len(clouds) for i in idx] for idx in batch_members(rt)[-real:]]
-                want_out = direct(m, q, clouds, members)
+                members = [[i % len(clouds) for i in idx]
+                           for idx, _ in served_batches(rt)[-real:]]
+                want_out = eager_responses(torch, cfgs[m], params[m], clouds,
+                                           [q] * len(clouds),
+                                           [(idx, cfgs[m].n_points) for idx in members])
                 for i, o in enumerate(outs[-1]):
                     if not np.array_equal(o, want_out[i]):
                         fail(f"{tag}: response {i} differs from direct infer of its padded batch")
@@ -853,6 +884,480 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
     eight = report["eight_micro_batches_ms"]
     say(f"{len(padded)} cls micro-batches: pipelined {eight['pipelined']:.3f} ms, sequential "
         f"infer {eight['sequential']:.3f} ms (median of 5, host clock; {card})")
+    return counted, report
+
+
+def eager_responses(torch, cfg, params, clouds, quants, batches) -> dict[int, np.ndarray]:
+    """Each cloud's response from an eager default-stream infer of the padded batch
+    it rode in, at its own bucket and under its own policy (quants[i]); `batches`
+    holds (members by submit order, bucket).  Seg responses keep a row a point."""
+    from repro_torch.core import graphs
+    from repro_torch.core.accelerator import get_accelerator
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.serve import Request, assemble_batch, inverse_subsample_indices
+
+    out = {}
+    for idx, bucket in batches:
+        qs = {quants[i] for i in idx}
+        if len(qs) != 1:
+            fail(f"a served batch mixed policies {sorted(qs)}")
+        accel = get_accelerator(cfg, ExecutionPolicy(quant=qs.pop()), device="cuda")
+        reqs = [Request(id=i, cloud=clouds[i], n_orig=clouds[i].shape[0], bucket=bucket,
+                        policy=accel.policy, deadline_t=None, submit_t=0.0, future=None)
+                for i in idx]
+        with graphs.eager():
+            logits = accel.infer(params, assemble_batch(reqs, bucket, 3 + cfg.in_features,
+                                                        BATCH)).cpu().numpy()
+        for j, i in enumerate(idx):
+            n = clouds[i].shape[0]
+            if cfg.task != "seg":
+                out[i] = logits[j]
+            elif n <= bucket:
+                out[i] = logits[j, :n]
+            else:
+                out[i] = logits[j, inverse_subsample_indices(n, bucket)]
+    return out
+
+
+def control_plane_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple[dict, dict]:
+    """Phase 8: the serving control plane on the card (chaos, autoscaler, adaptive
+    controller, observability), every response held against eager direct infer.
+
+    Returns the launch counts of each counted run and the numbers to report.
+    """
+    import gc
+    import urllib.request
+    import weakref
+
+    from repro_torch.core.accelerator import get_accelerator
+    from repro_torch.core.device import CAPTURE_LOCK
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.serve import (
+        AdaptiveConfig, AutoscalerConfig, ChaosInjector, Fault, RuntimeConfig, ServingRuntime,
+        TERMINAL_EVENTS, TraceConfig, batch_crosscheck, request_timelines, trace_problems,
+        write_chrome_trace,
+    )
+
+    cfg, cls_params = cfgs["cls"], params["cls"]
+    width = 3 + cfg.in_features
+    rng = np.random.default_rng(SEED + 2)
+    counted, report = {}, {"card": card}
+    params_bytes = sum(p.numel() * p.element_size() for p in cls_params.parameters())
+    report["params_bytes_per_replica"] = params_bytes
+
+    # every capture, timed, through the accelerators this phase serves with
+    captures: list[tuple[float, float, str]] = []
+    accels = [get_accelerator(cfg, ExecutionPolicy(quant=q), device="cuda")
+              for q in ("none", "sc_w16a16")]
+    originals = [a.artifacts._capture for a in accels]
+
+    def timed(capture):
+        def run(fn, static, what):
+            t0 = time.monotonic()
+            out = capture(fn, static, what)
+            captures.append((t0, time.monotonic(), what))
+            return out
+        return run
+
+    windows: list[tuple[str, float, float]] = []  # (what, start, end) of each warmup
+
+    def windowed(label, fn):
+        def run(*args, **kw):
+            t0 = time.monotonic()
+            try:
+                return fn(*args, **kw)
+            finally:
+                windows.append((label, t0, time.monotonic()))
+        return run
+
+    memory = []
+    replicas_seen = weakref.WeakSet()  # every Replica object a pool has held
+
+    def collect():
+        """A cyclic collection, under the capture lock (none may run beside a capture)."""
+        with CAPTURE_LOCK:
+            gc.collect()
+
+    def read_memory(label, pool=None, empty=False, settle_to=None):
+        """Allocated and reserved bytes on the card, after a collection and a
+        sync (under the capture lock).  With a pool, first wait until every
+        replica it replaced is released (a thread that still runs on a dead
+        replica holds it: a heartbeat pump until its sleep of timeout / 4
+        ends, a wedged worker until its wedge ends), and report how long
+        that took.  With settle_to, then wait up to CONTROL_SETTLE_S for the
+        allocation to come within 1 MiB of it.  With empty, release the
+        allocator's cached blocks first."""
+        held_s = settled_s = None
+        if pool is not None:
+            replicas_seen.update(pool.replicas)
+            t0 = time.monotonic()
+            collect()
+            if not all(r in pool.replicas for r in list(replicas_seen)):
+                while not all(r in pool.replicas for r in list(replicas_seen)):
+                    if time.monotonic() - t0 > SERVE_WAIT_S:
+                        fail(f"control plane: a dead replica was never released ({label})")
+                    time.sleep(0.05)
+                    collect()
+                held_s = time.monotonic() - t0
+        if settle_to is not None:
+            t0 = time.monotonic()
+            while (torch.cuda.memory_allocated() > settle_to + 2**20
+                   and time.monotonic() - t0 < CONTROL_SETTLE_S):
+                time.sleep(0.02)
+            settled_s = time.monotonic() - t0
+        with CAPTURE_LOCK:
+            gc.collect()
+            torch.cuda.synchronize()
+            if empty:
+                torch.cuda.empty_cache()
+            row = {"at": label, "allocated": torch.cuda.memory_allocated(),
+                   "reserved": torch.cuda.memory_reserved(), "waited_for_release_s": held_s,
+                   "waited_to_settle_s": settled_s}
+        memory.append(row)
+        waits = ([f"{held_s:.2f} s for dead replicas to go"] if held_s else []) + (
+            [f"{settled_s:.2f} s for their frees to count"] if settled_s and settled_s > 0.01 else [])
+        waited = f", after waiting {' and '.join(waits)}" if waits else ""
+        say(f"  memory {label}: allocated {row['allocated'] / 2**20:.2f} MiB, reserved "
+            f"{row['reserved'] / 2**20:.2f} MiB{waited} ({card})")
+        return row
+
+    def wait_for(pred, what):
+        deadline = time.monotonic() + SERVE_WAIT_S
+        while not pred():
+            if time.monotonic() > deadline:
+                fail(f"control plane: {what} never happened")
+            time.sleep(0.005)
+
+    def scrape(rt, label, n_completed):
+        """GET /metrics and /healthz from the runtime's listener."""
+        url = rt.metrics_server.url
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as resp:
+            body = resp.read().decode()
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            health = (resp.status, resp.read().decode())
+        m = re.search(r"^pc2im_serve_completed_total (\d+)$", body, re.M)
+        if m is None or int(m.group(1)) != n_completed or health != (200, "ok\n"):
+            fail(f"{label}: /metrics says completed={m and m.group(1)} against "
+                 f"{n_completed} seen, /healthz {health}")
+        say(f"{label}: {url}/metrics reports {n_completed} requests completed, as seen; "
+            "/healthz ok")
+
+    def observe(rt, label, name):
+        """After stop(): the trace is well formed and reconciles with the records."""
+        events = rt.tracer.events()
+        problems = trace_problems(events)
+        if problems:
+            fail(f"{label}: trace problems {problems[:5]}")
+        if rt.tracer.dropped:
+            fail(f"{label}: the trace ring dropped {rt.tracer.dropped} events")
+        real = {r.batch_id for r in rt.metrics.batch_records if r.n_real}
+        checks = batch_crosscheck(events, rt.metrics.batch_records)
+        worst = max((c.rel_err for c in checks), default=float("inf"))
+        if {c.batch_id for c in checks} != real or worst >= CROSSCHECK_REL:
+            fail(f"{label}: batch_crosscheck covers {len(checks)} of {len(real)} batches, "
+                 f"worst rel_err {worst:.3f}")
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        path = os.path.join(ROOT, "build", f"{name}_trace.json")
+        n_events = write_chrome_trace(path, events)
+        say(f"{label}: trace_problems empty over {len(events)} events; batch_crosscheck "
+            f"covers all {len(checks)} batches, worst rel_err {worst:.4f}; Chrome trace "
+            f"{os.path.relpath(path, ROOT)} ({n_events} events)")
+        return {"events": len(events), "chrome_events": n_events, "crosscheck_worst": worst}
+
+    def check_responses(rt, label, clouds, quants, outs):
+        batches = served_batches(rt)
+        want = eager_responses(torch, cfg, cls_params, clouds, quants, batches)
+        if sorted(want) != list(range(len(clouds))):
+            fail(f"{label}: the trace's batches hold {len(want)} of {len(clouds)} requests")
+        for i, o in enumerate(outs):
+            if not np.array_equal(o, want[i]):
+                fail(f"{label}: response {i} differs from eager infer of its padded batch")
+        return batches
+
+    def check_launches(rt, label, exact: bool):
+        """Launches since the counters' reset against the batches recorded
+        (warmups included); a dead replica may still run a batch queued behind
+        its fault, whose copy another replica won, so only >= where faults fire."""
+        got = {n: registry.launches()[n] for n in KERNELS}
+        want = dict.fromkeys(KERNELS, 0)
+        for rec in rt.metrics.batch_records:
+            for n, v in expected_launches("cls", rec.policy_key[0], cfg).items():
+                want[n] += v
+        if (got != want) if exact else any(got[n] < want[n] for n in KERNELS):
+            fail(f"{label}: launches {got}, expected {'' if exact else 'at least '}{want}")
+        counted[label] = got
+        return got, want
+
+    def captures_outside_warmups():
+        return [(t0, t1, what) for t0, t1, what in captures
+                if not any(a <= t0 and t1 <= b for _, a, b in windows)]
+
+    sc = ExecutionPolicy(quant="sc_w16a16")
+    phase_t0 = time.perf_counter()
+    try:
+        for a, orig in zip(accels, originals):
+            a.artifacts._capture = timed(orig)
+
+        # -- chaos and recovery ----------------------------------------------
+        label = "control: chaos and recovery"
+        read_memory("before the runtime")
+        rt = ServingRuntime(cfg, cls_params, RuntimeConfig(
+            max_batch=BATCH, max_wait_s=0.5, buckets=(cfg.n_points,), n_replicas=2,
+            heartbeat_timeout_s=CONTROL_HEARTBEAT_S, trace=TraceConfig(), prometheus_port=0,
+            report_interval_s=CONTROL_REPORT_S,
+            autoscaler=AutoscalerConfig(poll_interval_s=0.02,
+                                        rejoin_delay_s=CONTROL_REJOIN_DELAY_S,
+                                        min_replicas=2, max_replicas=2)), device="cuda")
+        chaos = ChaosInjector([Fault(replica_id=0, at_batch=2, kind="kill")]).attach(rt.pool)
+        rt.pool.rejoin = windowed("rejoin", rt.pool.rejoin)
+        clouds, quants, outs = [], [], []
+
+        def wave(k=CONTROL_WAVE):
+            new = ragged_clouds(rng, k, *CONTROL_SIZES)
+            qs = ["none" if i % 2 == 0 else "sc_w16a16" for i in range(k)]
+            futs = [rt.submit(c, policy=sc if q != "none" else None) for c, q in zip(new, qs)]
+            clouds.extend(new)
+            quants.extend(qs)
+            outs.extend(f.result(timeout=SERVE_WAIT_S) for f in futs)
+
+        def rejoins():
+            return [e for e in rt.autoscaler.events if e.action == "rejoin"]
+
+        try:
+            registry.reset_launches()
+            base = len(captures)
+            t0 = time.monotonic()
+            rt.warmup(policies=(None, sc))
+            windows.append(("warmup", t0, time.monotonic()))
+            warm_captures = len(captures) - base
+            if warm_captures != 4:
+                fail(f"{label}: the warmup of 2 replicas x 2 policies captured {warm_captures}")
+            level = read_memory("after the warmup (2 replicas)", rt.pool)["allocated"]
+            rt.start()
+            for _ in range(CONTROL_WAVES):  # the kill: replica 0's third real batch
+                wave()
+                if chaos.fired("kill"):
+                    break
+            else:
+                fail(f"{label}: the kill never fired in {CONTROL_WAVES} waves")
+            wait_for(lambda: len(rejoins()) >= 1, "the rejoin after the kill")
+            read_memory("after the rejoin of replica 0 (kill)", rt.pool, settle_to=level)
+            # the wedge: replica 1's next real batch, now that replica 0 serves again
+            with chaos._lock:
+                nxt = chaos._counts.get(1, 0)
+            chaos.add(Fault(replica_id=1, at_batch=nxt, kind="wedge", duration_s=CONTROL_WEDGE_S))
+            for _ in range(CONTROL_WAVES):
+                wave()
+                if chaos.fired("wedge"):
+                    break
+            else:
+                fail(f"{label}: the wedge never fired in {CONTROL_WAVES} waves")
+            wait_for(lambda: len(rejoins()) >= 2, "the rejoin after the wedge")
+            after_wedge = read_memory("after the rejoin of replica 1 (wedge)", rt.pool,
+                                      settle_to=level)
+            evicted = [e for e in rt.tracer.events() if e.name == "replica.evicted"]
+            reasons = [(e.replica_id, e.args["reason"]) for e in evicted]
+            if reasons != [(0, "chaos-kill"), (1, "heartbeat")]:
+                fail(f"{label}: evictions {reasons}, expected a chaos kill of 0 and a "
+                     "heartbeat eviction of 1")
+            got, want = check_launches(rt, label, exact=False)
+            n_chaos = len(clouds)
+            # further kill -> rejoin cycles of replica 0: does memory grow with each?
+            cycles = [after_wedge]
+            for c in range(CONTROL_CYCLES):
+                with chaos._lock:
+                    nxt = chaos._counts.get(0, 0)
+                chaos.add(Fault(replica_id=0, at_batch=nxt, kind="kill"))
+                start = len(clouds)
+                while len(chaos.fired("kill")) < c + 2:
+                    if len(clouds) - start >= CONTROL_WAVES * CONTROL_WAVE:
+                        fail(f"{label}: cycle {c + 1}'s kill never fired")
+                    wave()
+                wait_for(lambda c=c: len(rejoins()) >= 3 + c, f"cycle {c + 1}'s rejoin")
+                wave()  # the rejoined replica serves
+                cycles.append(read_memory(f"after kill -> rejoin cycle {c + 1} of replica 0",
+                                          rt.pool, settle_to=level))
+            scrape(rt, label, len(outs))
+            errors = [e for e in rt.autoscaler.events if e.action == "error"]
+            if errors:
+                fail(f"{label}: the autoscaler recorded errors {errors}")
+        finally:
+            rt.stop()
+        stopped = read_memory("after stop()")
+        emptied = read_memory("after stop() and empty_cache()", empty=True)
+        snap = rt.metrics.snapshot()
+        if snap.failed or snap.completed != len(clouds) or snap.rejoins != 2 + CONTROL_CYCLES:
+            fail(f"{label}: failed={snap.failed} completed={snap.completed} of {len(clouds)}, "
+                 f"rejoins={snap.rejoins}")
+        fired = [(e.kind, e.replica_id, e.batch_index) for e in chaos.fired()]
+        check_responses(rt, label, clouds, quants, outs)
+        n_rejoins = len(rejoins())
+        n_captured = len(captures) - base
+        outside = captures_outside_warmups()
+        if n_captured != 4 + 2 * n_rejoins or outside:
+            fail(f"{label}: {n_captured} captures for the warmup and {n_rejoins} rejoins "
+                 f"(expected {4 + 2 * n_rejoins}); outside any warmup: {outside}")
+        obs = observe(rt, label, "control_chaos")
+        first = memory[1]["allocated"] - memory[0]["allocated"]
+        per_replica = first / 2
+        growth = [b["allocated"] - a["allocated"] for a, b in zip(cycles, cycles[1:])]
+        say(f"{label}: faults {fired}; {len(clouds)} responses ({n_chaos} through the kill and "
+            f"the wedge, the rest through {CONTROL_CYCLES} more kill -> rejoin cycles) bitwise "
+            f"equal to eager direct infer; {snap.retries} retries, {snap.evictions} evictions, "
+            f"{snap.rejoins} warm rejoins; {n_captured} captures, every one inside a warmup "
+            f"(the first and {n_rejoins} rejoins), none on a request's path; launches {got} "
+            f"(from the records at least {want})")
+        say(f"{label}: one replica's memory {per_replica / 2**20:.2f} MiB allocated: params "
+            f"copy {params_bytes / 2**20:.2f} MiB, its 2 graphs (8x{cfg.n_points}, float and "
+            f"SC) {(per_replica - params_bytes) / 2**20:.2f} MiB; growth per kill -> rejoin "
+            f"cycle {[round(g / 2**20, 3) for g in growth]} MiB; reserved "
+            f"+{(memory[1]['reserved'] - memory[0]['reserved']) / 2**20:.0f} MiB for the 2 "
+            f"replicas' graph pools, then per rejoin "
+            f"{[round((b['reserved'] - a['reserved']) / 2**20) for a, b in zip(cycles, cycles[1:])]}"
+            f" MiB; after stop() {(stopped['allocated'] - memory[0]['allocated']) / 2**20:.2f} "
+            f"MiB allocated and {(stopped['reserved'] - memory[0]['reserved']) / 2**20:.0f} MiB "
+            f"reserved above the start, after empty_cache() "
+            f"{(emptied['reserved'] - memory[0]['reserved']) / 2**20:.0f} MiB reserved ({card})")
+        report["chaos"] = {
+            "faults": fired, "requests": len(clouds), "retries": snap.retries,
+            "evictions": snap.evictions, "rejoins": snap.rejoins, "captures": n_captured,
+            "capture_ms": [(t1 - t0) * 1e3 for t0, t1, _ in captures[base:]],
+            "memory": memory, "replica_bytes": per_replica,
+            "graphs_bytes_per_replica": per_replica - params_bytes,
+            "growth_per_cycle_bytes": growth, "p50_ms": snap.latency_p50_s * 1e3,
+            "p99_ms": snap.latency_p99_s * 1e3, "observe": obs}
+
+        # -- adaptive bucket swap under load ---------------------------------------
+        label = "control: adaptive swap"
+        rt = ServingRuntime(cfg, cls_params, RuntimeConfig(
+            max_batch=BATCH, max_queue=2 * ADAPT_FEED, buckets=(cfg.n_points,), n_replicas=2,
+            trace=TraceConfig(), prometheus_port=0, report_interval_s=CONTROL_REPORT_S,
+            adaptive=AdaptiveConfig(poll_interval_s=3600.0, min_samples=64, min_bucket=128,
+                                    tune_max_batch=False, tune_wait=False)), device="cuda")
+        rt.reconfigure = windowed("reconfigure", rt.reconfigure)
+
+        def skewed(k):
+            small = ragged_clouds(rng, k - k // 4, CONTROL_SIZES[0], 480)
+            large = ragged_clouds(rng, k // 4, 481, CONTROL_SIZES[1])
+            return [c for pair in zip(small, large) for c in pair] + small[len(large):]
+
+        clouds = skewed(ADAPT_BEFORE) + skewed(ADAPT_FEED)
+        outs, futs = [None] * len(clouds), []
+        try:
+            registry.reset_launches()
+            base = len(captures)
+            t0 = time.monotonic()
+            rt.warmup()
+            windows.append(("warmup", t0, time.monotonic()))
+            futs = [rt.submit(c) for c in clouds[:ADAPT_BEFORE]]
+            rt.start()
+            for i, f in enumerate(futs):
+                outs[i] = f.result(timeout=SERVE_WAIT_S)
+            before_end = time.monotonic()
+            stop_feed = threading.Event()
+            fed, feed_errors = [], []
+
+            def feeder():
+                try:
+                    for i in range(ADAPT_BEFORE, len(clouds)):
+                        if stop_feed.is_set():
+                            return
+                        fed.append((i, rt.submit(clouds[i])))
+                        time.sleep(ADAPT_FEED_S)
+                except Exception as e:  # noqa: BLE001 — reported below, fails the phase
+                    feed_errors.append(repr(e))
+
+            feed = threading.Thread(target=feeder, name="control-feeder")
+            feed.start()
+            try:
+                time.sleep(0.05)  # traffic in flight before the swap starts
+                swap0 = time.monotonic()
+                rt.controller.poll_once()
+                swap1 = time.monotonic()
+                time.sleep(0.1)  # and after it
+            finally:
+                stop_feed.set()
+                feed.join(timeout=SERVE_WAIT_S)
+            if feed_errors or feed.is_alive():
+                fail(f"{label}: the feeder thread failed: {feed_errors}")
+            for i, f in fed:
+                outs[i] = f.result(timeout=SERVE_WAIT_S)
+            served = ADAPT_BEFORE + len(fed)
+            decisions = rt.controller.decisions.all()
+            if [d.kind for d in decisions] != ["buckets"] or not decisions[0].applied:
+                fail(f"{label}: decisions {decisions}, expected one applied bucket swap")
+            swap = decisions[0]
+            if rt.buckets != swap.value or len(swap.value) < 2 or swap.value[0] >= cfg.n_points:
+                fail(f"{label}: swapped to {swap.value} (runtime {rt.buckets}), expected "
+                     f"a smaller bucket below {cfg.n_points}")
+            new_shapes = [b for b in swap.value if b not in swap.previous]
+            swap_captures = [c for c in captures[base:] if swap0 <= c[0] <= swap1]
+            if len(swap_captures) != 2 * len(new_shapes):
+                fail(f"{label}: the swap captured {len(swap_captures)} graphs for "
+                     f"{len(new_shapes)} new shapes on 2 replicas")
+            # the rollback: its graphs are still cached, so it captures nothing
+            before_rb = len(captures)
+            rb0 = time.monotonic()
+            rt.reconfigure(buckets=tuple(swap.previous))
+            rb1 = time.monotonic()
+            if len(captures) != before_rb or rt.buckets != tuple(swap.previous):
+                fail(f"{label}: the rollback to {swap.previous} captured "
+                     f"{len(captures) - before_rb} graphs")
+            after = skewed(CONTROL_WAVE)
+            for c, f in zip(after, [rt.submit(c) for c in after]):
+                clouds.append(c)
+                outs.append(f.result(timeout=SERVE_WAIT_S))
+            scrape(rt, label, served + len(after))
+        finally:
+            rt.stop()
+        clouds = [c for i, c in enumerate(clouds) if outs[i] is not None]
+        outs = [o for o in outs if o is not None]
+        snap = rt.metrics.snapshot()
+        if snap.failed or snap.completed != len(outs):
+            fail(f"{label}: failed={snap.failed} completed={snap.completed} of {len(outs)}")
+        errors = [d for d in rt.controller.decisions.all() if d.kind == "error"]
+        if errors:
+            fail(f"{label}: the controller recorded errors {errors}")
+        got, _ = check_launches(rt, label, exact=True)  # before the eager references launch
+        batches = check_responses(rt, label, clouds, ["none"] * len(clouds), outs)
+        outside = captures_outside_warmups()
+        if len(captures) - base != 2 + len(swap_captures) or outside:
+            fail(f"{label}: {len(captures) - base} captures; outside any warmup: {outside}")
+        obs = observe(rt, label, "control_adapt")
+        timelines = request_timelines(rt.tracer.events())
+        ends = {tid: next(e.t for e in tl.events if e.name in TERMINAL_EVENTS)
+                for tid, tl in timelines.items()}
+        e2e = {tid: tl.e2e_s * 1e3 for tid, tl in timelines.items()}
+        before_ms = [e2e[t] for t in e2e if ends[t] <= before_end]
+        inside_ms = [e2e[t] for t in e2e if swap0 <= ends[t] <= swap1]
+
+        def pct(v):
+            return ({"n": len(v), "p50_ms": float(np.percentile(v, 50)),
+                     "p99_ms": float(np.percentile(v, 99))} if v else {"n": 0})
+
+        capture_ms = [(t1 - t0) * 1e3 for t0, t1, _ in swap_captures]
+        by_bucket = {}
+        for idx, bucket in batches:
+            by_bucket[bucket] = by_bucket.get(bucket, 0) + len(idx)
+        say(f"{label}: {swap.previous} -> {swap.value} ({swap.reason}), applied by poll_once "
+            f"in {(swap1 - swap0) * 1e3:.1f} ms with {len(fed)} clouds fed meanwhile; capture "
+            f"time per new shape and replica {[round(m, 1) for m in capture_ms]} ms; rollback "
+            f"to {swap.previous} in {(rb1 - rb0) * 1e3:.1f} ms, 0 captures; {len(outs)} "
+            f"responses bitwise equal to eager direct infer at their buckets {by_bucket}; "
+            f"launches {got}; controller errors: none ({card})")
+        say(f"{label}: latency before the swap {pct(before_ms)}, completed inside the swap "
+            f"window {pct(inside_ms)} (host clock, {card})")
+        report["adaptive"] = {
+            "previous": list(swap.previous), "buckets": list(swap.value), "reason": swap.reason,
+            "evidence": dict(swap.evidence), "poll_once_ms": (swap1 - swap0) * 1e3,
+            "capture_ms_per_new_shape": capture_ms, "rollback_ms": (rb1 - rb0) * 1e3,
+            "fed_during_swap": len(fed), "requests": len(outs), "by_bucket": by_bucket,
+            "before": pct(before_ms), "inside_swap": pct(inside_ms), "observe": obs}
+        report["phase_s"] = time.perf_counter() - phase_t0
+        say(f"control plane phase: {report['phase_s']:.1f} s")
+    finally:
+        for a, orig in zip(accels, originals):
+            a.artifacts._capture = orig
     return counted, report
 
 
@@ -1134,6 +1639,12 @@ def main() -> None:
     for n in KERNELS:
         launches[n] += sum(c[n] for c in serve_counted.values())
     say(json.dumps({"serving": serve_report, "serving_launches": serve_counted}))
+
+    # -- 8. the serving control plane -------------------------------------------
+    control_counted, control_report = control_plane_phase(torch, configs, params, registry, card)
+    for n in KERNELS:
+        launches[n] += sum(c[n] for c in control_counted.values())
+    say(json.dumps({"control_plane": control_report, "control_launches": control_counted}))
 
     kernels = []
     for name, meta in KERNELS.items():

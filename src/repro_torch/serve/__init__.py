@@ -7,15 +7,33 @@ replica pool with heartbeat eviction, CUDA streams per replica and the
 two-stage pipelined path), `metrics`, and `runtime` (the `ServingRuntime`
 facade most callers want).  `hashing` / `preprocess_cache` implement the
 cross-request preprocess cache: content-addressed duplicate clouds skip
-the preprocess stage and enter the feature stage directly.  `slo` names
-service classes (priority, deadline, shed policy) and `trace` is the
-ring-buffered lifecycle tracer every component reports into.
-`pointcloud` is the synchronous per-batch serve function.
-
-Not ported yet (ROADMAP.md queue A item 8): the exporters of `obs`, the
-`autoscaler`, `chaos` and the adaptive controller of `adapt`.
+the preprocess stage and enter the feature stage directly.  The SLO
+control plane sits on top: `slo` (service classes with priority/deadline/
+shed policy), `autoscaler` (replica rejoin + queue-depth/cost-signal
+scaling) and `chaos` (deterministic fault injection for recovery tests).
+`trace` / `obs` are the observability layer: a ring-buffered lifecycle
+tracer every component reports into, and the reductions/exporters (stage
+breakdown, Chrome-trace JSON, Prometheus text — live via `MetricsServer`)
+built on it.  `adapt` closes the loop from observation back to the knobs:
+the `AdaptiveController` retunes buckets / max_batch / batching patience
+through the runtime's pause-free `reconfigure` path, which warms (on the
+card: captures) the new shapes before the swap.  `pointcloud` is the
+synchronous per-batch serve function.
 """
 
+from repro_torch.serve.adapt import (  # noqa: F401
+    AdaptiveConfig,
+    AdaptiveController,
+    Decision,
+    DecisionLog,
+    Histogram,
+    interarrival_mean,
+    padding_waste,
+    propose_buckets,
+    propose_wait,
+)
+from repro_torch.serve.autoscaler import Autoscaler, AutoscalerConfig, ScaleEvent  # noqa: F401
+from repro_torch.serve.chaos import ChaosError, ChaosEvent, ChaosInjector, Fault  # noqa: F401
 from repro_torch.serve.dispatch import NoReplicaAvailable, Replica, ReplicaPool  # noqa: F401
 from repro_torch.serve.hashing import (  # noqa: F401
     DEFAULT_QUANT_STEP,
@@ -49,6 +67,21 @@ from repro_torch.serve.queue import (  # noqa: F401
     QueueFull,
     Request,
     Shed,
+)
+from repro_torch.serve.obs import (  # noqa: F401
+    STAGES,
+    BatchCheck,
+    MetricsServer,
+    Reporter,
+    RequestTimeline,
+    StageBreakdown,
+    batch_crosscheck,
+    prometheus_text,
+    request_timelines,
+    stage_breakdown,
+    to_chrome_trace,
+    trace_problems,
+    write_chrome_trace,
 )
 from repro_torch.serve.runtime import (  # noqa: F401
     RuntimeConfig,

@@ -25,10 +25,15 @@ skip the FPS/kNN/partition stage on repeat requests and enter the feature
 stage directly (serve/preprocess_cache.py; `rt.cache_stats()` reports
 residency, `rt.metrics.snapshot()` the hit rate and saved latency).
 
+The control plane rides on the same runtime: `autoscaler` rejoins
+fault-evicted replicas warm and scales on queue depth, `adaptive` retunes
+buckets, max_batch and batching patience through `reconfigure`,
+`prometheus_port` serves `GET /metrics` and `/healthz`, and
+`report_interval_s` prints a periodic summary line to stderr.
+
 Not ported yet, and refused with NotImplementedError rather than ignored:
-the autoscaler, the adaptive controller, the Prometheus endpoint and the
-periodic reporter (ROADMAP.md queue A item 8), and replicas over device
-groups or sharded policies (item 10).
+replicas over device groups or sharded policies (ROADMAP.md queue A
+item 10).
 """
 
 from __future__ import annotations
@@ -41,23 +46,17 @@ import torch
 
 from repro_torch.core.accelerator import get_accelerator
 from repro_torch.core.policy import ExecutionPolicy, resolve_policy
+from repro_torch.serve.adapt.controller import AdaptiveConfig, AdaptiveController
+from repro_torch.serve.autoscaler import Autoscaler, AutoscalerConfig
 from repro_torch.serve.dispatch import ReplicaPool, check_unsharded, pool_devices
 from repro_torch.serve.hashing import DEFAULT_QUANT_STEP
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.obs import MetricsServer, Reporter
 from repro_torch.serve.preprocess_cache import CacheConfig, PreprocessCache
 from repro_torch.serve.queue import AdmissionError, AdmissionQueue, Shed
 from repro_torch.serve.scheduler import BatchScheduler, MicroBatch, SchedulerConfig, bucket_for
 from repro_torch.serve.slo import SLOClass
 from repro_torch.serve.trace import TraceConfig, Tracer
-
-# RuntimeConfig fields whose modules are not ported yet, with the ROADMAP
-# item that ports them: setting one raises instead of being ignored
-NOT_PORTED_OPTIONS = {
-    "autoscaler": "serve/autoscaler.py, ROADMAP.md queue A item 8",
-    "adaptive": "serve/adapt/, ROADMAP.md queue A item 8",
-    "prometheus_port": "serve/obs.py MetricsServer, ROADMAP.md queue A item 8",
-    "report_interval_s": "serve/obs.py Reporter, ROADMAP.md queue A item 8",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,9 +73,9 @@ class RuntimeConfig:
     float noise — skip the preprocess stage on repeat requests.
     shed_threshold enables load shedding (serve/slo.py): sheddable classes
     are rejected with `Shed` once the queue backlog reaches it.
-    autoscaler, adaptive, prometheus_port and report_interval_s keep the
-    JAX package's fields and defaults; their modules are not ported yet,
-    so setting one raises NotImplementedError (NOT_PORTED_OPTIONS).
+    autoscaler attaches the replica autoscaling control loop
+    (serve/autoscaler.py): fault-evicted replicas rejoin warm and the pool
+    grows/shrinks with queue depth.
     class_weights switches the queue drain from strict priority to
     deficit-round-robin across SLO classes (serve/queue.py): each class gets
     throughput proportional to its weight while EDF order holds within a
@@ -85,6 +84,15 @@ class RuntimeConfig:
     "subsample" (default) serves them at the largest bucket via random
     subsampling in pad_cloud, "reject" refuses them at submit with a
     ValueError naming the bucket set.
+    prometheus_port attaches a live scrape endpoint (serve/obs.py
+    MetricsServer, GET /metrics + /healthz); 0 binds an ephemeral port
+    (read it from `rt.metrics_server.url`), None disables the listener.
+    report_interval_s attaches the periodic reporter (serve/obs.py
+    Reporter): one summary line to stderr every interval.
+    adaptive attaches the feedback control loop (serve/adapt/): observed
+    size/arrival/occupancy distributions periodically retune buckets,
+    max_batch and per-class batching patience through the pause-free
+    warm-then-swap reconfiguration path.
     """
 
     max_batch: int = 8
@@ -101,19 +109,16 @@ class RuntimeConfig:
     cache_max_bytes: int = 0  # 0 disables the preprocess cache
     cache_quant_step: float = DEFAULT_QUANT_STEP  # content-hash lattice pitch
     shed_threshold: int | None = None  # backlog shed budget (None disables)
-    autoscaler: object | None = None  # not ported: must stay None
+    autoscaler: AutoscalerConfig | None = None  # None = no control loop
     trace: TraceConfig | None = None  # None = tracing off (no tracer anywhere)
-    report_interval_s: float | None = None  # not ported: must stay None
+    report_interval_s: float | None = None  # periodic metrics reporter (None = off)
     class_weights: tuple[tuple[str, float], ...] | None = None  # DRR drain
     oversize: str = "subsample"  # or "reject": refuse clouds past max bucket
-    prometheus_port: int | None = None  # not ported: must stay None
+    prometheus_port: int | None = None  # scrape endpoint (0 = ephemeral port)
     prometheus_host: str = "127.0.0.1"
-    adaptive: object | None = None  # not ported: must stay None
+    adaptive: AdaptiveConfig | None = None  # None = no feedback loop
 
     def __post_init__(self):
-        for name, where in NOT_PORTED_OPTIONS.items():
-            if getattr(self, name) is not None:
-                raise NotImplementedError(f"RuntimeConfig.{name} is not ported yet ({where})")
         if self.buckets is not None:
             b = tuple(self.buckets)
             if not b:
@@ -225,6 +230,12 @@ class ServingRuntime:
             cache=self.cache,
             tracer=self.tracer,
         )
+        self.autoscaler = (
+            Autoscaler(self.pool, self.queue, self.config.autoscaler,
+                       tracer=self.tracer, metrics=self.metrics)
+            if self.config.autoscaler is not None
+            else None
+        )
         self.scheduler = BatchScheduler(
             self.queue,
             self.pool.submit,
@@ -242,6 +253,26 @@ class ServingRuntime:
             metrics=self.metrics,
             cache=self.cache,
             tracer=self.tracer,
+        )
+        self.reporter = (
+            Reporter(self.metrics, self.config.report_interval_s,
+                     tracer=self.tracer)
+            if self.config.report_interval_s is not None
+            else None
+        )
+        self.controller = (
+            AdaptiveController(self, self.config.adaptive)
+            if self.config.adaptive is not None
+            else None
+        )
+        self.metrics_server = (
+            MetricsServer(
+                self.metrics,
+                host=self.config.prometheus_host,
+                port=self.config.prometheus_port,
+            )
+            if self.config.prometheus_port is not None
+            else None
         )
         self._started = False
         self._stopped = False
@@ -264,6 +295,14 @@ class ServingRuntime:
         if not self._started:
             self._started = True
             self.scheduler.start()
+            if self.autoscaler is not None:
+                self.autoscaler.start()
+            if self.controller is not None:
+                self.controller.start()
+            if self.reporter is not None:
+                self.reporter.start()
+            if self.metrics_server is not None:
+                self.metrics_server.start()
         return self
 
     def stop(self, drain: bool = True):
@@ -274,6 +313,18 @@ class ServingRuntime:
         than left hanging — without a scheduler nothing could complete it.
         """
         self._stopped = True
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
+        if self.reporter is not None:
+            self.reporter.stop()
+        if self.controller is not None:
+            # stopped before the scheduler: a reconfigure racing shutdown
+            # would warm shapes on a pool the shutdown below tears down
+            self.controller.stop()
+        if self.autoscaler is not None:
+            # stopped before the scheduler: a rejoin racing shutdown would
+            # spin up a fresh replica the pool.shutdown() below never sees
+            self.autoscaler.stop()
         if self._started:
             self.scheduler.stop(drain=drain)
             self._started = False

@@ -40,9 +40,7 @@ import time
 # --------------------------------------------------------------------------
 # Event-name registry.  CLOSED: every name emitted anywhere in repro_torch.serve
 # (subpackages included) must be declared here exactly once
-# (tests/test_torch_serve.py checks each emitted name against it).  The
-# registry is the JAX package's, so it also declares the names of the
-# control-plane modules still to be ported (scale.*, chaos.*, adapt.*).  Names are
+# (tests/test_torch_serve.py checks both directions).  Names are
 # "<scope>.<edge>"; scopes are:
 #   request.* — events on one request's span (trace_id set)
 #   batch.*   — events on one micro-batch's span (batch_id set)
@@ -101,7 +99,8 @@ EVENTS: tuple[str, ...] = (
 _EVENT_SET = frozenset(EVENTS)
 
 #: The five mutually-exclusive ways a request span ends.  A well-formed
-#: trace contains exactly one of these per trace id (asserted in tests).
+#: trace contains exactly one of these per trace id (asserted in tests and
+#: checked by :func:`repro_torch.serve.obs.request_timelines`).
 TERMINAL_EVENTS = frozenset(
     {
         "request.completed",

@@ -819,3 +819,180 @@ def test_partial_all_hit_sc_batch_equals_eager_infer_of_the_padded_batch(cuda, p
         want = accel.infer(params, _padded([cloud], accel.policy)).cpu().numpy()[0]
     np.testing.assert_array_equal(first, want)
     np.testing.assert_array_equal(second, want)
+
+
+# -- the serving control plane on the card ----------------------------------------
+
+# Bound on memory_allocated over kill -> rejoin cycles of one replica, above
+# the reading after the first cycle.  chip_smoke's control-plane phase
+# measured (NVIDIA H100 80GB HBM3, 700 W): one cls replica 6.65 MiB, its
+# params copy 5.59 MiB and its float and SC graphs at 8x1024 1.05 MiB; no
+# growth a cycle once the allocator has counted the dead replica's frees,
+# which lag its last Python reference by up to a second.  1 MiB is below one
+# replica's graphs, so a cycle that leaks them fails.
+REJOIN_GROWTH_BOUND = 1 << 20
+SETTLE_S = 5.0  # how long a reading waits for the dead replica's frees to count
+
+
+def _zero_mb(policy, bucket=CONFIG.n_points, batch=None):
+    from repro_torch.serve import MicroBatch
+
+    return MicroBatch(requests=(), bucket=bucket, policy=policy,
+                      batch=batch if batch is not None
+                      else np.zeros((BATCH, bucket, 3), np.float32))
+
+
+def _padded_at(clouds, policy, bucket):
+    from repro_torch.serve import Request, assemble_batch
+
+    reqs = [Request(id=i, cloud=c, n_orig=c.shape[0], bucket=bucket, policy=policy,
+                    deadline_t=None, submit_t=0.0, future=None) for i, c in enumerate(clouds)]
+    return assemble_batch(reqs, bucket, 3, BATCH)
+
+
+def test_rejoin_capture_beside_a_replica_replaying_float_batches(cuda):
+    """Replica 0 is evicted and rejoins (a fresh params copy, new streams, one
+    float graph captured) while a thread keeps replica 1 replaying float
+    batches: every answer on either side is bitwise the eager one."""
+    from repro_torch.serve import ReplicaPool, ServeMetrics
+
+    accel = get_accelerator(CONFIG, device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    x = _clouds_for(CONFIG, 1, seed=30)[0]
+    with graphs.eager():
+        want = accel.infer(params, x).cpu().numpy()
+    pool = ReplicaPool(CONFIG, params, n_replicas=2, device=cuda, metrics=ServeMetrics())
+    stop, errors, loops = threading.Event(), [], [0]
+
+    def traffic():
+        while not stop.is_set():
+            got = pool.submit(_zero_mb(accel.policy, batch=x)).result(timeout=60)
+            if not np.array_equal(got, want):
+                errors.append(f"replay {loops[0]} differs from eager")
+                return
+            loops[0] += 1
+
+    thread = threading.Thread(target=traffic)
+    try:
+        pool.warmup(_zero_mb(accel.policy))
+        pool.evict(0, reason="test")
+        thread.start()
+        _wait(lambda: loops[0] >= 3, "replica 1's replays")
+        before, during = graphs.captures(), loops[0]
+        assert pool.rejoin(0) and pool.replicas[0].alive
+        assert graphs.captures() == before + 1
+        stop.set()
+        thread.join(timeout=60)
+        assert not thread.is_alive() and not errors and loops[0] > during
+        futs = [pool.submit(_zero_mb(accel.policy, batch=x)) for _ in range(4)]
+        for f in futs:
+            np.testing.assert_array_equal(f.result(timeout=60), want)
+        assert pool.replicas[0].n_batches >= 2  # its warmup, then traffic
+        assert graphs.captures() == before + 1
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+        pool.shutdown()
+
+
+def test_reconfigure_beside_a_thread_looping_eager_float_infers(cuda):
+    """A bucket swap captures the new shape on both replicas (each capture
+    clears every thread's cuBLAS workspaces) while another thread loops eager
+    float infers on a stream of its own: every eager answer stays bitwise the
+    one computed alone, and requests at the new bucket answer bitwise as an
+    eager infer of their padded batch."""
+    from repro_torch.serve import RuntimeConfig, ServingRuntime
+
+    accel = get_accelerator(CONFIG, device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    other = accel.init(torch.Generator().manual_seed(1))
+    x0 = _clouds_for(CONFIG, 1, seed=31)[0]
+    with graphs.eager():
+        want0 = accel.infer(other, x0).cpu()
+    stop, warm, errors, loops = threading.Event(), threading.Event(), [], [0]
+
+    def worker():
+        side = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(side), graphs.eager():
+            while not stop.is_set():
+                if not torch.equal(accel.infer(other, x0).cpu(), want0):
+                    errors.append(f"eager answer {loops[0]} differs from the one computed alone")
+                    break
+                loops[0] += 1
+                warm.set()
+        warm.set()
+
+    rng = np.random.default_rng(32)
+    clouds = [rng.uniform(-1, 1, (int(n), 3)).astype(np.float32)
+              for n in rng.integers(300, 512, BATCH)]
+    rt = ServingRuntime(CONFIG, params, RuntimeConfig(max_batch=BATCH, max_wait_s=1.0,
+                                                      buckets=(CONFIG.n_points,), n_replicas=2),
+                        device=cuda)
+    thread = threading.Thread(target=worker)
+    try:
+        rt.warmup()
+        rt.start()
+        thread.start()
+        assert warm.wait(timeout=60)
+        before, during = graphs.captures(), loops[0]
+        rt.reconfigure(buckets=(512, CONFIG.n_points))
+        assert graphs.captures() == before + 2  # the 512 shape on each replica
+        outs = [f.result(timeout=300) for f in [rt.submit(c) for c in clouds]]
+        assert graphs.captures() == before + 2
+        stop.set()
+        thread.join(timeout=60)
+        assert not thread.is_alive() and not errors and loops[0] > during
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+        rt.stop()
+    with graphs.eager():
+        want = accel.infer(params, _padded_at(clouds, rt.default_policy, 512)).cpu().numpy()
+    for i, out in enumerate(outs):
+        np.testing.assert_array_equal(out, want[i])
+
+
+def test_kill_rejoin_cycles_keep_memory_bounded(cuda):
+    """Six kill -> rejoin cycles of replica 0, float and SC graphs each time:
+    the dead replica's params copy and graphs go with it, so memory_allocated
+    stays within REJOIN_GROWTH_BOUND of its reading after the first cycle."""
+    from repro_torch.core.device import CAPTURE_LOCK
+    from repro_torch.serve import ReplicaPool, ServeMetrics
+
+    sc = ExecutionPolicy(quant="sc_w16a16")
+    accel = get_accelerator(CONFIG, device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    pool = ReplicaPool(CONFIG, params, n_replicas=2, device=cuda, metrics=ServeMetrics())
+    x = _clouds_for(CONFIG, 1, seed=33)[0]
+
+    def collected(ref):
+        with CAPTURE_LOCK:  # no collection beside a capture
+            gc.collect()
+        return ref() is None
+
+    def allocated():
+        with CAPTURE_LOCK:
+            gc.collect()
+            torch.cuda.synchronize()
+            return torch.cuda.memory_allocated(cuda)
+
+    readings = []
+    try:
+        pool.warmup(_zero_mb(accel.policy))
+        pool.warmup(_zero_mb(get_accelerator(CONFIG, sc, device=cuda).policy))
+        for _ in range(6):
+            dead = weakref.ref(pool.replicas[0])
+            pool.evict(0, reason="test")
+            assert pool.rejoin(0)
+            for f in [pool.submit(_zero_mb(accel.policy, batch=x)) for _ in range(2)]:
+                f.result(timeout=60)
+            _wait(lambda: collected(dead), "the dead replica released")
+            deadline = time.monotonic() + SETTLE_S
+            while (readings and allocated() > readings[0] + REJOIN_GROWTH_BOUND
+                   and time.monotonic() < deadline):
+                time.sleep(0.02)
+            readings.append(allocated())
+    finally:
+        pool.shutdown()
+    growth = max(readings) - readings[0]
+    assert growth <= REJOIN_GROWTH_BOUND, [r - readings[0] for r in readings]

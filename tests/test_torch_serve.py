@@ -1,8 +1,8 @@
 """Port parity, the serving path on the CPU: the shared numpy helpers and the
 content key against the JAX package, `ServingRuntime` responses against a
 direct `infer` of the same padded batch (bitwise) and against the JAX
-package's `ServingRuntime` on the same clouds, and the queue, cache, replica
-and not-yet-ported-option behaviour.
+package's `ServingRuntime` on the same clouds, the queue, cache and replica
+behaviour, the control-plane options and the not-yet-ported ones.
 
 Tolerances and why:
   * the numpy helpers and content keys are equal, byte for byte;
@@ -34,6 +34,8 @@ from repro.core.policy import ExecutionPolicy as JPolicy
 from repro.models import pointnet2 as JPN
 from repro.serve import RuntimeConfig as JRuntimeConfig
 from repro.serve import ServingRuntime as JServingRuntime
+from repro.serve.adapt import AdaptiveConfig as JAdaptiveConfig
+from repro.serve.autoscaler import AutoscalerConfig as JAutoscalerConfig
 from repro.serve import hashing as j_hashing
 from repro.serve import pointcloud as j_pointcloud
 from repro_torch.configs import get_config
@@ -42,12 +44,18 @@ from repro_torch.core.policy import ExecutionPolicy, resolve_policy
 from repro_torch.params import from_jax_params
 from repro_torch.serve import (
     EVENTS,
+    AdaptiveConfig,
+    AdaptiveController,
     AdmissionQueue,
+    Autoscaler,
+    AutoscalerConfig,
     DeadlineExceeded,
+    MetricsServer,
     MicroBatch,
     NoReplicaAvailable,
     QueueFull,
     ReplicaPool,
+    Reporter,
     RuntimeConfig,
     ServeMetrics,
     ServingRuntime,
@@ -64,7 +72,6 @@ from repro_torch.serve import (
 )
 from repro_torch.serve.dispatch import pool_devices
 from repro_torch.serve.queue import Request
-from repro_torch.serve.runtime import NOT_PORTED_OPTIONS
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -583,13 +590,76 @@ def test_pool_devices():
             pool_devices()
 
 
-# -- options not ported yet --------------------------------------------------------
+# -- the control-plane options --------------------------------------------------------
+
+# RuntimeConfig option -> (a value, the runtime attribute it builds, its type)
+CONTROL_PLANE = {
+    "autoscaler": (AutoscalerConfig(poll_interval_s=3600.0), "autoscaler", Autoscaler),
+    "adaptive": (AdaptiveConfig(poll_interval_s=3600.0), "controller", AdaptiveController),
+    "prometheus_port": (0, "metrics_server", MetricsServer),
+    "report_interval_s": (3600.0, "reporter", Reporter),
+}
 
 
-@pytest.mark.parametrize("option", sorted(NOT_PORTED_OPTIONS))
-def test_unported_runtime_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 8"):
-        RuntimeConfig(**{option: 0})
+@pytest.mark.parametrize("option", sorted(CONTROL_PLANE))
+def test_control_plane_option_builds_its_component(cfg, params, option):
+    """Each option builds its component on a CPU runtime, which starts it with
+    the runtime and stops it with the runtime; unset, there is none."""
+    value, attr, kind = CONTROL_PLANE[option]
+    plain = _runtime(cfg, params)
+    try:
+        assert getattr(plain, attr) is None
+    finally:
+        plain.stop()
+    rt = _runtime(cfg, params, **{option: value})
+    try:
+        part = getattr(rt, attr)
+        assert isinstance(part, kind)
+        rt.start()
+        if option == "prometheus_port":
+            assert part.port != 0 and part._server is not None
+        else:
+            assert part._thread is not None and part._thread.is_alive()
+        assert rt.submit(_clouds(1)[0]).result(timeout=WAIT_S).shape == (cfg.n_classes,)
+    finally:
+        rt.stop()
+    if option == "prometheus_port":
+        assert part._server is None
+    else:
+        assert part._thread is None
+    if option == "report_interval_s":
+        assert part.ticks == 1 and part.last_snapshot.completed == 1  # the final tick
+
+
+# option -> a malformed value for the port, and the JAX package's counterpart
+MALFORMED = {
+    "autoscaler": (lambda: AutoscalerConfig(min_replicas=0),
+                   lambda: JAutoscalerConfig(min_replicas=0)),
+    "adaptive": (lambda: AdaptiveConfig(rollback_factor=1.0),
+                 lambda: JAdaptiveConfig(rollback_factor=1.0)),
+    "prometheus_port": (lambda: -1, lambda: -1),
+    "report_interval_s": (lambda: 0.0, lambda: 0.0),
+}
+
+
+@pytest.mark.parametrize("option", sorted(MALFORMED))
+def test_control_plane_option_rejects_a_malformed_value(cfg, params, bridged, option):
+    """A malformed value raises the JAX package's ValueError, at the same step:
+    building the option's config, the RuntimeConfig, or the runtime."""
+    port_value, jax_value = MALFORMED[option]
+
+    def port():
+        return _runtime(cfg, params, **{option: port_value()})
+
+    def reference():
+        return JServingRuntime(j_cls_smoke(), bridged["cls"][0], JRuntimeConfig(
+            max_batch=MAX_BATCH, buckets=(256,), **{option: jax_value()}))
+
+    with pytest.raises(ValueError) as got:
+        port()
+    with pytest.raises(ValueError) as want:
+        reference()
+    assert str(got.value) == str(want.value)
 
 
 def test_device_groups_raise(cfg, params):
@@ -615,11 +685,18 @@ def test_sharded_policies_raise(cfg, params):
 
 
 def test_every_emitted_trace_event_is_declared():
-    """Every literal event name the port's serving modules emit is in EVENTS."""
-    emitted = set()
-    for path in SERVE_SRC.glob("*.py"):
-        emitted |= set(re.findall(r'(?:emit|_emit)\(\s*"([a-z]+\.[a-z_]+)"', path.read_text()))
-    assert emitted and emitted <= set(EVENTS), sorted(emitted - set(EVENTS))
+    """The registry is closed in both directions: every event literal in the
+    port's serving modules (subpackages included) is declared in EVENTS, and
+    every declared name is used by some module other than trace.py."""
+    lit = re.compile(r"""["']((?:request|batch|replica|scale|chaos|cache|adapt)\.[a-z_]+)["']""")
+    used = {}
+    for path in sorted(SERVE_SRC.rglob("*.py")):
+        for name in lit.findall(path.read_text()):
+            used.setdefault(name, set()).add(path.name)
+    undeclared = sorted(set(used) - set(EVENTS))
+    assert used and undeclared == [], undeclared
+    orphans = [name for name in EVENTS if not used.get(name, set()) - {"trace.py"}]
+    assert orphans == [], f"EVENTS entries never emitted: {orphans}"
     assert len(EVENTS) == len(set(EVENTS))
 
 
