@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives four paths of the port, each through the entry points a user
+It drives five paths of the port, each through the entry points a user
 calls: the pointnet2-cls forward (8 clouds of 1024 points), the
 pointnet2-seg forward (8 clouds of 4096 points, whose FP stages run the
 knn3 kernel), both through get_accelerator(CONFIG, policy).infer at full
@@ -13,7 +13,8 @@ points, 1024 centroids), and the serving path: ServingRuntime.submit
 through the queue, the scheduler, the replica pool (its own CUDA streams
 and worker threads), the preprocess cache and the pipelined executor, and
 then its control plane (fault injection, autoscaler, adaptive controller,
-exporters).  On
+exporters), and training (launch/train.py, its step one captured CUDA
+graph).  On
 the card the entry points replay captured CUDA graphs (core/graphs.py, the
 counterpart of the JAX package's jit artifacts) unless the caller enters
 graphs.eager(), which is the reference side of every graph check.
@@ -99,12 +100,31 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      autoscaler nor the controller may record an error.  It prints the
      memory of one replica and its graphs, the growth per cycle, the
      capture time per new shape and p50/p99 inside the swap window, and
-     writes both runs' Chrome traces under build/.
+     writes both runs' Chrome traces under build/;
+  9. training (launch/train.py): for pointnet2-cls (8 x 1024) and
+     pointnet2-seg (8 x 4096), each in float and sc_w16a16, from seeded
+     params and the same data.pointclouds batches: step 1's loss and
+     gradients on the card against the port's CPU run (TRAIN_GRAD_TOL);
+     5 eager steps against 5 steps of TrainStep, whose first call runs
+     eagerly and captures the whole step (forward, torch.autograd.grad,
+     AdamW in place) as one CUDA graph and whose later calls replay it,
+     bitwise in every loss, parameter, moment and the step count under
+     torch.use_deterministic_algorithms (scoped to that check, since the
+     backward's scatter-adds race otherwise), with the launches of the 4
+     replays = 4 x the per-forward counts of phase 4 and one capture; a
+     checkpoint of {"params", "opt"} written from the card and read back
+     bitwise; the "loss" graph's replay against eager.  Then, with the
+     default kernels, 5 eager steps twice (their spread is printed) and 5
+     replays, timed (host clock, median), one replay profiled (busy time,
+     idle share, credited launches against the kernels the card ran), and
+     the peak memory_allocated of each above what was allocated before it.  Last, train_pointcloud trains
+     pointnet2-cls in float for 30 steps and the mean loss over its batches
+     must fall.
 
 Then it prints one JSON line with every kernel's launches (summed over the
-counted runs of phases 4, 6, 7 and 8; a replay's are the launches its capture
-recorded, which the profiled replays of phases 4, 6 and 7 show the card
-running), error and times (summed over the calls recorded in
+counted runs of phases 4, 6, 7, 8 and 9; a replay's are the launches its
+capture recorded, which the profiled replays of phases 4, 6, 7 and 9 show
+the card running), error and times (summed over the calls recorded in
 phase 3, with a breakdown by path), the card line again, and as its last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Inputs and weights come from numpy / torch generators seeded with SEED;
@@ -113,7 +133,9 @@ neither jax nor the JAX package is imported.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import gc
 import json
 import os
 import re
@@ -121,6 +143,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -177,6 +200,34 @@ ADAPT_FEED_S = 0.001
 # A crosscheck's |span - recorded| / recorded bound, the JAX package's own
 # (tests/test_trace.py `test_crosscheck_on_real_run`).
 CROSSCHECK_REL = 0.5
+# Training phase: each model and policy takes TRAIN_STEPS steps of batches
+# from data.pointclouds (the batch keys of launch/train.py) at the
+# reference's default learning rate.
+TRAIN_STEPS = 5
+TRAIN_LR = 3e-4
+# Step 1 on the card against the port's CPU run.  Loss: as LOGIT_ATOL's
+# reasons, on a mean of log-softmaxes.  Gradients, of each leaf's max |g|:
+# float 5e-3.  Two card runs agree to ~4e-7 (the backward's racing
+# scatter-adds), but the card's forward differs from the CPU's by ~1e-7,
+# and where two neighbours' features nearly tie in a masked max-pool that
+# sends the max's gradient to the other one: measured up to 1.0e-3 of the
+# leaf's max on an H100 (cls SA layers; PERF.md, sec. 6).  SC: a weight's
+# gradient comes only through the two quantizer scales (round and the
+# int32 cast cut the rest, as in the reference), so the nonzero pattern
+# above TRAIN_SC_FLOOR must be equal (below it lie denormals, which the
+# card keeps and the CPU may not), and the values within 1e-3 of the leaf's
+# max where that is at least 1e-3 (measured <= 1.4e-4), 1e-1 below it
+# (measured <= 4.1e-2): such a leaf's gradient passes through the amax of
+# later layers' inputs, a sum over a whole activation in which the card's
+# and the CPU's few differing 16-bit quanta do not cancel, more so each
+# layer back (tests/test_torch_train.py measures <= 1.05e-2 between the
+# port and the JAX package on the CPU at smoke width).
+TRAIN_LOSS_ATOL = {"none": 1e-5, "sc_w16a16": 1e-3}
+TRAIN_GRAD_TOL = {"none": 5e-3, "sc_w16a16": 1e-3, "sc scale path": 1e-1}
+TRAIN_SC_FLOOR = 1e-30
+# Learning check: pointnet2-cls in float through train_pointcloud itself.
+LEARN_STEPS = 30
+LEARN_LR = 3e-4
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -1361,6 +1412,246 @@ def control_plane_phase(torch, cfgs: dict, params: dict, registry, card: str) ->
     return counted, report
 
 
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch.use_deterministic_algorithms(True, warn_only=True) inside the block only.
+
+    The training step's backward adds into gathered rows (take_along_dim's
+    backward is a scatter-add), whose float sums land in a racing order on
+    the card unless PyTorch takes its deterministic kernels.  warn_only:
+    an op with no deterministic kernel warns instead of raising, and a
+    bitwise check then says whether it mattered.  The block's warnings are
+    returned in the list it yields.
+    """
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def grads_agree(torch, got: dict, want: dict, quant: str) -> tuple[float, str]:
+    """The worst |got - want| / max|want| over the leaves, after the checks of
+    TRAIN_GRAD_TOL (an SC leaf's nonzero pattern above TRAIN_SC_FLOOR too);
+    fails the phase on a leaf out of bounds."""
+    worst, where = 0.0, ""
+    for name, w in want.items():
+        g = got[name].detach().cpu().double()
+        w = w.detach().cpu().double()
+        top = w.abs().max().item()
+        diff = (g - w).abs().max().item()
+        if quant == "none":
+            bound = TRAIN_GRAD_TOL["none"] * top
+        else:
+            if not torch.equal(g.abs() > TRAIN_SC_FLOOR, w.abs() > TRAIN_SC_FLOOR):
+                fail(f"training, SC gradient of {name}: nonzero pattern above {TRAIN_SC_FLOOR} "
+                     "differs between the card and the CPU")
+            if top <= TRAIN_SC_FLOOR:
+                continue
+            bound = TRAIN_GRAD_TOL["sc_w16a16" if top >= 1e-3 else "sc scale path"] * top
+        if diff > bound:
+            fail(f"training, gradient of {name} (quant={quant}): card vs CPU max |diff| {diff} "
+                 f"> {bound} (leaf max {top})")
+        if top > 0 and diff / top > worst:
+            worst, where = diff / top, name
+    return worst, where
+
+
+def training_phase(torch, cfgs: dict, registry, card: str) -> tuple[dict, dict]:
+    """Phase 9: pointnet2 training on the card, the step replayed as one CUDA graph.
+
+    Returns the launch counts of each counted run and the numbers to report.
+    """
+    import argparse
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core import graphs
+    from repro_torch.core.accelerator import get_accelerator
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.data.pointclouds import fold_in, sample_batch
+    from repro_torch.launch.train import TrainStep, train_pointcloud, value_and_grad
+    from repro_torch.optim import adamw_init
+    from repro_torch.params import tree_leaves
+
+    counted, report = {}, {"card": card}
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for m, cfg in cfgs.items():
+        batches = []
+        for i in range(TRAIN_STEPS):
+            pts, cls, seg = sample_batch(fold_in(SEED, 10_000 + i), BATCH, cfg.n_points,
+                                         device=cuda)
+            batches.append((pts, cls if cfg.task == "cls" else seg))
+        for q in ("none", "sc_w16a16"):
+            label = f"training {m} quant={q}"
+            pol = ExecutionPolicy(quant=q)
+            accel = get_accelerator(cfg, pol, device=cuda)
+
+            def fresh(device=cuda):
+                a = accel if device == cuda else get_accelerator(cfg, pol, device=device)
+                p = a.init(torch.Generator().manual_seed(SEED))
+                return p, adamw_init(p)
+
+            # step-1 loss and gradients: the card against the port's CPU run
+            p, _ = fresh()
+            (loss_gpu, _), g_gpu = value_and_grad(accel, p, *batches[0])
+            p_cpu, _ = fresh(torch.device("cpu"))
+            (loss_cpu, _), g_cpu = value_and_grad(get_accelerator(cfg, pol, device="cpu"), p_cpu,
+                                                  batches[0][0].cpu(), batches[0][1].cpu())
+            loss_diff = abs(loss_gpu.item() - loss_cpu.item())
+            if loss_diff > TRAIN_LOSS_ATOL[q]:
+                fail(f"{label}: step-1 loss {loss_gpu.item()} on the card, {loss_cpu.item()} on "
+                     f"the CPU (|diff| {loss_diff} > {TRAIN_LOSS_ATOL[q]})")
+            worst, where = grads_agree(torch, g_gpu, g_cpu, q)
+            del p, g_gpu, p_cpu, g_cpu
+
+            # the replayed step against eager steps, bitwise, under deterministic kernels
+            with deterministic(torch) as caught:
+                pe, se = fresh()
+                eager_step = TrainStep(accel, pe, se, lr=TRAIN_LR)
+                with graphs.eager():
+                    eager_losses = [eager_step(*b)["loss"] for b in batches]
+                pg, sg = fresh()
+                graph_step = TrainStep(accel, pg, sg, lr=TRAIN_LR)
+                first = graphs.captures()
+                graph_losses = [graph_step(*batches[0])["loss"]]  # eager, then the capture
+                registry.reset_launches()
+                graph_losses += [graph_step(*b)["loss"] for b in batches[1:]]
+                torch.cuda.synchronize()
+                got = {n: registry.launches()[n] for n in KERNELS}
+            captured = graphs.captures() - first
+            want = {n: (TRAIN_STEPS - 1) * v for n, v in expected_launches(m, q, cfg).items()}
+            counted[label] = got
+            if got != want:
+                fail(f"{label}: {TRAIN_STEPS - 1} replayed steps launched {got}, expected {want}")
+            if captured != 1:
+                fail(f"{label}: {captured} captures over {TRAIN_STEPS} steps, expected 1")
+            for i, (a, b) in enumerate(zip(graph_losses, eager_losses)):
+                if not torch.equal(a, b):
+                    fail(f"{label}: step {i} loss replayed {a.item()}, eager {b.item()}")
+            for i, (a, b) in enumerate(zip(graph_step._tensors(), eager_step._tensors())):
+                if not torch.equal(a, b):
+                    fail(f"{label}: after {TRAIN_STEPS} steps, state tensor {i} of the replayed "
+                         f"run differs from the eager run (max |diff| "
+                         f"{(a.double() - b.double()).abs().max().item()})")
+            if int(sg.step) != TRAIN_STEPS:
+                fail(f"{label}: the step count reads {int(sg.step)} after {TRAIN_STEPS} steps")
+            no_det = sorted({str(w.message).split(".")[0][:120] for w in caught
+                             if "determinis" in str(w.message)})
+
+            # a checkpoint written from the card and read back, bitwise
+            with tempfile.TemporaryDirectory() as tmp:
+                save_checkpoint(tmp, TRAIN_STEPS, {"params": pg, "opt": sg})
+                back, step, _ = load_checkpoint(tmp, {"params": pg, "opt": sg}, device=cuda)
+            saved, loaded = tree_leaves({"params": pg, "opt": sg}), tree_leaves(back)
+            if step != TRAIN_STEPS or len(saved) != len(loaded) or not all(
+                    a.dtype == b.dtype and b.is_cuda and torch.equal(a, b)
+                    for a, b in zip(saved, loaded)):
+                fail(f"{label}: the checkpoint read back differs from what the card wrote")
+            # the loss graph replays as eagerly
+            accel.loss(pg, *batches[1])
+            with graphs.eager():
+                want_loss = accel.loss(pg, *batches[1])
+            got_loss = accel.loss(pg, *batches[1])
+            if not (torch.equal(got_loss[0], want_loss[0])
+                    and torch.equal(got_loss[1]["accuracy"], want_loss[1]["accuracy"])):
+                fail(f"{label}: the loss graph's replay differs from eager")
+            del eager_step, graph_step, pe, se, back
+
+            # timings, default (racing) kernels: 5 eager steps twice (their spread), 5 replays;
+            # peak memory_allocated above what the earlier phases left allocated
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            eager_runs = []
+            for _ in range(2):
+                pa, sa = fresh()
+                step_a = TrainStep(accel, pa, sa, lr=TRAIN_LR)
+                with graphs.eager():
+                    timed = [sync_ms(lambda b=b: step_a(*b)["loss"]) for b in batches]
+                eager_runs.append((step_a, [loss for loss, _ in timed], [ms for _, ms in timed]))
+            eager_peak = torch.cuda.max_memory_allocated() - base
+            (run_a, losses_a, ms_a), (run_b, losses_b, ms_b) = eager_runs
+            spread = max((a.double() - b.double()).abs().max().item()
+                         for a, b in zip(run_a._tensors(), run_b._tensors()))
+            loss_spread = max(abs(a.item() - b.item()) for a, b in zip(losses_a, losses_b))
+            eager_ms = float(np.median(ms_a + ms_b))
+            del eager_runs, run_a, run_b, step_a, pa, sa
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            pr, sr = fresh()
+            step_r = TrainStep(accel, pr, sr, lr=TRAIN_LR)
+            _, capture_ms = sync_ms(lambda: step_r(*batches[0]))
+            replay_ms = float(np.median([sync_ms(lambda b=b: step_r(*b))[1] for b in batches]))
+            replay_peak = torch.cuda.max_memory_allocated() - base
+            prof = profile_run(torch, lambda: step_r(*batches[1]), replay_ms, registry,
+                               f"{label} replayed step")
+            del step_r, pr, sr
+            gc.collect()
+            torch.cuda.empty_cache()
+            report[f"{m} quant={q}"] = {
+                "step1_loss_card": loss_gpu.item(), "step1_loss_cpu": loss_cpu.item(),
+                "grad_worst_rel": worst, "grad_worst_leaf": where,
+                "replay_equals_eager": "bitwise (deterministic kernels)",
+                "ops_without_deterministic_kernel": no_det,
+                "eager_vs_eager_state_spread": spread, "eager_vs_eager_loss_spread": loss_spread,
+                "eager_step_ms": eager_ms, "first_step_and_capture_ms": capture_ms,
+                "replay_step_ms": replay_ms, "busy_ms": prof["busy_ms"],
+                "idle_share": prof["idle_share"], "kernels_launched": prof["kernels_launched"],
+                "peak_allocated_eager_mib": eager_peak / 2**20,
+                "peak_allocated_replay_mib": replay_peak / 2**20,
+                "launches_per_step": {n: v // (TRAIN_STEPS - 1) for n, v in got.items()},
+            }
+            say(f"{label}: step-1 loss card {loss_gpu.item():.6f} / CPU {loss_cpu.item():.6f}, "
+                f"gradients within {worst:.2e} of each leaf's max (worst {where}); "
+                f"{TRAIN_STEPS} steps replayed bitwise equal to eager under deterministic "
+                f"kernels ({captured} capture), launches a replayed step "
+                f"{report[f'{m} quant={q}']['launches_per_step']}; checkpoint read back bitwise; "
+                f"with the default kernels two eager runs differ by {spread:.3e} in state, "
+                f"{loss_spread:.3e} in loss.  step (host clock, median; {card}): eager "
+                f"{eager_ms:.3f} ms, replay {replay_ms:.3f} ms, busy "
+                f"{prof['busy_ms']:.3f} ms, idle {prof['idle_share']:.3f}; peak allocated above "
+                f"the run's start: eager {eager_peak / 2**20:.1f} MiB (two runs), replay "
+                f"{replay_peak / 2**20:.1f} MiB")
+            if no_det:
+                say(f"{label}: ops without a deterministic kernel (warned): {no_det}")
+
+    # learning: pointnet2-cls in float through train_pointcloud itself
+    cfg = cfgs["cls"]
+    accel = get_accelerator(cfg, ExecutionPolicy(quant="none"), device=cuda)
+    held = [sample_batch(fold_in(SEED, 10_000 + i), BATCH, cfg.n_points, device=cuda)[:2]
+            for i in range(LEARN_STEPS)]
+    init = accel.init(torch.Generator().manual_seed(SEED))
+    before = float(np.mean([accel.loss(init, *b)[0].item() for b in held]))
+    args = argparse.Namespace(steps=LEARN_STEPS, batch=BATCH, lr=LEARN_LR, seed=SEED,
+                              quant="none", ckpt_dir=None, ckpt_every=50, log_every=10,
+                              device="cuda")
+    trained, learn_s = sync_ms(lambda: train_pointcloud(cfg, args))
+    after = float(np.mean([accel.loss(trained, *b)[0].item() for b in held]))
+    if not after < before:
+        fail(f"training cls: the mean loss over the {LEARN_STEPS} training batches went "
+             f"{before:.4f} -> {after:.4f} in {LEARN_STEPS} steps of train_pointcloud")
+    report["learning"] = {"steps": LEARN_STEPS, "lr": LEARN_LR, "loss_before": before,
+                          "loss_after": after, "wall_ms": learn_s}
+    say(f"training cls quant=none: train_pointcloud's {LEARN_STEPS} steps took the mean loss over "
+        f"their batches {before:.4f} -> {after:.4f} ({learn_s / 1e3:.1f} s)")
+    report["phase_s"] = time.perf_counter() - t_phase
+    say(f"training phase: {report['phase_s']:.1f} s")
+    return counted, report
+
+
 def main() -> None:
     """Run every phase; any failure exits non-zero before the last line."""
     import torch
@@ -1645,6 +1936,12 @@ def main() -> None:
     for n in KERNELS:
         launches[n] += sum(c[n] for c in control_counted.values())
     say(json.dumps({"control_plane": control_report, "control_launches": control_counted}))
+
+    # -- 9. training ------------------------------------------------------------------
+    train_counted, train_report = training_phase(torch, configs, registry, card)
+    for n in KERNELS:
+        launches[n] += sum(c[n] for c in train_counted.values())
+    say(json.dumps({"training": train_report, "training_launches": train_counted}))
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -1,14 +1,26 @@
 """repro_torch — PC2IM ported to PyTorch and hand-written CUDA kernels for Hopper.
 
 Mirrors the JAX package `repro` by path, which stays the reference:
-  core/       the paper's algorithms (MSP, FPS distances, lattice query,
-              SC quantization, grouping), the batched PreprocessEngine, the
-              ExecutionPolicy and the PC2IMAccelerator entry point
-  kernels/    CUDA kernels (csrc/) with their plain PyTorch versions, the
-              device-keyed registry and the nvcc build
-  models/     PointNet2 (cls, delayed aggregation) as nn.Modules
-  configs/    pointnet2-cls and its smoke config
-  params.py   weights carried over from the JAX parameter tree
+  core/        the paper's algorithms (MSP, FPS distances, lattice query,
+               SC quantization, grouping), the batched PreprocessEngine, the
+               ExecutionPolicy, the PC2IMAccelerator entry points and their
+               captured CUDA graphs (graphs.py, the jit artifacts'
+               counterpart, the training step's too)
+  kernels/     CUDA kernels (csrc/) with their plain PyTorch versions, the
+               device-keyed registry and the nvcc build
+  models/      PointNet2 (cls and seg, delayed aggregation) as nn.Modules,
+               and its training loss
+  configs/     pointnet2-cls and pointnet2-seg, each with its smoke config
+  data/        the seeded procedural point-cloud dataset
+  optim/       AdamW (in place) and the learning-rate schedule
+  checkpoint/  checkpoints in the JAX package's on-disk format
+  launch/      the training driver (python -m repro_torch.launch.train)
+  serve/       the serving runtime and its control plane
+  runtime/     heartbeat and straggler monitors
+  parallel/    the two-stage pipeline schedule
+  params.py    weights carried over from the JAX parameter tree and back,
+               and the reference's leaf order
 
-Imports torch and numpy only — never jax, never repro.
+Imports torch and numpy (and msgpack for checkpoints) only — never jax,
+never repro.
 """

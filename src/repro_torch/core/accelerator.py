@@ -35,8 +35,10 @@ and the fused `infer_with_pre`.  On the card, `infer`,
 `infer_with_preprocess`, `preprocess_stage`, `feature_stage` and
 `feature_from_cached` replay the graph of their stage for the params and
 input shapes, capturing it at the first call of a shape as `jax.jit`
-traces; `warmup` captures them ahead of traffic.  `forward` stays eager with
-autograd on, and on the CPU everything runs eagerly.  Inside
+traces; `warmup` captures them ahead of traffic.  `loss` replays a "loss"
+graph the same way.  `forward` and `loss_fn` stay eager with autograd on
+(training differentiates them; `launch/train.py` captures its whole step
+in a graph of its own), and on the CPU everything runs eagerly.  Inside
 `graphs.eager()` the entry points run eagerly on the card too: that is the
 reference side of every graph-against-eager check.
 """
@@ -152,6 +154,39 @@ class PC2IMAccelerator:
                                     [self._graph_points(points)], pick=operator.itemgetter(0))
         with torch.inference_mode():
             return self.forward(params, points)
+
+    def _labels(self, labels) -> torch.Tensor:
+        return torch.as_tensor(labels, device=self.device).to(torch.int64)
+
+    def loss_fn(self, params: PN.PointNet2Params, points, labels) -> tuple:
+        """Eager loss with autograd on, for `torch.autograd.grad` and training loops.
+
+        (nll, {"loss", "accuracy"}) of `models.pointnet2.loss_fn` under this
+        accelerator's policy; labels (B,) for cls, (B, N) for seg.
+        """
+        return PN.loss_fn(params, self.config, self._points(points), self._labels(labels),
+                          policy=self.policy)
+
+    def _loss_graph_fn(self, params):
+        def loss(pts, labels):
+            nll, metrics = PN.loss_fn(params, self.config, pts, labels, policy=self.policy)
+            return nll, metrics["accuracy"]
+        return loss
+
+    def loss(self, params: PN.PointNet2Params, points, labels) -> tuple:
+        """(loss, metrics) under torch.inference_mode(): the reference's jitted `loss`.
+
+        On the card it replays the "loss" graph, whose static inputs are the
+        points and the int64 labels.
+        """
+        if self._graphed():
+            lab = (labels.to(torch.int64) if isinstance(labels, torch.Tensor)
+                   else np.asarray(labels, dtype=np.int64))
+            nll, acc = self.artifacts.run(params, "loss", self._loss_graph_fn(params),
+                                          [self._graph_points(points), lab])
+            return nll, {"loss": nll, "accuracy": acc}
+        with torch.inference_mode():
+            return self.loss_fn(params, points, labels)
 
     def preprocess_stage(self, points) -> tuple:
         """Params-free preprocessing half, one PreprocessResult per SA stage.

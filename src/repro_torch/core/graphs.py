@@ -21,11 +21,14 @@ An `Artifact` holds
   * the kernel launches counted while it was captured, added to the
     registry's counters on every replay (`registry.add_launches`).
 
-Three stages are captured, and the accelerator's entry points replay them:
+Four stages are captured, and the accelerator's entry points replay them:
 
     "forward"     infer, infer_with_preprocess      -> (logits, preprocessing)
     "preprocess"  preprocess_stage                  -> preprocessing
     "feature"     feature_stage, feature_from_cached -> logits
+    "loss"        loss (points and int64 labels)    -> (nll, accuracy)
+
+`warmup` captures the first three, the serving stages.
 
 Keys.  An `ArtifactCache` belongs to one accelerator, whose config, policy
 and device it shares.  A graph bakes in the addresses of the parameters it
@@ -76,6 +79,12 @@ Sharing.  An artifact replayed from two threads or on two streams stays
 right: a lock covers each replay's copy-in, launch and clone-out, and a
 replay on another stream than the last one first waits for the last
 replay's event.
+
+A training step is a graph too (`GraphedStep`), the counterpart of the
+reference's `jax.jit(step_fn)`: forward, `torch.autograd.grad` and the
+optimizer's in-place update in one capture, replayed over the same
+parameter and moment tensors.  Unlike an inference artifact it runs with
+autograd on, outside inference mode, and writes the tensors it reads.
 
 `eager()` is the counterpart of `jax.disable_jit()`: inside it the entry
 points run op by op on the card, as before graphs.  It is the reference
@@ -250,6 +259,34 @@ def capture_graph(fn, static: list, what: str):
     return graph, outputs, launches
 
 
+def _fresh(artifacts: dict, key, addresses: tuple, lock) -> Artifact | None:
+    """The artifact under `key` in `artifacts`, unless the tensors it read have
+    been replaced (their addresses are not `addresses` now): then it is
+    dropped, once its last replay has run.  `lock` guards `artifacts`."""
+    art = artifacts.get(key)
+    if art is None or art.addresses == addresses:
+        return art
+    with lock:
+        if artifacts.get(key) is art:
+            del artifacts[key]
+    if art._done is not None:
+        art._done.synchronize()
+    return None
+
+
+def _capture_artifact(capture, fn, static: list, reads, what: str) -> Artifact:
+    """fn captured over the static inputs (`capture`) as a new Artifact that
+    keeps `reads` alive; counted in `captures()`.
+
+    The caller holds CAPTURE_LOCK and has chosen the grad mode of the capture.
+    """
+    global _captures
+    graph, outputs, launches = capture(fn, static, what)
+    with _stats_lock:
+        _captures += 1
+    return Artifact(graph, static, outputs, launches, reads)
+
+
 class _Owned:
     """The artifacts of one owner (a params module, or a stream's None), and
     where the tensors they read live."""
@@ -293,19 +330,6 @@ class ArtifactCache:
                       if self.device.type == "cuda" else None)
             return self._by_stream.setdefault(stream, _Owned(None))
 
-    def _lookup(self, owned: _Owned, key) -> Artifact | None:
-        """The artifact under `key`, unless the tensors it read were replaced:
-        then it is dropped, once its last replay has run."""
-        art = owned.artifacts.get(key)
-        if art is None or art.addresses == owned.addresses():
-            return art
-        with self._lock:
-            if owned.artifacts.get(key) is art:
-                del owned.artifacts[key]
-        if art._done is not None:
-            art._done.synchronize()
-        return None
-
     def get(self, owner, stage: str, args) -> Artifact | None:
         """The artifact of (owner, stage, the inputs' shapes and dtypes), if captured
         over the tensors the owner holds now.
@@ -313,7 +337,8 @@ class ArtifactCache:
         `owner` is the params module, or None for the params-free stage
         (keyed by the current stream).
         """
-        return self._lookup(self._owned(owner), (stage, _signature(args)))
+        owned = self._owned(owner)
+        return _fresh(owned.artifacts, (stage, _signature(args)), owned.addresses(), self._lock)
 
     def run(self, owner, stage: str, fn, args, pick=None):
         """fn(*args) through the artifact of (owner, stage, args).
@@ -335,19 +360,68 @@ class ArtifactCache:
         Runs nothing eagerly: the caller has run fn at these shapes on this
         thread (the forward warms every stage).
         """
-        global _captures
         owned = self._owned(owner)
         key = (stage, _signature(args))
         with CAPTURE_LOCK:
-            art = self._lookup(owned, key)
+            art = _fresh(owned.artifacts, key, owned.addresses(), self._lock)
             if art is None:
                 what = f"the {stage} stage at input shapes {[list(s) for s, _ in key[1]]}"
                 with torch.inference_mode():
                     static = [torch.empty(s, dtype=d, device=self.device) for s, d in key[1]]
-                    graph, outputs, launches = self._capture(fn, static, what)
-                art = Artifact(graph, static, outputs, launches, owned.reads())
+                    art = _capture_artifact(self._capture, fn, static, owned.reads(), what)
                 with self._lock:
                     owned.artifacts[key] = art
-                with _stats_lock:
-                    _captures += 1
         return art
+
+
+class GraphedStep:
+    """fn(*inputs), which updates tensors in place, replayed as one captured CUDA graph.
+
+    `fn` reads and writes the tensors that `state()` returns (parameters,
+    optimizer moments, the step count) in place and returns a tuple of
+    tensors (the step's metrics).  The first call for an input signature
+    runs fn eagerly (a real step: its updates stand and its result is the
+    call's answer, as `jax.jit`'s first call runs the step it compiled),
+    then captures fn on a side stream, which runs nothing, both under
+    `core.device.CAPTURE_LOCK`.  No warm-up step has to be undone.  Every
+    later call copies its inputs into the static input buffers and
+    replays on the current stream, returning clones of the outputs.  The
+    eager first step is the capture's warm-up: it loads the kernels,
+    creates the cuBLAS handles of this thread and of autograd's device
+    thread (which runs the backward, on the forward's stream, inside the
+    capture too) and fills the caching allocator.
+
+    The graph bakes in the addresses of the state tensors: if `state()`
+    holds another tensor at the next call (a checkpoint restored by
+    replacing storage), the step captures again.  Inside `eager()` fn runs
+    eagerly on every call.  A caller on the CPU runs fn itself: `capture`
+    makes a CUDA graph (the CPU tests pass a stub).
+    """
+
+    def __init__(self, fn, state, device: torch.device, capture=capture_graph):
+        self.fn = fn
+        self.state = state
+        self.device = device
+        self._capture = capture
+        self._artifacts: dict = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, *args):
+        """One step on `args` (tensors or host arrays): a replay, or the eager
+        first step followed by the capture."""
+        if is_eager():
+            return self.fn(*args)
+        key = _signature(args)
+        state = self.state()
+        art = _fresh(self._artifacts, key, tuple(t.data_ptr() for t in state), self._lock)
+        if art is not None:
+            return art.replay(args)
+        with CAPTURE_LOCK:
+            out = self.fn(*[_on(self.device, a) for a in args])
+            # static inputs outside inference mode: autograd saves them for the backward
+            static = [torch.empty(s, dtype=d, device=self.device) for s, d in key]
+            what = f"the training step at input shapes {[list(s) for s, _ in key]}"
+            art = _capture_artifact(self._capture, self.fn, static, state, what)
+            with self._lock:
+                self._artifacts[key] = art
+        return out

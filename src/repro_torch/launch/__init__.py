@@ -1,0 +1,1 @@
+"""Entry points run from the command line: `train` (pointnet2 training)."""

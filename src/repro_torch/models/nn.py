@@ -117,3 +117,15 @@ class MLP(nn.Module):
             if final_act or i < n - 1:
                 x = torch.relu(x)
         return x
+
+
+def count_params(params) -> int:
+    """Number of scalar weights: of a module's parameters, or of every tensor or
+    array in a dict/list/tuple tree (the reference's count over the tree's leaves)."""
+    if isinstance(params, nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return int(params.numel() if isinstance(params, torch.Tensor) else params.size)

@@ -5,7 +5,7 @@ per-point features (MLP), max-pool per neighbourhood.  Feature-propagation
 (FP) stages (segmentation): 3-NN inverse-distance interpolation + unit MLPs.
 Ported so far: classification and segmentation with pc2im preprocessing
 (MSP + L1 FPS + lattice query) and delayed aggregation (C5), in float or
-under the SC W16A16/W8A8 policies.
+under the SC W16A16/W8A8 policies, and the training loss (`loss_fn`).
 
 Delayed aggregation feeds *absolute* coords + features through the per-point
 MLP and aggregates afterwards (Mesorasi [8], which the paper adopts).
@@ -224,3 +224,20 @@ def forward(params: PointNet2Params, cfg: PointNet2Config, points: torch.Tensor,
     """
     policy = resolve_policy(cfg, policy)
     return feature_stage(params, cfg, points, preprocess_stage(cfg, points, policy), policy)
+
+
+def loss_fn(params: PointNet2Params, cfg: PointNet2Config, points: torch.Tensor,
+            labels: torch.Tensor, policy: ExecutionPolicy | None = None) -> tuple:
+    """Mean negative log-likelihood and (loss, accuracy) metrics, as the reference computes them.
+
+    labels: (B,) class ids for cls, (B, N) per-point ids for seg.  Returns
+    (nll, {"loss": nll, "accuracy": acc}); the accuracy is the share of
+    argmax predictions equal to the label, ties going to the first index.
+    Autograd flows through the forward as it runs.
+    """
+    logits = forward(params, cfg, points, policy=policy)
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = labels.to(torch.int64)
+    nll = -torch.take_along_dim(logp, labels[..., None], dim=-1).mean()
+    acc = (logits.argmax(dim=-1) == labels).to(torch.float32).mean()
+    return nll, {"loss": nll, "accuracy": acc}

@@ -6,9 +6,16 @@ dicts and lists `sa[i]`, then `global` / `head` (cls) or `fp[i]` / `head`
 (seg) -> `layers[j]` -> `lin{w, b}` and `ln{g, b}`.  The reference stores w as (d_in, d_out) and
 computes y = x @ w; `models.nn.Linear` keeps that layout, so weights are
 copied as they are, and every shape is checked against the config.
+
+`to_jax_params` goes the other way, and the leaf walk below
+(`tree_leaves`, `tree_unflatten`) puts a port tree's leaves in the order
+`jax.tree_util.tree_flatten` gives the reference's tree, which is the
+order of a checkpoint's records (`checkpoint/store.py`).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -64,3 +71,107 @@ def from_jax_params(tree, cfg: PointNet2Config, device=None) -> PointNet2Params:
             _load_mlp(params.global_mlp, tree["global"], "global")
         _load_mlp(params.head, tree["head"], "head")
     return params.to(dev)
+
+
+# -- the reference's tree layout ----------------------------------------------------
+#
+# The JAX package keeps parameters, optimizer moments and checkpoints as
+# pytrees, and `jax.tree_util.tree_flatten` orders their leaves: dict keys
+# sorted, lists and tuples in order, NamedTuple fields in order, None with
+# no leaves.  The port holds the same values as a module (`PointNet2Params`)
+# and as dicts keyed by dotted parameter names ("sa.0.layers.1.lin.w", the
+# reference's `tree["sa"][0]["layers"][1]["lin"]["w"]`).  Every leaf gets
+# its reference path, a tuple whose parts are dict keys (str) and list,
+# tuple or field positions (int), and sorting the paths gives JAX's order.
+
+
+def named_jax_params(module: torch.nn.Module) -> dict:
+    """{reference dotted name: parameter} of a module, in the module's own order.
+
+    The names are the module's own but for PointNet2Params' `global_mlp`,
+    which the reference's tree calls "global".
+    """
+    return {("global" + n[len("global_mlp"):] if n.startswith("global_mlp.") else n): p
+            for n, p in module.named_parameters()}
+
+
+def _parts(name: str) -> tuple:
+    return tuple(int(c) if c.isdigit() else c for c in name.split("."))
+
+
+def tree_paths(tree, prefix: tuple = ()) -> list:
+    """(reference path, leaf) of every leaf of a port tree, in the port's own order.
+
+    A module contributes its parameters by reference name; a dict's keys
+    are split at dots; lists, tuples and NamedTuples index their items;
+    None has no leaves; anything else is a leaf.
+    """
+    if tree is None:
+        return []
+    if isinstance(tree, torch.nn.Module):
+        return [(prefix + _parts(n), p) for n, p in named_jax_params(tree).items()]
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items() for pl in tree_paths(v, prefix + _parts(str(k)))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree) for pl in tree_paths(v, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a port tree in `jax.tree_util.tree_flatten`'s order."""
+    return [leaf for _, leaf in sorted(tree_paths(tree), key=lambda pl: pl[0])]
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like `like` holding `leaves`, given in `tree_leaves(like)`'s order.
+
+    A module in `like` comes back as a deep copy whose parameters are the
+    new leaves (their storage, device and dtype).
+    """
+    paths = sorted(p for p, _ in tree_paths(like))
+    leaves = list(leaves)
+    if len(leaves) != len(paths):
+        raise ValueError(f"{len(leaves)} leaves for a tree of {len(paths)}")
+    return _rebuild(like, (), dict(zip(paths, leaves)))
+
+
+def _rebuild(like, prefix: tuple, by_path: dict):
+    if like is None:
+        return None
+    if isinstance(like, torch.nn.Module):
+        module = copy.deepcopy(like)
+        for n, p in named_jax_params(module).items():
+            p.data = by_path[prefix + _parts(n)]
+        return module
+    if isinstance(like, dict):
+        return type(like)((k, _rebuild(v, prefix + _parts(str(k)), by_path))
+                          for k, v in like.items())
+    if isinstance(like, (list, tuple)):
+        items = [_rebuild(v, prefix + (i,), by_path) for i, v in enumerate(like)]
+        return type(like)(*items) if hasattr(like, "_fields") else type(like)(items)
+    return by_path[prefix]
+
+
+def _nest(pairs) -> dict:
+    """Nested dicts and lists from (path, value) pairs."""
+    root: dict = {}
+    for path, value in pairs:
+        node = root
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return [lists(node[i]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
+
+
+def to_jax_params(params: PointNet2Params) -> dict:
+    """The reverse of `from_jax_params`: the reference's parameter tree, leaves as numpy arrays."""
+    return _nest((_parts(n), p.detach().cpu().numpy().copy())
+                 for n, p in named_jax_params(params).items())

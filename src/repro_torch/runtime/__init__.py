@@ -1,1 +1,1 @@
-"""Runtime support for serving: heartbeat and straggler monitors (`fault_tolerance`)."""
+"""Runtime support: heartbeat and straggler monitors (`fault_tolerance`) for serving and training."""

@@ -1,7 +1,8 @@
 """Liveness and straggler detection for the serving replicas.
 
 The replica pool (serve/dispatch.py) drives both monitors with in-process
-signals:
+signals, and the training driver (launch/train.py) times its steps with
+the straggler monitor:
 
   StragglerMonitor   — per-batch wall time against the running median;
       flags batches slower than `threshold` x the median (recorded and
@@ -9,8 +10,8 @@ signals:
   HeartbeatMonitor   — background liveness thread; a missed deadline invokes
       the on_dead callback (the pool evicts the replica).
 
-The JAX package's training restart loop (`run_with_restarts`) comes
-with the training slice.
+The JAX package's training restart loop (`run_with_restarts`) waits for
+multi-device (ROADMAP.md, queue A item 10): only its LM driver uses it.
 """
 
 from __future__ import annotations

@@ -6,6 +6,9 @@ exercise the kernels' other paths.  Then the captured CUDA graphs
 (core/graphs.py): every entry point's replay bitwise equal to
 graphs.eager() at smoke and full width, on side streams, on the pipelined
 pair and in the serving runtime, where nothing is captured after warmup.
+Last, training (launch/train.py): the whole step replayed as one graph,
+bitwise equal to eager steps under deterministic kernels, a checkpoint
+round trip from the card, and the entry point.
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test skips where
 torch.cuda.is_available() is false.  On the card:
@@ -15,6 +18,7 @@ torch.cuda.is_available() is false.  On the card:
 Imports neither jax nor the JAX package: the card's host has neither.
 """
 
+import contextlib
 import gc
 import threading
 import time
@@ -996,3 +1000,174 @@ def test_kill_rejoin_cycles_keep_memory_bounded(cuda):
         pool.shutdown()
     growth = max(readings) - readings[0]
     assert growth <= REJOIN_GROWTH_BOUND, [r - readings[0] for r in readings]
+
+
+# -- training (launch/train.py): the step replayed as one CUDA graph ----------------------
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic kernels inside the block only (the backward's
+    scatter-adds race otherwise); an op without one warns."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def _train_batches(cfg, k, device, seed=0):
+    from repro_torch.data.pointclouds import fold_in, sample_batch
+
+    out = []
+    for i in range(k):
+        pts, cls, seg = sample_batch(fold_in(seed, 10_000 + i), BATCH, cfg.n_points, device=device)
+        out.append((pts, cls if cfg.task == "cls" else seg))
+    return out
+
+
+def _fresh_step(accel, lr=1e-3):
+    from repro_torch.launch.train import TrainStep
+    from repro_torch.optim import adamw_init
+
+    params = accel.init(torch.Generator().manual_seed(0))
+    return TrainStep(accel, params, adamw_init(params), lr=lr)
+
+
+@pytest.mark.parametrize("model", ["pointnet2-cls", "pointnet2-seg"])
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_train_step_replays_bitwise_equal_to_eager_steps(cuda, model, quant):
+    """Four steps: the graphed step's first call runs eagerly and captures, the
+    rest replay; every loss, parameter, moment and the step count equal four
+    eager steps bitwise (deterministic kernels); a replay launches the
+    forward's kernels, and only the first call captures."""
+    cfg = get_config(model, smoke=True)
+    accel = get_accelerator(cfg, ExecutionPolicy(quant=quant), device=cuda)
+    batches = _train_batches(cfg, 4, cuda)
+    registry.reset_launches()
+    with graphs.eager():
+        accel.infer(accel.init(torch.Generator().manual_seed(0)), batches[0][0])
+    per_forward = registry.launches()
+    with _deterministic():
+        eager = _fresh_step(accel)
+        with graphs.eager():
+            want = [eager(*b) for b in batches]
+        graphed = _fresh_step(accel)
+        before = graphs.captures()
+        got = [graphed(*batches[0])]
+        registry.reset_launches()
+        got += [graphed(*b) for b in batches[1:]]
+        torch.cuda.synchronize()
+        counts = registry.launches()
+    assert graphs.captures() - before == 1
+    assert counts == {n: 3 * v for n, v in per_forward.items()}
+    assert per_forward["fps_tiles"] == 2 and (per_forward["sc_matmul"] > 0) == (quant != "none")
+    for g, w in zip(got, want):
+        assert set(g) == {"loss", "accuracy", "grad_norm"}
+        for k in g:
+            assert torch.equal(g[k], w[k]), k
+    for a, b in zip(graphed._tensors(), eager._tensors()):
+        assert torch.equal(a, b)
+    assert int(graphed.state.step) == 4 and graphed.state.step.is_cuda
+
+
+def test_train_step_replays_without_deterministic_kernels_close_to_eager(cuda):
+    """With the default (racing) kernels the replay still trains: its losses
+    stay within 1e-4 of eager steps' over three steps (float, smoke width)."""
+    cfg = get_config("pointnet2-seg", smoke=True)
+    accel = get_accelerator(cfg, device=cuda)
+    batches = _train_batches(cfg, 3, cuda, seed=1)
+    eager, graphed = _fresh_step(accel), _fresh_step(accel)
+    with graphs.eager():
+        want = [eager(*b)["loss"].item() for b in batches]
+    got = [graphed(*b)["loss"].item() for b in batches]
+    assert np.allclose(got, want, rtol=0, atol=1e-4), (got, want)
+
+
+def test_train_step_captures_again_when_a_parameter_gets_new_storage(cuda):
+    """A parameter given new storage (a restore by replacement) makes the next
+    call capture again, and the steps go on as eager ones (bitwise under
+    deterministic kernels)."""
+    cfg = get_config("pointnet2-cls", smoke=True)
+    accel = get_accelerator(cfg, device=cuda)
+    batches = _train_batches(cfg, 3, cuda)
+    with _deterministic():
+        step = _fresh_step(accel)
+        before = graphs.captures()
+        step(*batches[0])
+        step(*batches[1])
+        assert graphs.captures() - before == 1
+        lin = step.params.head.layers[0].lin
+        lin.b.data = lin.b.detach().clone()
+        step(*batches[2])
+        assert graphs.captures() - before == 2
+        with graphs.eager():
+            ref = _fresh_step(accel)
+            for b in batches:
+                ref(*b)
+    for a, b in zip(step._tensors(), ref._tensors()):
+        assert torch.equal(a, b)
+
+
+def test_checkpoint_round_trip_from_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.params import tree_leaves
+
+    cfg = get_config("pointnet2-seg", smoke=True)
+    step = _fresh_step(get_accelerator(cfg, ExecutionPolicy(quant="sc_w16a16"), device=cuda))
+    for b in _train_batches(cfg, 2, cuda):
+        step(*b)
+    tree = {"params": step.params, "opt": step.state}
+    save_checkpoint(str(tmp_path), 2, tree)
+    for device in (cuda, torch.device("cpu")):
+        back, n, _ = load_checkpoint(str(tmp_path), tree, device=device)
+        assert n == 2
+        for a, b in zip(tree_leaves(tree), tree_leaves(back)):
+            assert b.device.type == device.type and a.dtype == b.dtype
+            assert torch.equal(a.cpu(), b.cpu())
+    # restored on the card, the step goes on from there
+    back, _, _ = load_checkpoint(str(tmp_path), tree, device=cuda)
+    from repro_torch.launch.train import TrainStep
+
+    resumed = TrainStep(step.accel, back["params"], back["opt"], lr=step.lr)
+    b = _train_batches(cfg, 3, cuda)[2]
+    with _deterministic():
+        assert torch.equal(resumed(*b)["loss"], step(*b)["loss"])
+
+
+def test_train_entry_point_on_the_card(cuda, tmp_path, capsys):
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch.train import main
+
+    params = main(["--arch", "pointnet2-seg", "--smoke", "--steps", "4", "--quant", "sc_w16a16",
+                   "--ckpt-dir", str(tmp_path), "--ckpt-every", "2", "--log-every", "1"])
+    assert next(params.parameters()).is_cuda
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("step ")]
+    assert len(lines) == 4 and latest_step(str(tmp_path)) == 4
+
+
+def test_sample_batch_on_the_card(cuda):
+    from repro_torch.data.pointclouds import N_CLASSES, sample_batch
+
+    a = sample_batch(3, 8, 1024, device=cuda)
+    b = sample_batch(3, 8, 1024, device=cuda)
+    assert all(x.is_cuda and torch.equal(x, y) for x, y in zip(a, b))
+    pts, cls, seg = a
+    assert pts.dtype == torch.float32 and cls.dtype == seg.dtype == torch.int64
+    assert bool(((cls >= 0) & (cls < N_CLASSES)).all()) and bool(torch.isfinite(pts).all())
+
+
+def test_loss_graph_replays_equal_eager(cuda):
+    cfg = get_config("pointnet2-seg", smoke=True)
+    accel = get_accelerator(cfg, ExecutionPolicy(quant="sc_w16a16"), device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    (p0, l0), (p1, l1) = _train_batches(cfg, 2, cuda)
+    before = graphs.captures()
+    accel.loss(params, p0, l0)
+    got = accel.loss(params, p1, l1.cpu().numpy().astype(np.int32))  # host labels, as int64
+    with graphs.eager():
+        want = accel.loss(params, p1, l1)
+    assert graphs.captures() - before == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1]["accuracy"], want[1]["accuracy"])
