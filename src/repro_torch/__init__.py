@@ -12,12 +12,17 @@ Mirrors the JAX package `repro` by path, which stays the reference:
                and its training loss
   configs/     pointnet2-cls and pointnet2-seg, each with its smoke config
   data/        the seeded procedural point-cloud dataset
-  optim/       AdamW (in place) and the learning-rate schedule
+  optim/       AdamW (in place), the learning-rate schedule and int8
+               gradient compression
   checkpoint/  checkpoints in the JAX package's on-disk format
-  launch/      the training driver (python -m repro_torch.launch.train)
-  serve/       the serving runtime and its control plane
+  launch/      the training entry point (python -m repro_torch.launch.train),
+               and device groups with their collectives (mesh.py)
+  sharding/    the replica axis of a device group and its two modes
+  serve/       the serving runtime and its control plane, replicas over
+               device groups included
   runtime/     heartbeat and straggler monitors
-  parallel/    the two-stage pipeline schedule
+  parallel/    pipeline schedules: GPipe over stage devices, and the
+               two-stage host form
   params.py    weights carried over from the JAX parameter tree and back,
                and the reference's leaf order
 

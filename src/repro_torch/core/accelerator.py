@@ -15,6 +15,11 @@ halves on their own:
 The same holds for `get_config("pointnet2-seg")`, whose logits are per
 point: (B, N, 3+F) -> (B, N, C).
 
+A policy with `sharding` set runs over a replica's device group through
+`mesh_artifacts(devices)`: `MeshArtifacts.infer` splits the batch over the
+group ("batch") or also splits every weight's columns ("tensor"), bitwise
+equal to the single-device `infer`.
+
 The serving layer adds three entry points over the same two halves:
 `feature_from_cached` (the preprocess cache's hit path), `infer_with_preprocess`
 (logits and the preprocessing in one call, the cache's all-miss path) and
@@ -54,11 +59,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import graphs
-from repro_torch.core.device import CAPTURE_LOCK, on_streams, resolve_device
+from repro_torch.core.device import CAPTURE_LOCK, on_streams, resolve_device, synchronize
 from repro_torch.core.engine import result_leaves, result_map, result_to
 from repro_torch.core.policy import ExecutionPolicy, resolve_policy
+from repro_torch.launch.mesh import gather_rows, make_replica_mesh, ready_event, take
 from repro_torch.models import pointnet2 as PN
 from repro_torch.parallel.pipeline import two_stage_schedule
+from repro_torch.sharding import hints
+from repro_torch.sharding.policy import replica_specs
 
 
 class PC2IMAccelerator:
@@ -89,6 +97,9 @@ class PC2IMAccelerator:
         # PipelinedExecutor cache of infer_pipelined, keyed by (devices, depth)
         self._executors: dict = {}
         self._executors_lock = threading.Lock()
+        # MeshArtifacts of mesh_artifacts, keyed by the group's device tuple
+        self._mesh_artifacts: dict = {}
+        self._mesh_lock = threading.Lock()
         # the captured CUDA graphs of the entry points (None on the CPU)
         self.artifacts = graphs.ArtifactCache(self.device) if self.device.type == "cuda" else None
 
@@ -287,6 +298,27 @@ class PC2IMAccelerator:
                 ex = self._executors[key] = PipelinedExecutor(self, devices=devices, depth=depth)
         return ex.run(params, batches)
 
+    def mesh_artifacts(self, devices) -> "MeshArtifacts":
+        """Sharded infer/forward over one replica's device group.
+
+        Requires a policy with `sharding` set (the mode picks the shard
+        body; see MeshArtifacts).  Built at the first call and cached per
+        device tuple, so a pool of replicas sharing one accelerator builds
+        each group's artifact once, and a replica rejoined on the same
+        group builds nothing.
+        """
+        if self.policy.sharding is None:
+            raise ValueError(
+                "mesh_artifacts needs a policy with sharding set; "
+                "use infer/forward for unsharded execution"
+            )
+        key = tuple(resolve_device(d) for d in devices)
+        with self._mesh_lock:
+            arts = self._mesh_artifacts.get(key)
+            if arts is None:
+                arts = self._mesh_artifacts[key] = MeshArtifacts(self, key)
+        return arts
+
     def __repr__(self) -> str:
         return (
             f"PC2IMAccelerator({self.config.name}, quant={self.policy.quant!r}, "
@@ -309,6 +341,16 @@ def params_copy_on(params: PN.PointNet2Params, device: torch.device) -> PN.Point
     """
     with torch.no_grad():
         return copy.deepcopy(params).to(device)
+
+
+def place_on_group(params: PN.PointNet2Params, devices) -> tuple:
+    """One params module a device of `devices`, in order: `params` itself on
+    its own device, elsewhere a copy made now (one a distinct device)."""
+    copies = {params_device(params): params}
+    for d in devices:
+        if d not in copies:
+            copies[d] = params_copy_on(params, d)
+    return tuple(copies[d] for d in devices)
 
 
 class PipelinedExecutor:
@@ -425,6 +467,105 @@ class PipelinedExecutor:
             for logits in out:
                 logits.record_stream(caller)
         return out
+
+
+class MeshArtifacts:
+    """Sharded whole-pipeline artifact of one accelerator over one device group.
+
+    The serving counterpart of the paper's split-concatenate engine spanning
+    subarrays: one replica owns a 1-D mesh (`launch.mesh.make_replica_mesh`)
+    and the preprocess + feature composition runs once a shard, one worker
+    thread a shard (`ReplicaMesh.run`), with the layout of
+    `sharding.policy.replica_specs`:
+
+      * "batch": every stage runs on the shard's rows; the only term across
+        shards is the exact max that makes the SC activation scale global
+        (`core.quant`), so each row's math is untouched;
+      * "tensor": preprocessing runs on the shard's rows, then the points
+        and every leaf of the preprocessing are gathered, the feature stage
+        runs on the whole batch on every shard with every weight's columns
+        split over the group (`nn.Linear`'s tensor path), and each shard
+        keeps its own rows of the logits.
+
+    Both modes are bitwise equal to the accelerator's single-device `infer`
+    on the same batch on the CPU (tests/test_torch_shard_parity.py).  The
+    shards run eagerly: a shard's CUDA graph could not span a collective
+    that another thread's work feeds.  Calls are reentrant: two replicas
+    whose groups name the same devices share one MeshArtifacts and call it
+    at once, each call with a barrier and slots of its own.
+    """
+
+    def __init__(self, accel: PC2IMAccelerator, devices):
+        self.mesh = make_replica_mesh(devices)
+        self.config, self.policy = accel.config, accel.policy
+        self.mode = self.policy.sharding
+        self.specs = replica_specs(self.mode)
+
+    def infer(self, params, points) -> torch.Tensor:
+        """Sharded batched forward: (B, N, 3+F) -> logits, B % group size == 0.
+
+        `params` is one module a shard, on its shard's device (a serving
+        replica's `mesh_params`), or one module, which is placed on the
+        group anew at every call (`place_on_group`), so weights updated in
+        place since the last call reach every shard.  `points` is a host
+        array or a tensor.  The logits lie on the group's first device,
+        ordered on the caller's current stream there.
+        """
+        b = points.shape[0]
+        g = self.mesh.size
+        if b % g != 0:
+            raise ValueError(
+                f"batch dim {b} must divide over the replica mesh of {g} device(s)"
+            )
+        devices, cfg, pol = self.mesh.devices, self.config, self.policy
+        if isinstance(params, PN.PointNet2Params):
+            shard_params = place_on_group(params, devices)
+            # the copies ran on this thread's streams, which the shards' do not
+            # wait on by themselves
+            placed = [None if p is params else ready_event(next(p.parameters()))
+                      for p in shard_params]
+        else:
+            shard_params, placed = tuple(params), [None] * g
+            if len(shard_params) != g:
+                raise ValueError(f"{len(shard_params)} params modules for a group of "
+                                 f"{g} device(s)")
+        rows = b // g
+        if isinstance(points, torch.Tensor):
+            points = points.to(torch.float32)
+            ready = ready_event(points)
+        else:
+            points, ready = np.asarray(points, dtype=np.float32), None
+
+        def split(x, spec, index: int):
+            """Shard `index`'s part of `x` under `spec` (its rows, or all of x)."""
+            return x if spec is None else x[index * rows:(index + 1) * rows]
+
+        def body(index: int) -> torch.Tensor:
+            dev = devices[index]
+            params = shard_params[index]
+            if placed[index] is not None:
+                stream = torch.cuda.current_stream(dev)
+                stream.wait_event(placed[index])
+                for t in params.state_dict().values():
+                    t.record_stream(stream)
+            local = split(points, self.specs.points, index)
+            pts = (take(local, ready, dev) if isinstance(local, torch.Tensor)
+                   else torch.as_tensor(local, device=dev))
+            pre = PN.preprocess_stage(cfg, pts, policy=pol)
+            if self.mode == "batch":
+                logits = PN.feature_stage(params, cfg, pts, pre, policy=pol)
+            else:
+                pts_all = hints.all_gather(pts, dim=0)
+                pre_all = result_map(lambda t: hints.all_gather(t, dim=0), pre)
+                logits = split(PN.feature_stage(params, cfg, pts_all, pre_all, policy=pol),
+                               self.specs.logits, index)
+            return logits.to(devices[0])
+
+        return gather_rows(self.mesh.run(body), devices[0])
+
+    def forward(self, params, points) -> torch.Tensor:
+        """Alias of `infer`, the training-style name, as in the reference."""
+        return self.infer(params, points)
 
 
 @dataclasses.dataclass(frozen=True)

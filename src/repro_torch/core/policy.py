@@ -15,19 +15,24 @@ packages.  "xla" selects the plain version, which is only allowed on the
 CPU: on a CUDA tensor it raises, since the port has one GPU path.
 
 The policy is passed functionally (no thread-local or module state) and is
-frozen, so it keys the engine and accelerator caches directly.  `interpret`,
-`precision`, `sharding` and `pipeline` are carried so that a policy has the
-same fields and hash identity as in the JAX package; this package's
-accelerator runs every policy sequentially on one device.
+frozen, so it keys the engine and accelerator caches directly.  `interpret`
+and `precision` are carried so that a policy has the same fields and hash
+identity as in the JAX package.  `pipeline="pipelined"` selects the
+two-stream executor of `infer_pipelined` and of a serving replica, and
+`sharding` the split of a replica's batch over its device group
+(`PC2IMAccelerator.mesh_artifacts`); every entry point of one device runs
+a sharded policy's unsharded math.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.sharding.policy import REPLICA_SHARDING_MODES
+
 QUANT_MODES = ("none", "sc_w16a16", "sc_w8a8")
 PIPELINE_MODES = ("sequential", "pipelined")
-SHARDING_MODES = (None, "batch", "tensor")
+SHARDING_MODES = (None, *REPLICA_SHARDING_MODES)
 _QUANT_BITS = {"sc_w16a16": 16, "sc_w8a8": 8}
 
 
@@ -43,8 +48,13 @@ class ExecutionPolicy:
                 config's pinned preproc_backend.
     interpret : carried for parity with the JAX package; no meaning here.
     precision : reserved knob (matmul precision), carried for hash identity.
-    sharding  : None | "batch" | "tensor"; carried, runs unsharded here.
-    pipeline  : "sequential" | "pipelined"; carried, runs sequentially here.
+    sharding  : None | "batch" | "tensor": how a replica over a device group
+                splits a batch (`MeshArtifacts`): "batch" gives each device
+                its rows and makes the SC activation scale global, "tensor"
+                also splits every weight's columns over the group.  Inert
+                outside a group; mutually exclusive with "pipelined".
+    pipeline  : "sequential" | "pipelined": the accelerator's fused forward,
+                or the two-stream preprocess/feature executor.
     """
 
     quant: str = "none"

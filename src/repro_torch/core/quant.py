@@ -22,6 +22,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.sharding import hints
+
 PLANE_BITS = 4
 N_PLANES_16 = 4  # 16-bit operands -> 4 nibbles
 
@@ -33,16 +35,26 @@ class Quantized(NamedTuple):
     scale: torch.Tensor
 
 
-def quantize_symmetric(x: torch.Tensor, bits: int = 16) -> Quantized:
+def quantize_symmetric(
+    x: torch.Tensor, bits: int = 16, *, axis_name: str | None = None
+) -> Quantized:
     """Symmetric signed per-tensor quantization: q = round(x / s), s = max|x| / (2^(b-1)-1).
 
     Rounds half to even and clips to [-2^(b-1), 2^(b-1)-1], like the
     reference.  Every divisor is a tensor on x's device: a CUDA division by a
     CPU scalar is computed as a multiplication by its reciprocal, which can
     differ in the last bit.
+
+    axis_name: the bound replica axis (`sharding.hints.REPLICA_AXIS`) to
+    take the amax's max over, so that every shard quantizes with the
+    GLOBAL scale; max is exact, which keeps a batch-sharded quantized
+    linear bitwise equal to the unsharded one.  The group's max comes back
+    on x's device.
     """
     qmax = (1 << (bits - 1)) - 1
     amax = x.abs().amax()
+    if axis_name is not None:
+        amax = hints.all_max(amax, axis_name)
     qmax_t = torch.full((), qmax, dtype=x.dtype, device=x.device)  # no host copy: capturable
     scale = torch.clamp(amax, min=1e-12) / qmax_t
     q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax).to(torch.int32)

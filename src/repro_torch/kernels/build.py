@@ -28,6 +28,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 SRC_DIR = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fps", "lattice", "sc_matmul", "knn3")
@@ -175,6 +177,19 @@ def load(name: str) -> ctypes.CDLL:
             lib.pc2im_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def launch(entry, device, *args) -> int:
+    """entry(device.index, *args) with `device` made current, the caller's restored after.
+
+    Each C entry point makes its device current (`cudaSetDevice`), and that
+    is the calling thread's current device for PyTorch too (both runtimes
+    set the thread's current CUDA context): without this guard, a kernel on
+    another card would leave that card current for the caller, and a later
+    "cuda" would resolve to it.  Returns the entry point's status.
+    """
+    with torch.cuda.device(device):
+        return entry(device.index, *args)
 
 
 def check(status: int, name: str) -> None:

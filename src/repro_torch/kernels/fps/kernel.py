@@ -43,8 +43,8 @@ def fps_tiles_cuda(points: torch.Tensor, k: int, *, metric: str = "l1") -> torch
     if t == 0:
         return out
     stream = torch.cuda.current_stream(points.device).cuda_stream
-    status = _entry()(
-        points.device.index, points.data_ptr(), out.data_ptr(),
+    status = build.launch(
+        _entry(), points.device, points.data_ptr(), out.data_ptr(),
         t, p, k, int(metric == "l1"), stream,
     )
     build.check(status, "fps")

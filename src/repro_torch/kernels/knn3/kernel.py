@@ -97,8 +97,8 @@ def knn3_cuda(
         return idx, dist
     plan = knn3_plan(b, q, p, k) if _plan is None else _plan
     stream = torch.cuda.current_stream(queries.device).cuda_stream
-    status = _entry()(
-        queries.device.index, queries.data_ptr(), points.data_ptr(),
+    status = build.launch(
+        _entry(), queries.device, queries.data_ptr(), points.data_ptr(),
         idx.data_ptr(), dist.data_ptr(), b, q, p, k, int(metric == "l1"),
         plan.group, plan.threads, stream,
     )

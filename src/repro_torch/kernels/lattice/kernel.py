@@ -121,8 +121,8 @@ def _launch(
         raise ValueError("tiles must hold at least one point")
     plan = lattice_plan(t, kk, p, nsample) if plan is None else plan
     stream = torch.cuda.current_stream(coords.device).cuda_stream
-    status = _entry()(
-        coords.device.index, coords.data_ptr(), centroids.data_ptr(),
+    status = build.launch(
+        _entry(), coords.device, coords.data_ptr(), centroids.data_ptr(),
         idx.data_ptr(), mask.data_ptr(), t, kk, p, nsample,
         ctypes.c_float(np.float32(l_range)), *plan, stream,
     )

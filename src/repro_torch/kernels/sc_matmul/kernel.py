@@ -80,8 +80,8 @@ def sc_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *, n_planes: int = 4) -
         ws = torch.zeros((2 * n_planes - 1) * m * n + tiles, dtype=torch.int32,
                          device=x_q.device)
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
-    status = _entry()(
-        x_q.device.index, x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(),
+    status = build.launch(
+        _entry(), x_q.device, x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(), 0 if ws is None else ws.numel(),
         m, n, k, n_planes, splits, stream,
     )

@@ -27,16 +27,19 @@ def sc_matmul_op(
 
 
 def sc_quantized_linear(
-    x: torch.Tensor, w: torch.Tensor, *, bits: int = 16, backend: str | None = "auto"
+    x: torch.Tensor, w: torch.Tensor, *, bits: int = 16, backend: str | None = "auto",
+    amax_axis: str | None = None,
 ) -> torch.Tensor:
     """W16A16 (or W8A8) linear: float (..., K) x (K, N) -> float32 (..., N).
 
     The activation scale is per tensor over every row of the flattened batch,
     and the two scales are multiplied before they scale the product, as in
-    the reference.
+    the reference.  amax_axis: the bound replica axis to globalize the
+    ACTIVATION scale over (batch sharding); the weight is replicated, so its
+    local amax already is the global one.
     """
     lead = x.shape[:-1]
-    xq = quantize_symmetric(x.reshape(-1, x.shape[-1]), bits)
+    xq = quantize_symmetric(x.reshape(-1, x.shape[-1]), bits, axis_name=amax_axis)
     wq = quantize_symmetric(w, bits)
     y = sc_matmul_op(xq.q, wq.q, bits=bits, backend=backend)
     y = y * (xq.scale * wq.scale)

@@ -7,7 +7,10 @@ Every dense layer takes the numeric decision as an explicit
 
 `policy=None` (or quant="none") is the float path, a plain `torch.matmul`
 as the reference leaves it to XLA.  The quantized path goes through
-`kernels/sc_matmul` under the policy's backend.
+`kernels/sc_matmul` under the policy's backend.  Inside a shard of a
+replica group (`sharding.hints.replica_axis_active()`), `policy.sharding`
+routes a layer to the split-concatenate column split ("tensor") or makes
+the activation scale global over the batch shards ("batch").
 
 Weights keep the JAX package's layout, w (d_in, d_out) with y = x @ w, so
 the SC kernel reads them as they are and `params.from_jax_params` copies
@@ -22,7 +25,22 @@ import torch
 from torch import nn
 
 from repro_torch.core.policy import ExecutionPolicy
-from repro_torch.kernels.sc_matmul.ops import sc_quantized_linear
+from repro_torch.core.quant import quantize_symmetric
+from repro_torch.kernels.sc_matmul.ops import sc_matmul_op, sc_quantized_linear
+from repro_torch.sharding import hints
+from repro_torch.sharding.hints import REPLICA_AXIS, replica_axis_active
+
+
+def _shard_mode(policy: ExecutionPolicy | None) -> str | None:
+    """The policy's sharding mode, but ONLY inside a shard of a replica group.
+
+    Outside one the replica axis is unbound and every sharded code path is
+    off, so a sharded policy runs exactly its unsharded twin's math there.
+    """
+    mode = getattr(policy, "sharding", None) if policy is not None else None
+    if mode is None:
+        return None
+    return mode if replica_axis_active() else None
 
 
 class Linear(nn.Module):
@@ -43,14 +61,56 @@ class Linear(nn.Module):
         self.b = nn.Parameter(torch.zeros(d_out, device=device)) if bias else None
 
     def forward(self, x: torch.Tensor, policy: ExecutionPolicy | None = None) -> torch.Tensor:
-        """Float matmul, or the SC integer path when the policy quantizes."""
+        """Float matmul, or the SC integer path when the policy quantizes.
+
+        Inside a shard of a replica group a "tensor" policy runs the column
+        split (`_tensor_sharded`) and a "batch" one takes the activation
+        scale's max over the group.
+        """
+        mode = _shard_mode(policy)
+        if mode == "tensor":
+            return self._tensor_sharded(x, policy)
         bits = None if policy is None else policy.quant_bits
         if bits is None:
             y = torch.matmul(x, self.w)
         else:
             y = sc_quantized_linear(
-                x, self.w, bits=bits, backend=policy.resolved_backend()
+                x, self.w, bits=bits, backend=policy.resolved_backend(),
+                amax_axis=REPLICA_AXIS if mode == "batch" else None,
             ).to(x.dtype)
+        if self.b is not None:
+            y = y + self.b
+        return y
+
+    def _tensor_sharded(self, x: torch.Tensor, policy: ExecutionPolicy) -> torch.Tensor:
+        """Column-split linear across the replica group (split-concatenate).
+
+        Each shard multiplies against its block of the weight's columns and
+        the blocks are gathered along the last dim: the paper's SC dataflow
+        lifted to a device group.  Bitwise equal to the replicated linear:
+        float columns are independent, and the quantized path quantizes the
+        FULL weight first (one global per-tensor scale) and slices its
+        integer columns, whose product is exact.  N is zero-padded up to a
+        multiple of the group size; the pad columns are dropped after the
+        gather, and the bias is added last.
+        """
+        w = self.w
+        k, n = w.shape
+        group, idx = hints.axis_size(), hints.axis_index()
+        cols = -(-n // group)  # ceil: the last shard may hold zero-pad columns
+        pad = cols * group - n
+        bits = policy.quant_bits
+        if bits is None:
+            wl = torch.nn.functional.pad(w, (0, pad))[:, idx * cols:(idx + 1) * cols]
+            y = torch.matmul(x, wl)
+        else:
+            lead = x.shape[:-1]
+            xq = quantize_symmetric(x.reshape(-1, k), bits)
+            wq = quantize_symmetric(w, bits)  # the full weight: one global scale
+            wl = torch.nn.functional.pad(wq.q, (0, pad))[:, idx * cols:(idx + 1) * cols]
+            y = sc_matmul_op(xq.q, wl, bits=bits, backend=policy.resolved_backend())
+            y = (y * (xq.scale * wq.scale)).reshape(*lead, cols).to(x.dtype)
+        y = hints.all_gather(y, dim=-1)[..., :n]
         if self.b is not None:
             y = y + self.b
         return y

@@ -1,8 +1,6 @@
-"""AdamW with fp32 master weights and moments, and the learning-rate schedule.
-
-The JAX package's `optim/compression.py` (int8 gradient compression for the
-cross-pod all-reduce) waits for multi-device (ROADMAP.md, queue A item 10).
-"""
+"""AdamW with fp32 master weights and moments, the learning-rate schedule, and
+int8 gradient compression with error feedback (`compression`, the cross-pod
+all-reduce's)."""
 
 from repro_torch.optim.adamw import (  # noqa: F401
     AdamWState,
@@ -10,5 +8,11 @@ from repro_torch.optim.adamw import (  # noqa: F401
     adamw_update,
     clip_by_global_norm,
     global_norm,
+)
+from repro_torch.optim.compression import (  # noqa: F401
+    CompressedTree,
+    compress_grads,
+    decompress_grads,
+    init_error_feedback,
 )
 from repro_torch.optim.schedule import cosine_warmup_schedule  # noqa: F401

@@ -1,9 +1,15 @@
-"""Host-level two-stage pipeline schedule (the port's `two_stage_schedule`).
+"""Pipeline schedules: GPipe's fill-drain over stage devices, and its two-stage host form.
 
-The PipelinedExecutor (core/accelerator.py) and nothing else uses it: a
-producer thread runs stage A over the items while the caller's thread runs
-stage B, with a bounded hand-off queue between them.  The JAX package's
-shard_map pipeline (`pipeline_forward`) comes with the multi-device slice.
+`pipeline_forward` runs microbatches through `n_stages` sequential blocks,
+stage s's params on `devices[s]`: the JAX package's `shard_map` pipeline,
+whose `collective_permute` between stages becomes a copy to the next
+stage's device.  `two_stage_schedule` is the same schedule for two stages
+at the host level: a producer thread runs stage A over the items while the
+caller's thread runs stage B, with a bounded hand-off queue between them
+(the PipelinedExecutor of core/accelerator.py uses it).
+
+Numerics match the single-device stack exactly: only the execution order
+changes.
 """
 
 from __future__ import annotations
@@ -11,6 +17,10 @@ from __future__ import annotations
 import queue as queue_mod
 import threading
 from typing import Callable, Sequence
+
+import torch
+
+from repro_torch.core.device import resolve_device
 
 def two_stage_schedule(
     stage_a: Callable,
@@ -81,3 +91,57 @@ def two_stage_schedule(
         raise error
     producer.join()
     return results
+
+
+def _stage_slice(tree, s: int, device: torch.device):
+    """Stage s's slice of a tree (tensor, dict, list or tuple) whose leaves have
+    the stage on their leading dim, as tensors on `device`."""
+    if isinstance(tree, torch.Tensor):
+        return tree[s].to(device)
+    if isinstance(tree, dict):
+        return {k: _stage_slice(v, s, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_stage_slice(v, s, device) for v in tree)
+    raise TypeError(f"params leaves must be tensors, got {type(tree).__name__}")
+
+
+def pipeline_forward(devices, stage_fn: Callable, params_stacked, x: torch.Tensor) -> torch.Tensor:
+    """Run x through len(devices) sequential blocks, block s on devices[s] (GPipe).
+
+    stage_fn(stage_params, x, stage_idx) -> x.  params_stacked: a tensor,
+    or a dict/list/tuple tree of tensors, each with a leading dim of
+    n_stages; stage s's slice is copied to devices[s] and lives there.
+    x: (n_micro, mb, ...) microbatches; the output has the same layout, on
+    x's device.
+
+    The standard fill-drain schedule over n_micro + n_stages - 1 ticks: at
+    tick t stage s runs microbatch t - s (when there is one), and its
+    output moves one stage on, to the next stage's device, for tick t + 1.
+    One thread enqueues every tick; the work of different cards overlaps
+    because each launch and peer copy is asynchronous, and a peer copy is
+    ordered after the source stage's work and before the destination's
+    next work (PyTorch orders a copy across cards on both cards' current
+    streams).  A device may be named more than once: its stages then run
+    one after another on it.
+    """
+    devices = tuple(resolve_device(d) for d in devices)
+    n_stages, n_micro = len(devices), x.shape[0]
+    if n_stages < 1:
+        raise ValueError("pipeline_forward needs at least one stage device")
+    params = [_stage_slice(params_stacked, s, devices[s]) for s in range(n_stages)]
+    inbox: list = [None] * n_stages  # the activation each stage takes at this tick
+    outs: list = [None] * n_micro
+    for t in range(n_micro + n_stages - 1):
+        # last stage first, so each stage consumes its input before the
+        # stage behind it hands over the next one
+        for s in reversed(range(n_stages)):
+            m = t - s
+            if not 0 <= m < n_micro:
+                continue
+            inp = x[m].to(devices[0]) if s == 0 else inbox[s]
+            y = stage_fn(params[s], inp, s)
+            if s == n_stages - 1:
+                outs[m] = y.to(x.device)
+            else:
+                inbox[s + 1] = y.to(devices[s + 1])
+    return torch.stack(outs)

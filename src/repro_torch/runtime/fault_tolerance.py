@@ -11,7 +11,7 @@ the straggler monitor:
       the on_dead callback (the pool evicts the replica).
 
 The JAX package's training restart loop (`run_with_restarts`) waits for
-multi-device (ROADMAP.md, queue A item 10): only its LM driver uses it.
+the LM substrate (ROADMAP.md, queue A item 11): only its LM training loop uses it.
 """
 
 from __future__ import annotations

@@ -1,9 +1,12 @@
-"""Replica pool — one accelerator replica per device, least-loaded dispatch.
+"""Replica pool — one accelerator replica per device group, least-loaded dispatch.
 
-Each `Replica` holds its own copy of the model parameters on one device
-(a CUDA card, or the CPU when asked for) and executes micro-batches on its
-own single worker thread, so R replicas give R-way overlap while every
-batch still runs on exactly one device.  Health is delegated to
+Each `Replica` holds its own copy of the model parameters on one carved
+group of devices (CUDA cards, or the CPU when asked for; usually a group of
+one, `devices_per_replica`) and executes micro-batches on its own single
+worker thread, so R replicas give R-way overlap while every batch still
+runs on exactly one group.  Batches under a sharded `ExecutionPolicy` run
+the accelerator's `MeshArtifacts` over the group (`_execute_sharded`);
+everything else runs on the group's first device.  Health is delegated to
 `runtime/fault_tolerance.py`:
 
   * HeartbeatMonitor — a pump thread feeds a no-op beat through each of the
@@ -45,11 +48,9 @@ runtime runs a preprocess cache) the hottest cache entries pre-staged on
 the device so the new replica's first all-hit batches skip the host
 restack.  `add_replica()`/`retire()` grow and shrink the pool the same way.
 The `chaos` hook observes every real batch at execution start (a fault
-injector assigned by the caller; None by default).
-
-Not ported yet: replicas over device groups (`devices_per_replica > 1`)
-and sharded policies, which raise NotImplementedError (ROADMAP.md queue A
-item 10).
+injector assigned by the caller; None by default).  A rejoined or added
+replica lands on its slot's device group, so a sharded policy finds the
+group's `MeshArtifacts` already built.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
-from repro_torch.core.accelerator import get_accelerator, params_copy_on
+from repro_torch.core.accelerator import get_accelerator, params_copy_on, place_on_group
 from repro_torch.core.device import on_streams, resolve_device, synchronize
 from repro_torch.core.engine import (
     result_leaves,
@@ -71,36 +72,36 @@ from repro_torch.core.engine import (
     result_to,
     result_to_host,
 )
+from repro_torch.launch.mesh import carve_device_groups
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor, StragglerMonitor
 from repro_torch.serve.metrics import BatchRecord, ServeMetrics
 from repro_torch.serve.queue import try_set_exception, try_set_result
-
-NOT_PORTED_MESH = (
-    "replicas over device groups and sharded policies are not ported yet "
-    "(ROADMAP.md queue A item 10, multi-device)"
-)
 
 
 class NoReplicaAvailable(RuntimeError):
     """Every replica is dead (or was already tried for this batch)."""
 
 
-def pool_devices(device=None) -> list[torch.device]:
-    """The devices a pool serves on: `device`, else every card.
+def pool_devices(device=None, devices=None) -> list[torch.device]:
+    """The devices a pool serves on: `devices`, else `device`, else every card.
 
-    With no device given the pool takes every CUDA device, and raises where
-    there is none (pass device="cpu" to serve on the CPU).
+    `devices` is the reference's argument (a list the pool carves into
+    groups; it may name one device more than once, which puts several
+    shards of a group on it), `device` the port's for one device.  With
+    neither the pool takes every CUDA device, and raises where there is
+    none (pass device="cpu" to serve on the CPU).
     """
+    if device is not None and devices is not None:
+        raise ValueError("pass device or devices, not both")
+    if devices is not None:
+        out = [resolve_device(d) for d in devices]
+        if not out:
+            raise ValueError("devices must name at least one device")
+        return out
     if device is not None:
         return [resolve_device(device)]
     resolve_device(None)  # raises without a card
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-
-
-def check_unsharded(policy) -> None:
-    """Raise NotImplementedError for a policy with `sharding` set."""
-    if getattr(policy, "sharding", None) is not None:
-        raise NotImplementedError(f"sharding={policy.sharding!r}: {NOT_PORTED_MESH}")
 
 
 def _to_host(logits: torch.Tensor) -> np.ndarray:
@@ -120,7 +121,14 @@ class _Entry:
 
 
 class Replica:
-    """One device-pinned executor: params copy, CUDA streams, worker threads.
+    """One device-group-pinned executor: params copies, CUDA streams, worker threads.
+
+    The unit of capacity is a device GROUP (usually of one device).
+    Sharded-policy batches run the accelerator's `MeshArtifacts` over the
+    group against `mesh_params` (one params copy a shard, on its device;
+    shards on one device share it), while unsharded batches run on the
+    group's first device (`device`) with `params`, its copy there, and
+    replay that device's graphs: one replica serves both kinds of traffic.
 
     Batches under a `pipeline="pipelined"` policy additionally use a second
     single-thread executor: the worker thread enqueues the preprocessing on
@@ -139,17 +147,23 @@ class Replica:
 
     def __init__(self, rid: int, device, params, *, on_straggler=None):
         self.id = rid
-        self.device = resolve_device(device)
+        # one device OR a device group, normalized to a tuple whose first
+        # device runs every unsharded batch
+        group = tuple(device) if isinstance(device, (tuple, list)) else (device,)
+        self.devices = tuple(resolve_device(d) for d in group)
+        self.device = self.devices[0]
         self.params = params_copy_on(params, self.device)
+        self.mesh_params = place_on_group(self.params, self.devices)
         cuda = self.device.type == "cuda"
         # sequential batches; the preprocess/feature pair for pipelined ones
         self.stream = torch.cuda.Stream(self.device) if cuda else None
         self.pre_stream = torch.cuda.Stream(self.device) if cuda else None
         self.feat_stream = torch.cuda.Stream(self.device) if cuda else None
         if cuda:
-            # the copy ran on this thread's current stream, which the
-            # replica's streams do not wait on
-            synchronize(self.device)
+            # the copies ran on this thread's current streams, which the
+            # replica's streams (and its shards') do not wait on
+            for d in set(self.devices):
+                synchronize(d)
         self.alive = True
         self.retired = False  # scale-down (don't auto-rejoin) vs fault eviction
         self.evicted_t: float | None = None  # when evict() ran (rejoin delay base)
@@ -235,11 +249,14 @@ class Replica:
 
 
 class ReplicaPool:
-    """Least-loaded dispatch over per-device replicas with health tracking.
+    """Least-loaded dispatch over per-device-group replicas with health tracking.
 
-    `device` names where the replicas run (see `pool_devices`: every card
-    by default).  More replicas than devices round-robin over
-    them, which on one card gives several workers with their own streams.
+    `devices` (or `device`, one device) names where the replicas run (see
+    `pool_devices`: every card by default), carved into groups of
+    `devices_per_replica` (`launch.mesh.carve_device_groups`; leftover
+    devices that do not fill a group are unused).  More replicas than
+    groups round-robin over them, which on one card gives several workers
+    with their own streams.
     """
 
     def __init__(
@@ -249,6 +266,7 @@ class ReplicaPool:
         *,
         n_replicas: int | None = None,
         device=None,
+        devices=None,
         devices_per_replica: int = 1,
         heartbeat_timeout_s: float | None = None,
         max_retries: int = 2,
@@ -257,12 +275,11 @@ class ReplicaPool:
         stage_top_k: int = 8,
         tracer=None,
     ):
-        if devices_per_replica != 1:
-            raise NotImplementedError(
-                f"devices_per_replica={devices_per_replica}: {NOT_PORTED_MESH}"
-            )
-        self._devices = pool_devices(device)
-        n = n_replicas if n_replicas is not None else len(self._devices)
+        self._devices = pool_devices(device, devices)
+        # the unit of capacity is a device GROUP: per_replica=1 is one device
+        # a replica; > 1 backs each replica with a mesh over its group
+        self._groups = carve_device_groups(self._devices, devices_per_replica)
+        n = n_replicas if n_replicas is not None else len(self._groups)
         if n < 1:
             raise ValueError("need at least one replica")
         self.model_cfg = model_cfg
@@ -293,14 +310,15 @@ class ReplicaPool:
         """Construct one fresh Replica for slot `rid` (params copied anew).
 
         Shared by the constructor and `rejoin`/`add_replica`: the device
-        follows the slot (round-robin over the pool's devices), so a
-        rejoined replica lands back on its predecessor's device.  Liveness
-        pumps are NOT started here — call `_start_liveness` after the
-        replica is visible in `self.replicas`.
+        group follows the slot (round-robin over the carved groups), so a
+        rejoined replica lands back on its predecessor's group, and a
+        sharded policy on the group whose `MeshArtifacts` the accelerator
+        already built.  Liveness pumps are NOT started here — call
+        `_start_liveness` after the replica is visible in `self.replicas`.
         """
         return Replica(
             rid,
-            self._devices[rid % len(self._devices)],
+            self._groups[rid % len(self._groups)],
             self._params,
             on_straggler=lambda ev, rid=rid: self._on_straggler(rid, ev),
         )
@@ -569,7 +587,6 @@ class ReplicaPool:
 
     def submit(self, mb) -> Future:
         """Run one MicroBatch somewhere healthy; future yields np logits."""
-        check_unsharded(mb.policy)
         future: Future = Future()
         self._dispatch(mb, future, attempts=0, tried=frozenset())
         return future
@@ -650,6 +667,9 @@ class ReplicaPool:
             except Exception as e:  # noqa: BLE001 — injected fault
                 self._fail(rep, entry, e)
                 return
+        if getattr(mb.policy, "sharding", None) is not None:
+            self._execute_sharded(rep, entry)
+            return
         if getattr(mb.policy, "pipeline", "sequential") == "pipelined":
             self._execute_pipelined(rep, entry)
             return
@@ -671,6 +691,34 @@ class ReplicaPool:
                 rep.heartbeat.beat()
             self._record_success(rep, entry, logits, dt, preprocess_skipped=skipped)
         except Exception as e:  # noqa: BLE001 — any device/kernel failure
+            self._fail(rep, entry, e)
+
+    def _execute_sharded(self, rep: Replica, entry: _Entry):
+        """Sharded execution of one batch over the replica's device group.
+
+        Routes through the accelerator's `mesh_artifacts` for this group (a
+        one-device group runs the unsharded math).  Straggler tracking,
+        heartbeat beats, retry on failure and trace spans behave exactly
+        like the sequential path (chaos already ran in `_execute`); a shard
+        that fails fails the call, which retries the batch elsewhere.  The
+        preprocess cache does not compose with sharded policies: the
+        scheduler never attaches it to a sharded batch.  The shards run
+        eagerly; a warmup batch builds the kernels and the shards' streams.
+        """
+        mb = entry.mb
+        try:
+            accel = get_accelerator(self.model_cfg, mb.policy, device=rep.device)
+            arts = accel.mesh_artifacts(rep.devices)
+            rep.straggler.step_start()
+            self._emit("batch.execute_start", mb, rep_id=rep.id)
+            with on_streams(rep.stream):
+                logits = _to_host(arts.infer(rep.mesh_params, mb.batch))
+            self._emit("batch.execute_end", mb, rep_id=rep.id)
+            dt = rep.straggler.step_end(rep.n_batches)
+            if rep.heartbeat is not None:
+                rep.heartbeat.beat()
+            self._record_success(rep, entry, logits, dt)
+        except Exception as e:  # noqa: BLE001 — any device/kernel/shard failure
             self._fail(rep, entry, e)
 
     # -- preprocess-cache execution -------------------------------------------
@@ -996,12 +1044,12 @@ class ReplicaPool:
         under the preprocess cache the two halves' as well; for pipelined
         policies through the two-stage path, which captures the preprocess
         graph of the replica's preprocess stream and the feature graph.
-        Under the cache it also keeps the filler row of all-hit batches.
+        Under the cache it also keeps the filler row of all-hit batches.  A
+        sharded policy runs one eager sharded forward over the group.
         Each distinct (bucket, policy) batch is also REGISTERED:
         rejoin/add_replica replay the registered set on a fresh replica so
         it joins warm.
         """
-        check_unsharded(mb.policy)
         with self._lock:
             for i, m in enumerate(self._warmup_mbs):
                 if m.bucket == mb.bucket and m.policy == mb.policy:

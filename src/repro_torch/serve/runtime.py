@@ -31,9 +31,12 @@ buckets, max_batch and batching patience through `reconfigure`,
 `prometheus_port` serves `GET /metrics` and `/healthz`, and
 `report_interval_s` prints a periodic summary line to stderr.
 
-Not ported yet, and refused with NotImplementedError rather than ignored:
-replicas over device groups or sharded policies (ROADMAP.md queue A
-item 10).
+`RuntimeConfig(devices_per_replica=g)` carves the devices into groups of
+g, one replica a group, and a policy with `sharding="batch"` or
+`"tensor"` runs each of its batches over the replica's whole group
+(`core.accelerator.MeshArtifacts`), bitwise equal to a single-device
+`infer` of the same padded batch; unsharded policies run on the group's
+first device.  Sharded batches skip the preprocess cache.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from repro_torch.core.accelerator import get_accelerator
 from repro_torch.core.policy import ExecutionPolicy, resolve_policy
 from repro_torch.serve.adapt.controller import AdaptiveConfig, AdaptiveController
 from repro_torch.serve.autoscaler import Autoscaler, AutoscalerConfig
-from repro_torch.serve.dispatch import ReplicaPool, check_unsharded, pool_devices
+from repro_torch.serve.dispatch import ReplicaPool, pool_devices
 from repro_torch.serve.hashing import DEFAULT_QUANT_STEP
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.obs import MetricsServer, Reporter
@@ -100,8 +103,9 @@ class RuntimeConfig:
     max_queue: int = 256
     buckets: tuple[int, ...] | None = None
     n_replicas: int | None = None  # None -> one per device
-    # devices per replica: 1 is the one-device replica; > 1 (a mesh over a
-    # device group) is not ported yet and raises
+    # devices per replica: 1 is the one-device replica; > 1 carves the
+    # devices into groups and each replica serves sharded policies over its
+    # group (core.accelerator.MeshArtifacts); leftover devices are unused
     devices_per_replica: int = 1
     heartbeat_timeout_s: float | None = None
     max_retries: int = 2
@@ -156,8 +160,10 @@ class ServingRuntime:
     the numeric mode and execution schedule chosen per request through an
     ExecutionPolicy.  Use as a context manager (`with ServingRuntime(...)`)
     or call start()/stop() explicitly; see the module docstring for a
-    worked example.  `device` names where the replicas run: every card by
-    default, one replica each.
+    worked example.  `devices` (the reference's argument; it may name one
+    device more than once) or `device` (one device) names where the
+    replicas run: every card by default, one replica a group of
+    `devices_per_replica`.
     """
 
     def __init__(
@@ -168,6 +174,7 @@ class ServingRuntime:
         *,
         policy: ExecutionPolicy | None = None,
         device=None,
+        devices=None,
     ):
         self.model_cfg = model_cfg
         self.config = config or RuntimeConfig()
@@ -181,7 +188,6 @@ class ServingRuntime:
                 f"devices_per_replica={self.config.devices_per_replica}"
             )
         self.default_policy = resolve_policy(model_cfg, policy)
-        check_unsharded(self.default_policy)
         # validated strictly-increasing in RuntimeConfig.__post_init__ — a
         # malformed bucket list fails loudly there instead of being sorted
         self.buckets = tuple(self.config.buckets or (model_cfg.n_points,))
@@ -223,6 +229,7 @@ class ServingRuntime:
             params,
             n_replicas=self.config.n_replicas,
             device=device,
+            devices=devices,
             devices_per_replica=self.config.devices_per_replica,
             heartbeat_timeout_s=self.config.heartbeat_timeout_s,
             max_retries=self.config.max_retries,
@@ -353,8 +360,10 @@ class ServingRuntime:
         captures the preprocess graph of its preprocess stream and the
         feature graph.  Each warmup batch is recorded in the metrics as a
         batch with n_real == 0, and counts the launches of one forward.  A
-        None policy is the runtime's default policy, as in `submit` (the
-        JAX package warms the config's default policy for None instead).
+        sharded policy runs one eager forward over each replica's group and
+        never carries the cache.  A None policy is the runtime's default
+        policy, as in `submit` (the JAX package warms the config's default
+        policy for None instead).
         """
         width = 3 + self.model_cfg.in_features
         for pol in policies:
@@ -365,7 +374,8 @@ class ServingRuntime:
                     bucket=bucket,
                     policy=resolved,
                     batch=np.zeros((self.config.max_batch, bucket, width), np.float32),
-                    cache=self.cache,
+                    # sharded batches never carry the cache (scheduler parity)
+                    cache=self.cache if resolved.sharding is None else None,
                 )
                 self.pool.warmup(mb)
         return self
@@ -435,7 +445,7 @@ class ServingRuntime:
                             bucket=bucket,
                             policy=resolved,
                             batch=np.zeros((new_mb, bucket, width), np.float32),
-                            cache=self.cache,
+                            cache=self.cache if resolved.sharding is None else None,
                         ))
             # the swap: bucket list first (affects only NEW admissions —
             # already-admitted requests carry their bucket), then the
@@ -482,7 +492,6 @@ class ServingRuntime:
                 f"got {cloud.shape}"
             )
         resolved = self._resolve(policy)
-        check_unsharded(resolved)
         if timeout_s is None and (slo is None or slo.deadline_s is None):
             # the class's default deadline wins over the runtime-wide one;
             # queue.submit applies slo.deadline_s itself when timeout_s
@@ -562,7 +571,7 @@ class ServingRuntime:
         return (
             f"ServingRuntime({self.model_cfg.name}, buckets={self.buckets}, "
             f"replicas={len(self.pool.replicas)}, max_batch={self.config.max_batch}, "
-            f"devices={[str(r.device) for r in self.pool.replicas]})"
+            f"devices={['+'.join(str(d) for d in r.devices) for r in self.pool.replicas]})"
         )
 
 
@@ -574,11 +583,13 @@ def make_serving_runtime(
     policy: ExecutionPolicy | None = None,
     seed: int = 0,
     device=None,
+    devices=None,
 ) -> ServingRuntime:
     """One-call constructor: params default to a fresh init from `seed` (demo/bench)."""
     if params is None:
-        first = pool_devices(device)[0]
+        first = pool_devices(device, devices)[0]
         params = get_accelerator(model_cfg, policy, device=first).init(
             torch.Generator().manual_seed(seed)
         )
-    return ServingRuntime(model_cfg, params, config, policy=policy, device=device)
+    return ServingRuntime(model_cfg, params, config, policy=policy, device=device,
+                          devices=devices)

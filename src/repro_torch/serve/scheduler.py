@@ -427,7 +427,11 @@ class BatchScheduler:
         if not live:
             return
         bucket, policy, _slo = key
-        cache = self.cache
+        # the preprocess cache does not compose with sharded policies (their
+        # batches run the group's MeshArtifacts end to end; cached rows are
+        # one device's trees): a sharded batch carries no cache at all, as in
+        # the reference, so the dispatch layer's cache paths never see it
+        cache = self.cache if getattr(policy, "sharding", None) is None else None
         try:
             entries: tuple = ()
             rows = None

@@ -6,9 +6,14 @@ exercise the kernels' other paths.  Then the captured CUDA graphs
 (core/graphs.py): every entry point's replay bitwise equal to
 graphs.eager() at smoke and full width, on side streams, on the pipelined
 pair and in the serving runtime, where nothing is captured after warmup.
-Last, training (launch/train.py): the whole step replayed as one graph,
+Then training (launch/train.py): the whole step replayed as one graph,
 bitwise equal to eager steps under deterministic kernels, a checkpoint
-round trip from the card, and the entry point.
+round trip from the card, and the entry point.  Last, multi-device: the
+sharded artifacts against single-device eager infer on two cards and on
+two shards of one card, the collectives' ordering across streams, a
+sharded ServingRuntime beside a thread replaying graphs, pipeline_forward,
+and a kernel on another card leaving the current device alone (the
+two-card tests skip below two cards).
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test skips where
 torch.cuda.is_available() is false.  On the card:
@@ -1171,3 +1176,216 @@ def test_loss_graph_replays_equal_eager(cuda):
         want = accel.loss(params, p1, l1)
     assert graphs.captures() - before == 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1]["accuracy"], want[1]["accuracy"])
+
+
+# -- multi-device: sharded artifacts, sharded serving, pipeline_forward -------
+#
+# SC sharded logits must equal single-device eager infer bitwise (integer
+# products, per-element float ops).  Float ones are held bitwise or, where
+# cuBLAS sums the matmul of a shard's row or column block in another order
+# than the whole product's, within SHARD_FLOAT_ATOL, the card-vs-CPU bound
+# of chip_smoke.py (LOGIT_ATOL), which also names the matmuls that differ.
+SHARD_FLOAT_ATOL = 1e-4
+
+
+def _sharded_equal(got, want, quant):
+    got = got.to(want.device)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    if quant == "none":
+        torch.testing.assert_close(got, want, rtol=0, atol=SHARD_FLOAT_ATOL)
+    else:
+        assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return (torch.device("cuda", 0), torch.device("cuda", 1))
+
+
+def _sharded_parity(group, model, smoke):
+    cfg = get_config(model, smoke=smoke)
+    params = get_accelerator(cfg, device="cuda:0").init(torch.Generator().manual_seed(3))
+    batch = _clouds_for(cfg, 1, seed=40)[0]
+    for quant in ("none", "sc_w16a16"):
+        single = get_accelerator(cfg, ExecutionPolicy(quant=quant), device="cuda:0")
+        with graphs.eager():
+            want = single.infer(params, batch)
+        per_forward = {"fps_tiles": len(cfg.sa), "lattice_tiles": len(cfg.sa),
+                       "knn3": len(cfg.sa) if cfg.task == "seg" else 0}
+        for mode in ("batch", "tensor"):
+            arts = get_accelerator(cfg, ExecutionPolicy(quant=quant, sharding=mode),
+                                   device=group[0]).mesh_artifacts(group)
+            registry.reset_launches()
+            got = arts.infer(params, batch)
+            for d in set(group):
+                torch.cuda.synchronize(d)
+            counts = registry.launches()
+            for name, n in per_forward.items():
+                assert counts[name] == n * len(group), (name, counts)
+            assert (counts["sc_matmul"] > 0) == (quant != "none")
+            assert got.device == group[0]
+            _sharded_equal(got, want, quant)
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("model", ["pointnet2-cls", "pointnet2-seg"])
+def test_sharded_parity_on_two_cards(cuda, model, smoke):
+    _sharded_parity(_two_cards(), model, smoke)
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("model", ["pointnet2-cls", "pointnet2-seg"])
+def test_sharded_parity_on_two_shards_of_one_card(cuda, model, smoke):
+    _sharded_parity((torch.device("cuda", 0),) * 2, model, smoke)
+
+
+@pytest.mark.parametrize("mode", ["batch", "tensor"])
+def test_sharded_infer_sees_params_updated_in_place_across_cards(cuda, mode):
+    """One params module is placed on the group anew at every call, so
+    weights loaded into it in place between two calls (as an optimizer step
+    or `load_state_dict` does) reach the shard on the other card."""
+    group = _two_cards()
+    cfg = get_config("pointnet2-cls", smoke=True)
+    single = get_accelerator(cfg, ExecutionPolicy(quant="sc_w16a16"), device=group[0])
+    params = single.init(torch.Generator().manual_seed(3))
+    batch = _clouds_for(cfg, 1, seed=41)[0]
+    arts = get_accelerator(cfg, ExecutionPolicy(quant="sc_w16a16", sharding=mode),
+                           device=group[0]).mesh_artifacts(group)
+    first = arts.infer(params, batch)
+    params.load_state_dict(single.init(torch.Generator().manual_seed(4)).state_dict())
+    with graphs.eager():
+        want = single.infer(params, batch)
+    got = arts.infer(params, batch)
+    _sharded_equal(got, want, "sc_w16a16")
+    assert not torch.equal(got, first)
+
+
+def test_collectives_read_the_writers_finished_values(cuda):
+    """Each shard makes its tensor with a long chain of kernels on its own
+    stream and gathers at once: every reader sees the finished values (its
+    stream waits on the writer's event), across cards and on one card."""
+    from repro_torch.launch.mesh import ReplicaMesh
+    from repro_torch.sharding import hints
+
+    groups = [(torch.device("cuda", 0),) * 3]
+    if torch.cuda.device_count() >= 2:
+        groups.append((torch.device("cuda", 0), torch.device("cuda", 1)))
+    for group in groups:
+        mesh = ReplicaMesh(group)
+
+        def body(i):
+            x = torch.full((2048, 2048), 1.0, device=group[i])
+            for _ in range(30):
+                x = torch.sqrt(x * x + 0.0)  # slow-ish, value-preserving work
+            x = x * (i + 1)
+            return torch.cat([hints.all_gather(x[:4, :4], dim=0),
+                              hints.all_max(x[:4, :4])])
+
+        for _ in range(5):
+            results = mesh.run(body)
+            for out, ready in results:
+                torch.cuda.current_stream(out.device).wait_event(ready)
+                want = torch.cat([torch.full((4, 4), float(i + 1)) for i in range(len(group))]
+                                 + [torch.full((4, 4), float(len(group)))])
+                assert torch.equal(out.cpu(), want)
+
+
+def test_sharded_runtime_beside_a_thread_replaying_unsharded_graphs(cuda):
+    """A ServingRuntime with one replica over two shards of card 0 serves
+    batch-float and tensor-SC traffic while another thread keeps replaying
+    an unsharded graph on the same card: every response is its padded
+    batch's eager infer (SC bitwise, float within SHARD_FLOAT_ATOL) and
+    every replay is bitwise the first."""
+    from repro_torch.serve import RuntimeConfig, ServingRuntime, TraceConfig
+
+    accel = get_accelerator(CONFIG, device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    x = _clouds_for(CONFIG, 1, seed=41)[0]
+    first = accel.infer(params, x).cpu()  # captures
+    stop, errors, loops = threading.Event(), [], [0]
+
+    def replays():
+        while not stop.is_set():
+            if not torch.equal(accel.infer(params, x).cpu(), first):
+                errors.append(f"replay {loops[0]} differs")
+                return
+            loops[0] += 1
+
+    rng = np.random.default_rng(5)
+    clouds = [rng.uniform(-1, 1, (int(n), 3)).astype(np.float32)
+              for n in rng.integers(600, 1500, 4 * BATCH)]
+    pols = [ExecutionPolicy(sharding="batch"), ExecutionPolicy(quant="sc_w16a16",
+                                                               sharding="tensor")]
+    rt = ServingRuntime(CONFIG, params, RuntimeConfig(max_batch=BATCH, devices_per_replica=2,
+                                                      trace=TraceConfig()),
+                        devices=[cuda, cuda])
+    thread = threading.Thread(target=replays)
+    try:
+        rt.warmup(tuple(pols))
+        thread.start()
+        futs = [rt.submit(c, policy=pols[i % 2]) for i, c in enumerate(clouds)]
+        rt.start()
+        outs = [f.result(timeout=300) for f in futs]
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+        rt.stop()
+    assert not thread.is_alive() and not errors and loops[0] > 0
+    events = rt.tracer.events()
+    order = {e.trace_id: k for k, e in enumerate(e for e in events if e.name == "request.submit")}
+    from repro_torch.serve import Request, assemble_batch
+    seen = 0
+    for e in events:
+        if e.name != "batch.assembled":
+            continue
+        idx = [order[t] for t in e.args["members"]]
+        quant = pols[idx[0] % 2].quant
+        reqs = [Request(id=i, cloud=clouds[i], n_orig=clouds[i].shape[0],
+                        bucket=CONFIG.n_points, policy=None, deadline_t=None, submit_t=0.0,
+                        future=None) for i in idx]
+        with graphs.eager():
+            want = get_accelerator(CONFIG, ExecutionPolicy(quant=quant), device=cuda).infer(
+                params, assemble_batch(reqs, CONFIG.n_points, 3, BATCH))
+        for j, i in enumerate(idx):
+            assert pols[i % 2].quant == quant
+            _sharded_equal(torch.from_numpy(outs[i]), want[j].cpu(), quant)
+            seen += 1
+    assert seen == len(clouds)
+
+
+def test_pipeline_forward_across_the_cards(cuda):
+    """Four stages over the cards present (stage s on card s % count) against
+    the sequential composition, within the JAX test's 2e-5."""
+    from repro_torch.parallel import pipeline_forward
+
+    n = min(4, torch.cuda.device_count())
+    devs = [torch.device("cuda", s % n) for s in range(4)]
+    rng = np.random.default_rng(6)
+    for mb, d in ((4, 16), (64, 1024)):
+        w = torch.from_numpy((rng.standard_normal((4, d, d)) / np.sqrt(d)).astype(np.float32))
+        x = torch.from_numpy(rng.standard_normal((8, mb, d)).astype(np.float32)).cuda()
+        got = pipeline_forward(devs, lambda wp, xx, s: torch.tanh(xx @ wp), w, x)
+        ref = x
+        for s in range(4):
+            ref = torch.tanh(ref.to(devs[s]) @ w[s].to(devs[s]))
+        torch.testing.assert_close(got, ref.to(x.device), rtol=2e-5, atol=2e-5)
+        assert got.device == x.device and got.shape == x.shape
+
+
+def test_a_kernel_on_another_card_leaves_the_current_device(cuda):
+    """Each wrapper makes its tensor's card current for the launch only: a
+    call on card 1 from a thread whose current device is card 0 leaves card
+    0 current (the C entry points set the thread's current CUDA context,
+    which PyTorch reads too)."""
+    _two_cards()
+    one = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    pts = torch.rand(4, 64, 3, device=one)
+    fps_tiles_cuda(pts, 8)
+    lattice_tiles_cuda(pts, pts[:, :8].contiguous(), nsample=4, l_range=0.5)
+    knn3_cuda(pts, pts, k=3)
+    q = torch.randint(-100, 100, (16, 8), dtype=torch.int32, device=one)
+    sc_matmul_cuda(q, q.t().contiguous(), n_planes=4)
+    torch.cuda.synchronize(one)
+    assert torch.cuda.current_device() == 0

@@ -2,7 +2,8 @@
 content key against the JAX package, `ServingRuntime` responses against a
 direct `infer` of the same padded batch (bitwise) and against the JAX
 package's `ServingRuntime` on the same clouds, the queue, cache and replica
-behaviour, the control-plane options and the not-yet-ported ones.
+behaviour, the control-plane options, and replicas over device groups
+serving sharded policies.
 
 Tolerances and why:
   * the numpy helpers and content keys are equal, byte for byte;
@@ -662,26 +663,57 @@ def test_control_plane_option_rejects_a_malformed_value(cfg, params, bridged, op
     assert str(got.value) == str(want.value)
 
 
-def test_device_groups_raise(cfg, params):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ReplicaPool(cfg, params, device="cpu", devices_per_replica=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServingRuntime(cfg, params, RuntimeConfig(max_batch=4, devices_per_replica=2),
-                       device="cpu")
-
-
-def test_sharded_policies_raise(cfg, params):
-    sharded = ExecutionPolicy(sharding="batch")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServingRuntime(cfg, params, RuntimeConfig(max_batch=4), policy=sharded, device="cpu")
-    rt = _runtime(cfg, params)
+def test_devices_per_replica_carves_the_groups(cfg, params):
+    """devices=[cpu] * 4 in groups of 2 gives two replicas, one a pair; a
+    group of 3 leaves the fourth device unused; a group larger than the
+    device list raises carve_device_groups' ValueError."""
+    cpu = torch.device("cpu")
+    pool = ReplicaPool(cfg, params, devices=["cpu"] * 4, devices_per_replica=2)
     try:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            rt.submit(_clouds(1)[0], policy=sharded)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            rt.pool.submit(_warm_mb(cfg, sharded))
+        assert [r.devices for r in pool.replicas] == [(cpu, cpu), (cpu, cpu)]
+        assert all(r.device == cpu and len(r.mesh_params) == 2 for r in pool.replicas)
+    finally:
+        pool.shutdown()
+    rt = ServingRuntime(cfg, params, RuntimeConfig(max_batch=6, devices_per_replica=3),
+                        devices=["cpu"] * 4)
+    try:
+        assert [r.devices for r in rt.pool.replicas] == [(cpu,) * 3]
+        assert "cpu+cpu+cpu" in repr(rt)
     finally:
         rt.stop(drain=False)
+    with pytest.raises(ValueError, match="exceeds"):
+        ReplicaPool(cfg, params, devices=["cpu"] * 2, devices_per_replica=3)
+    with pytest.raises(ValueError, match="not both"):
+        ReplicaPool(cfg, params, device="cpu", devices=["cpu"])
+
+
+def test_sharded_policies_are_served(cfg, params, bridged):
+    """A sharded default policy and a sharded per-request policy are served,
+    each response bitwise the single-device infer of its padded batch; a
+    max_batch that the group does not divide raises the JAX package's
+    ValueError."""
+    sharded = ExecutionPolicy(sharding="batch")
+    clouds = _clouds(MAX_BATCH, sizes=(256, 150, 300), seed=21)
+    rt = ServingRuntime(cfg, params, RuntimeConfig(max_batch=MAX_BATCH, max_wait_s=0.005,
+                                                   buckets=(256,), devices_per_replica=2),
+                        policy=sharded, devices=["cpu"] * 2)
+    outs = _serve_once(rt, clouds)
+    direct, _, _ = _direct(cfg, params, clouds)
+    for i, out in enumerate(outs):
+        np.testing.assert_array_equal(out, direct[i])
+    rt = _runtime(cfg, params)
+    tensor_sc = ExecutionPolicy(quant="sc_w16a16", sharding="tensor")
+    outs = _serve_once(rt, clouds, policy=tensor_sc)
+    direct, _, _ = _direct(cfg, params, clouds, SC)
+    for i, out in enumerate(outs):
+        np.testing.assert_array_equal(out, direct[i])
+    with pytest.raises(ValueError) as got:
+        ServingRuntime(cfg, params, RuntimeConfig(max_batch=3, devices_per_replica=2),
+                       devices=["cpu"] * 2)
+    with pytest.raises(ValueError) as want:
+        JServingRuntime(j_cls_smoke(), bridged["cls"][0],
+                        JRuntimeConfig(max_batch=3, devices_per_replica=2))
+    assert str(got.value) == str(want.value)
 
 
 def test_every_emitted_trace_event_is_declared():
