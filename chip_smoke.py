@@ -15,7 +15,9 @@ and worker threads), the preprocess cache and the pipelined executor, and
 then its control plane (fault injection, autoscaler, adaptive controller,
 exporters), training (launch/train.py, its step one captured CUDA
 graph), and multi-device serving (a replica over a device group running
-the batch- and tensor-sharded artifacts, and the GPipe schedule).  On
+the batch- and tensor-sharded artifacts, and the GPipe schedule), and
+the paper's comparison paths (baseline-1 global L2 FPS and ball query,
+baseline-2 grid tiles, standard aggregation).  On
 the card the entry points replay captured CUDA graphs (core/graphs.py, the
 counterpart of the JAX package's jit artifacts) unless the caller enters
 graphs.eager(), which is the reference side of every graph check.
@@ -144,10 +146,31 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      rejoin included), and every response against an eager infer of its
      padded batch as above; it prints requests/s and p50/p99.  Last,
      pipeline_forward over 4 stages on min(4, cards) cards at (mb 4, d 16)
-     and (mb 64, d 1024) against the sequential composition, within 2e-5.
+     and (mb 64, d 1024) against the sequential composition, within 2e-5;
+ 11. the paper's comparison paths: for cls (8 x 1024) and seg (8 x 4096),
+     quant in {none, sc_w16a16}, the five corners other than the main
+     path's (COMPARISON_CORNERS: baseline1/standard, baseline2/standard,
+     pc2im/standard, baseline1/delayed, baseline2/delayed), each through
+     get_accelerator(dataclasses.replace(CONFIG, preproc=..., aggregation=...),
+     policy).infer.  Every kernel call of one eager forward is held against
+     its plain version bitwise, and the calls at shapes phase 3 did not see
+     (baseline1's global L2 FPS, standard aggregation's grouped SC rows) are
+     timed as phase 3 times its calls; a forward must make, and each counted
+     run launch, per stage 1 FPS kernel unless baseline2 (whose masked FPS,
+     grid partition and ball query are plain ops, as in the reference) and
+     1 lattice kernel under pc2im, plus 12 SC matmuls under SC and 2 knn3 for
+     seg.  The replay of infer, infer_with_preprocess, preprocess_stage,
+     feature_stage and feature_from_cached is bitwise equal to graphs.eager(),
+     the preprocessing bitwise equal to the port's CPU run and the logits
+     within LOGIT_ATOL of it.  It prints each corner's eager and replayed
+     forward (host clock, median of 10), busy and idle share (profiled, with
+     the credited launches held against the kernels the card ran) and peak
+     memory, each pipeline's preprocess_stage replay alone, and fig12a's
+     sampling quality (L1 against L2 FPS through the FPS kernel, the lattice
+     kernel's recall of the ball query's neighbours), equal to the CPU run.
 
 Then it prints one JSON line with every kernel's launches (summed over the
-counted runs of phases 4, 6, 7, 8, 9 and 10; a replay's are the launches its
+counted runs of phases 4, 6, 7, 8, 9, 10 and 11; a replay's are the launches its
 capture recorded, which the profiled replays of phases 4, 6, 7 and 9 show
 the card running), error and times (summed over the calls recorded in
 phase 3, with a breakdown by path), the card line again, and as its last
@@ -159,6 +182,7 @@ neither jax nor the JAX package is imported.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -269,6 +293,13 @@ SHARD_SWITCH_S = 1e-4
 PIPE_STAGES, PIPE_MICRO = 4, 8
 PIPE_SHAPES = ((4, 16), (64, 1024))
 PIPE_TOL = 2e-5
+
+# Comparison phase: the preproc x aggregation corners other than the main
+# path's pc2im/delayed, each model at full width under both policies.
+COMPARISON_CORNERS = (("baseline1", "standard"), ("baseline2", "standard"),
+                      ("pc2im", "standard"), ("baseline1", "delayed"), ("baseline2", "delayed"))
+# fig12a's sampling quality: clouds, points a cloud, samples, query radius.
+QUALITY_CLOUDS, QUALITY_POINTS, QUALITY_K, QUALITY_RADIUS = 8, 512, 128, 0.3
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -382,23 +413,36 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+PAD_KERNEL = "spin_kernel"  # the kernel torch.cuda._sleep launches
+PAD_KERNELS = 8  # pads ahead of the profiled call: more than a session was seen to drop
+
+
 def device_kernels(torch, fn) -> dict[str, list]:
     """{name: [count, ms]} of the device work one fn() call enqueues, from one
     torch.profiler session.
 
     Durations are the card's own (CUPTI), so the host's time to enqueue the
     work is left out.  A session now and then loses CUDA events, all or
-    some: the callers below check the count and profile again.
+    some: the callers below check the count and profile again.  Once CUDA
+    graphs have been replayed or other threads have run CUDA work, a
+    session drops its first device records, one to two of them in PR 20's
+    runs (a one-call session of a kernel recorded none), so fn() runs after
+    PAD_KERNELS pad kernels (torch.cuda._sleep's PAD_KERNEL) and before
+    one, and the pads are left out.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PAD_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         fn()
+        torch.cuda._sleep(1)
         torch.cuda.synchronize()
     by_name: dict[str, list] = {}
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
+        if evt.device_type == DeviceType.CUDA and PAD_KERNEL not in evt.name:
             entry = by_name.setdefault(evt.name, [0, 0.0])
             entry[0] += 1
             entry[1] += evt.time_range.elapsed_us() / 1e3
@@ -466,6 +510,86 @@ def bound(name: str, args, kw, plain_out) -> tuple[float, float, float]:
     nbytes = (m * k + k * n + m * n) * 4
     ops = 2 * m * k * n * planes * planes  # int8 plane-pair MACs
     return nbytes, ops, PEAK_INT8_OPS
+
+
+def record_calls(torch, registry, run) -> dict[str, list]:
+    """Every kernel call that run() makes, with cloned inputs: each kernel's
+    CUDA wrapper is swapped for a recorder that calls it (so run() must be
+    eager: a graph replay calls no wrapper)."""
+    specs = {name: registry.get(name) for name in KERNELS}
+    calls = {name: [] for name in KERNELS}
+
+    def recorder(name, spec):
+        def record(*args, **kw):
+            calls[name].append(
+                ([a.clone() if torch.is_tensor(a) else a for a in args], dict(kw)))
+            return spec.cuda(*args, **kw)
+        return record
+
+    try:
+        for name, spec in specs.items():
+            registry.register(name, plain=spec.plain, cuda=recorder(name, spec))
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for name, spec in specs.items():
+            registry.register(name, plain=spec.plain, cuda=spec.cuda)
+    return calls
+
+
+def hold_call(torch, name: str, spec, args, kw, path: str) -> tuple[float, object]:
+    """One recorded call: the kernel against its plain version on the same inputs,
+    bitwise, or the run fails.  Returns (max |diff|, the plain output)."""
+    got = spec.cuda(*args, **kw)
+    want = spec.plain(*args, **kw)
+    torch.cuda.synchronize()
+    got_t = got if isinstance(got, tuple) else (got,)
+    want_t = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for g, w in zip(got_t, want_t):
+        err = (g.to(torch.float64) - w.to(torch.float64)).abs().max().item()
+        worst = max(worst, err)
+        if not torch.equal(g, w):
+            fail(f"{name} at {[tuple(a.shape) for a in args if torch.is_tensor(a)]}"
+                 f" ({path}): kernel differs from its plain version (max |diff| {err})")
+    return worst, want
+
+
+def time_call(torch, name: str, spec, args, kw, want, path: str) -> dict:
+    """Device and enqueue times of one recorded call: kernel, plain version and,
+    for the SC matmul, one float64 torch.matmul of the same operands; and its bound.
+
+    ms / plain_ms / library_ms: the card's busy time a call (profiler);
+    *_enqueue_ms: CUDA events around back-to-back calls, which is the host's
+    enqueue time wherever that exceeds the card's.
+    """
+    kernel_fn = functools.partial(spec.cuda, *args, **kw)
+    plain_fn = functools.partial(spec.plain, *args, **kw)
+    ms = device_ms(torch, kernel_fn, reps=50)
+    plain_ms = device_ms(torch, plain_fn, reps=5)
+    nbytes, ops, peak = bound(name, args, kw, want)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / peak * 1e3
+    row = {"kernel": name, "path": path,
+           "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
+           "kw": {k: v for k, v in kw.items()}, "ms": ms, "plain_ms": plain_ms,
+           "enqueue_ms": cuda_ms(torch, kernel_fn, reps=50),
+           "plain_enqueue_ms": cuda_ms(torch, plain_fn, reps=5, warmup=1),
+           "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+           "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    if name == "sc_matmul":
+        xd, wd = args[0].to(torch.float64), args[1].to(torch.float64)
+        library_fn = functools.partial(torch.matmul, xd, wd)
+        row["library_ms"] = device_ms(torch, library_fn, reps=20)
+        row["library_enqueue_ms"] = cuda_ms(torch, library_fn, reps=20)
+    return row
+
+
+def call_signature(torch, name: str, args, kw) -> tuple:
+    """What makes two calls of a kernel the same work to time: shapes and options."""
+    return (name, tuple(tuple(a.shape) for a in args if torch.is_tensor(a)),
+            tuple(a for a in args if not torch.is_tensor(a)), tuple(sorted(kw.items())))
 
 
 def profile_forward(torch, accel, params, batch, wall_ms: float, registry, label: str) -> dict:
@@ -571,12 +695,17 @@ def n_linears(cfg) -> int:
 
 
 def expected_launches(path: str, quant: str, cfg=None) -> dict[str, int]:
-    """Kernel launches one run of `path` makes under `quant` (phase 4's check)."""
+    """Kernel launches one run of `path` makes under `quant` (phase 4's check),
+    for the preproc corner of `cfg` (phase 11's)."""
     want = dict.fromkeys(KERNELS, 0)
     if path == "flat":
         want["lattice_query"] = len(FLAT_SETS)
         return want
-    want["fps_tiles"] = want["lattice_tiles"] = len(cfg.sa)
+    # the corner: baseline1's global FPS and pc2im's tiles launch the FPS
+    # kernel a stage, pc2im the lattice kernel a stage; baseline2's masked FPS,
+    # grid partition and ball query are plain ops, as in the reference
+    want["fps_tiles"] = 0 if cfg.preproc == "baseline2" else len(cfg.sa)
+    want["lattice_tiles"] = len(cfg.sa) if cfg.preproc == "pc2im" else 0
     want["sc_matmul"] = n_linears(cfg) if quant != "none" else 0
     if path == "seg":
         want["knn3"] = len(cfg.sa)
@@ -2083,6 +2212,229 @@ def sharding_phase(torch, cfgs: dict, params: dict, batches: dict, registry,
     return counted, report
 
 
+def sampling_quality(torch, device: str) -> dict:
+    """fig12a's sampling quality on `device`, from QUALITY_CLOUDS seeded clouds.
+
+    Per cloud: the covering radius and the min pairwise separation of the L1
+    sample against the L2 one (the FPS kernel on the card, its plain version on
+    the CPU), and the lattice query's recall of the ball query's neighbours of
+    the L2 centroids (fig12a's neighbour recall: every neighbour, radius
+    QUALITY_RADIUS).  Means are taken on the host from the per-cloud values.
+    """
+    from repro_torch.core import fps as F
+    from repro_torch.core import query as Q
+    from repro_torch.kernels.fps.ops import fps_tiles
+    from repro_torch.kernels.lattice.ops import lattice_query_tiles
+
+    b, n, k = QUALITY_CLOUDS, QUALITY_POINTS, QUALITY_K
+    pts = torch.from_numpy(make_clouds(np.random.default_rng(SEED + 11), b, n)).to(device)
+    i_l1, i_l2 = (fps_tiles(pts, k, metric=m) for m in ("l1", "l2"))
+    cov = [F.coverage_radius(pts, i).cpu().numpy() for i in (i_l1, i_l2)]
+    sep = [F.min_pairwise_separation(pts, i).cpu().numpy() for i in (i_l1, i_l2)]
+    cents = torch.take_along_dim(pts, i_l2.long()[..., None], dim=1)
+    ball = Q.ball_query(pts, cents, QUALITY_RADIUS, n)
+    lat = lattice_query_tiles(pts, cents, QUALITY_RADIUS, n)
+    found, total = (x.cpu().numpy() for x in Q.neighbor_overlap(ball, lat, n))
+    return {
+        "per_cloud": {"coverage_l1": cov[0].tolist(), "coverage_l2": cov[1].tolist(),
+                      "separation_l1": sep[0].tolist(), "separation_l2": sep[1].tolist(),
+                      "found": found.tolist(), "total": total.tolist()},
+        "coverage_ratio": float(np.mean(cov[0].astype(np.float64) / cov[1])),
+        "separation_ratio": float(np.mean(sep[0].astype(np.float64) / sep[1])),
+        "lattice_recall": float(np.mean(found / np.maximum(total, 1))),
+    }
+
+
+def comparison_phase(torch, cfgs: dict, params: dict, batches: dict, registry, card: str,
+                     timed: set) -> tuple[dict, dict]:
+    """Phase 11: the paper's comparison paths, every corner but the main path's.
+
+    `timed` holds the call signatures phase 3 timed; calls at other shapes
+    are timed here.  Returns the launch counts of each counted run and the
+    numbers to report.
+    """
+    from repro_torch.core import graphs
+    from repro_torch.core.accelerator import get_accelerator, params_copy_on
+    from repro_torch.core.engine import result_leaves, result_to_host
+    from repro_torch.core.policy import ExecutionPolicy
+
+    t_phase = time.perf_counter()
+    counted, report = {}, {"card": card, "corners": {}, "preprocess_stage": {}}
+    specs = {name: registry.get(name) for name in KERNELS}
+    rows, timed = [], set(timed)
+    policies = {"none": ExecutionPolicy(quant="none"),
+                "sc_w16a16": ExecutionPolicy(quant="sc_w16a16")}
+
+    def sync(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    def counted_run(label, run, want):
+        registry.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        got = {n: registry.launches()[n] for n in KERNELS}
+        counted[label] = got
+        if got != want:
+            fail(f"comparison, {label}: launches {got}, expected {want}")
+        return out
+
+    def same(label, got, want):
+        for i, (g, w) in enumerate(zip(result_leaves(got), result_leaves(want))):
+            if not torch.equal(g, w):
+                fail(f"comparison, {label}: leaf {i} differs from eager "
+                     f"(max |diff| {(g.double() - w.double()).abs().max().item()})")
+
+    def peak_mib(run) -> float:
+        """Peak memory_allocated above what was allocated before run()."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    for m, base_cfg in cfgs.items():
+        b0, b1 = batches[m][0], batches[m][1]
+        params_cpu = params_copy_on(params[m], torch.device("cpu"))
+        cpu_pre = {}  # preproc -> the CPU run's preprocessing of b0
+        for pre, agg in COMPARISON_CORNERS:
+            cfg = dataclasses.replace(base_cfg, preproc=pre, aggregation=agg)
+            for q, pol in policies.items():
+                label = f"{m} {pre}/{agg} quant={q}"
+                accel = get_accelerator(cfg, pol, device="cuda")
+                p = params[m]
+                whole = expected_launches(m, q, cfg)
+                halves = {"preprocess": {n: v if n in ("fps_tiles", "lattice_tiles") else 0
+                                         for n, v in whole.items()}}
+                halves["feature"] = {n: whole[n] - halves["preprocess"][n] for n in whole}
+                # the kernel calls of one eager forward, against their plain versions
+                with graphs.eager():
+                    calls = record_calls(torch, registry, functools.partial(accel.infer, p, b0))
+                made = {n: len(c) for n, c in calls.items()}
+                if made != whole:
+                    fail(f"comparison, {label}: kernel calls {made}, expected {whole}")
+                worst = 0.0
+                for name, cl in calls.items():
+                    for args, kw in cl:
+                        err, want = hold_call(torch, name, specs[name], args, kw, label)
+                        worst = max(worst, err)
+                        sig = call_signature(torch, name, args, kw)
+                        if sig not in timed:
+                            timed.add(sig)
+                            rows.append(time_call(torch, name, specs[name], args, kw, want,
+                                                  label))
+                del calls
+                # counted: the first call runs eagerly and captures, the next replays
+                peak_capture = peak_mib(lambda: counted_run(
+                    f"{label} batch 0", lambda: accel.infer(p, b0), whole))
+                logits0 = accel.infer(p, b0)
+                logits1 = counted_run(f"{label} batch 1", lambda: accel.infer(p, b1), whole)
+                pre0 = accel.preprocess_stage(b0)  # captures the preprocess graph
+                accel.feature_stage(p, b0, pre0)  # and the feature graph
+                with graphs.eager():
+                    ref_logits, ref_pre = accel.infer_with_preprocess(p, b1)
+                    ref_feat = accel.feature_stage(p, b1, ref_pre)
+                same(f"{label} infer", logits1, ref_logits)
+                same(f"{label} infer_with_preprocess", accel.infer_with_preprocess(p, b1),
+                     (ref_logits, ref_pre))
+                same(f"{label} preprocess_stage",
+                     counted_run(f"{label} preprocess_stage", lambda: accel.preprocess_stage(b1),
+                                 halves["preprocess"]), ref_pre)
+                same(f"{label} feature_stage",
+                     counted_run(f"{label} feature_stage",
+                                 lambda: accel.feature_stage(p, b1, ref_pre), halves["feature"]),
+                     ref_feat)
+                host_pre = result_to_host(ref_pre)
+                same(f"{label} feature_from_cached", accel.feature_from_cached(p, b1, host_pre),
+                     ref_feat)
+                # against the port's CPU run (plain versions): preprocessing bitwise,
+                # logits within phase 5's tolerance
+                if pre not in cpu_pre:
+                    cpu_pre[pre] = get_accelerator(cfg, pol, device="cpu").preprocess_stage(b0)
+                for i, (g, c) in enumerate(zip(result_leaves(pre0), result_leaves(cpu_pre[pre]))):
+                    if not torch.equal(g.cpu(), c):
+                        fail(f"comparison, {label}: preprocessing leaf {i} differs from the "
+                             "CPU run")
+                # infer is feature_stage(preprocess_stage): the CPU preprocessing is shared
+                want_cpu = get_accelerator(cfg, pol, device="cpu").feature_stage(
+                    params_cpu, b0, cpu_pre[pre])
+                got = logits0.cpu()
+                if got.shape != want_cpu.shape or not torch.isfinite(got).all():
+                    fail(f"comparison, {label}: logits of shape {tuple(got.shape)}, "
+                         f"finite={bool(torch.isfinite(got).all())}")
+                diff = (got - want_cpu).abs().max().item()
+                if diff > LOGIT_ATOL[q]:
+                    fail(f"comparison, {label}: logits differ from the CPU run by {diff} > "
+                         f"{LOGIT_ATOL[q]}")
+                # times: eager and replayed forward, busy, idle, peak memory
+                with graphs.eager():
+                    eager_ms = median_ms(sync(lambda: accel.infer(p, b1)))
+                    peak_eager = peak_mib(lambda: accel.infer(p, b1))
+                    eager_prof = profile_run(torch, lambda: accel.infer(p, b1), eager_ms,
+                                             registry, f"comparison, {label} eager")
+                replay_ms = median_ms(sync(lambda: accel.infer(p, b1)))
+                peak_replay = peak_mib(lambda: accel.infer(p, b1))
+                replay_prof = profile_run(torch, lambda: accel.infer(p, b1), replay_ms, registry,
+                                          f"comparison, {label} replay")
+                report["corners"][label] = {
+                    "launches_per_forward": whole, "max_abs_err_kernel_vs_plain": worst,
+                    "logit_diff_vs_cpu": diff,
+                    "eager": {k: eager_prof[k] for k in ("wall_ms", "busy_ms", "idle_share",
+                                                         "kernels_launched", "sessions")},
+                    "replay": {k: replay_prof[k] for k in ("wall_ms", "busy_ms", "idle_share",
+                                                          "kernels_launched", "sessions")},
+                    "peak_mib": {"eager": peak_eager, "capture": peak_capture,
+                                 "replay": peak_replay},
+                }
+                say(f"comparison, {label}: kernels == plain, replays == eager, launches "
+                    f"{whole}, logits within {diff:.3e} of the CPU run.  forward (host clock, "
+                    f"median of {TIMED_FORWARDS}; {card}): eager {eager_ms:.3f} ms, busy "
+                    f"{eager_prof['busy_ms']:.3f} ms, idle {eager_prof['idle_share']:.3f}; "
+                    f"replay {replay_ms:.3f} ms, busy {replay_prof['busy_ms']:.3f} ms, idle "
+                    f"{replay_prof['idle_share']:.3f}; peak allocated eager {peak_eager:.1f} "
+                    f"MiB, capture {peak_capture:.1f} MiB, replay {peak_replay:.1f} MiB")
+        # the preprocessing comparison: each pipeline's preprocess_stage replay alone
+        for pre in ("baseline1", "baseline2", "pc2im"):
+            accel = get_accelerator(dataclasses.replace(base_cfg, preproc=pre,
+                                                        aggregation="standard"),
+                                    policies["none"], device="cuda")
+            accel.preprocess_stage(b1)
+            ms = median_ms(sync(lambda: accel.preprocess_stage(b1)))
+            prof = profile_run(torch, lambda: accel.preprocess_stage(b1), ms, registry,
+                               f"comparison, {m} {pre} preprocess_stage")
+            report["preprocess_stage"][f"{m} {pre}"] = {
+                k: prof[k] for k in ("wall_ms", "busy_ms", "idle_share", "kernels_launched",
+                                     "sessions", "top")}
+            say(f"comparison, {m} {pre}: preprocess_stage replay (host clock, median of "
+                f"{TIMED_FORWARDS}; {card}) {ms:.3f} ms, busy {prof['busy_ms']:.3f} ms, idle "
+                f"{prof['idle_share']:.3f}, {prof['kernels_launched']} kernels")
+
+    # fig12a's sampling quality through the FPS and lattice kernels, held
+    # against the plain versions' CPU run
+    quality = sampling_quality(torch, "cuda")
+    if quality != sampling_quality(torch, "cpu"):
+        fail("comparison: sampling quality on the card differs from the CPU run")
+    report["sampling_quality"] = quality
+    say(f"comparison, sampling quality over {QUALITY_CLOUDS} clouds of {QUALITY_POINTS} points, "
+        f"k = {QUALITY_K} (equal to the CPU run): L1/L2 coverage-radius ratio "
+        f"{quality['coverage_ratio']:.6f}, separation ratio {quality['separation_ratio']:.6f}, "
+        f"lattice recall of the ball's neighbours {quality['lattice_recall']:.6f}")
+    report["kernel_calls"] = rows
+    for name in KERNELS:
+        mine = [r for r in rows if r["kernel"] == name]
+        if mine:
+            say(f"comparison, {name}: {len(mine)} new shape(s) timed, kernel "
+                f"{sum(r['ms'] for r in mine):.4f} ms, plain "
+                f"{sum(r['plain_ms'] for r in mine):.4f} ms, bound "
+                f"{sum(r['bound_ms'] for r in mine):.6f} ms")
+    report["phase_s"] = time.perf_counter() - t_phase
+    say(f"comparison phase: {report['phase_s']:.1f} s")
+    return counted, report
+
+
 def main() -> None:
     """Run every phase; any failure exits non-zero before the last line."""
     import torch
@@ -2153,35 +2505,13 @@ def main() -> None:
 
     # -- 3. kernels against their plain versions, at main-path shapes --------
     specs = {name: registry.get(name) for name in KERNELS}
-
-    def record_calls(run) -> dict[str, list]:
-        """Every kernel call that run() makes, with cloned inputs."""
-        calls = {name: [] for name in KERNELS}
-
-        def recorder(name, spec):
-            def record(*args, **kw):
-                calls[name].append(
-                    ([a.clone() if torch.is_tensor(a) else a for a in args], dict(kw)))
-                return spec.cuda(*args, **kw)
-            return record
-
-        try:
-            for name, spec in specs.items():
-                registry.register(name, plain=spec.plain, cuda=recorder(name, spec))
-            run()
-            torch.cuda.synchronize()
-        finally:
-            for name, spec in specs.items():
-                registry.register(name, plain=spec.plain, cuda=spec.cuda)
-        return calls
-
     with graphs.eager():
         recorded = {
-            m: record_calls(functools.partial(accels[m, "sc_w16a16"].infer, params[m],
-                                              batches[m][0]))
+            m: record_calls(torch, registry, functools.partial(
+                accels[m, "sc_w16a16"].infer, params[m], batches[m][0]))
             for m in configs
         }
-        recorded["flat"] = record_calls(flat_path)
+        recorded["flat"] = record_calls(torch, registry, flat_path)
     for path, calls in recorded.items():
         say(f"kernel calls of one {path} run"
             f"{' (sc_w16a16 forward)' if path != 'flat' else ''}: "
@@ -2201,48 +2531,19 @@ def main() -> None:
             part = {"calls": len(calls[name]), "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                     "library_ms": 0.0 if name == "sc_matmul" else None}
             for args, kw in calls[name]:
-                got = spec.cuda(*args, **kw)
-                want = spec.plain(*args, **kw)
-                torch.cuda.synchronize()
-                got_t = got if isinstance(got, tuple) else (got,)
-                want_t = want if isinstance(want, tuple) else (want,)
-                for g, w in zip(got_t, want_t):
-                    err = (g.to(torch.float64) - w.to(torch.float64)).abs().max().item()
-                    tot["max_abs_err"] = max(tot["max_abs_err"], err)
-                    if not torch.equal(g, w):
-                        fail(f"{name} at {[tuple(a.shape) for a in args if torch.is_tensor(a)]}"
-                             f" ({path}): kernel differs from its plain version (max |diff| {err})")
-                # ms / plain_ms / library_ms: the card's busy time a call (profiler);
-                # *_enqueue_ms: CUDA events around back-to-back calls, which is the
-                # host's enqueue time wherever that exceeds the card's.
-                kernel_fn = functools.partial(spec.cuda, *args, **kw)
-                plain_fn = functools.partial(spec.plain, *args, **kw)
-                ms = device_ms(torch, kernel_fn, reps=50)
-                plain_ms = device_ms(torch, plain_fn, reps=5)
-                nbytes, ops, peak = bound(name, args, kw, want)
-                bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-                ops_ms = ops / peak * 1e3
-                row = {"kernel": name, "path": path,
-                       "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
-                       "kw": {k: v for k, v in kw.items()}, "ms": ms, "plain_ms": plain_ms,
-                       "enqueue_ms": cuda_ms(torch, kernel_fn, reps=50),
-                       "plain_enqueue_ms": cuda_ms(torch, plain_fn, reps=5, warmup=1),
-                       "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
-                       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+                err, want = hold_call(torch, name, spec, args, kw, path)
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                row = time_call(torch, name, spec, args, kw, want, path)
                 if name == "sc_matmul":
-                    xd, wd = args[0].to(torch.float64), args[1].to(torch.float64)
-                    library_fn = functools.partial(torch.matmul, xd, wd)
-                    row["library_ms"] = device_ms(torch, library_fn, reps=20)
-                    row["library_enqueue_ms"] = cuda_ms(torch, library_fn, reps=20)
                     part["library_ms"] += row["library_ms"]
                     tot["library_ms"] += row["library_ms"]
                 per_call.append(row)
                 for acc in (tot, part):
-                    acc["ms"] += ms
-                    acc["plain_ms"] += plain_ms
+                    acc["ms"] += row["ms"]
+                    acc["plain_ms"] += row["plain_ms"]
                     acc["bound_ms"] += row["bound_ms"]
-                tot["bytes_ms"] += bytes_ms
-                tot["ops_ms"] += ops_ms
+                tot["bytes_ms"] += row["bytes_ms"]
+                tot["ops_ms"] += row["ops_ms"]
             tot["by_path"][path] = part
             say(f"{name} ({path}): {part['calls']} calls, kernel == plain version bitwise; "
                 f"device time: kernel {part['ms']:.4f} ms, plain {part['plain_ms']:.4f} ms, "
@@ -2379,6 +2680,15 @@ def main() -> None:
     for n in KERNELS:
         launches[n] += sum(c[n] for c in shard_counted.values())
     say(json.dumps({"sharding": shard_report, "sharding_launches": shard_counted}))
+
+    # -- 11. the paper's comparison paths -----------------------------------------
+    comparison_counted, comparison_report = comparison_phase(
+        torch, configs, params, batches, registry, card,
+        {call_signature(torch, name, args, kw)
+         for calls in recorded.values() for name, cl in calls.items() for args, kw in cl})
+    for n in KERNELS:
+        launches[n] += sum(c[n] for c in comparison_counted.values())
+    say(json.dumps({"comparison": comparison_report, "comparison_launches": comparison_counted}))
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -1,15 +1,17 @@
 """repro_torch — PC2IM ported to PyTorch and hand-written CUDA kernels for Hopper.
 
 Mirrors the JAX package `repro` by path, which stays the reference:
-  core/        the paper's algorithms (MSP, FPS distances, lattice query,
-               SC quantization, grouping), the batched PreprocessEngine, the
-               ExecutionPolicy, the PC2IMAccelerator entry points and their
-               captured CUDA graphs (graphs.py, the jit artifacts'
-               counterpart, the training step's too)
+  core/        the paper's algorithms (MSP and the grid/Morton baselines,
+               FPS, lattice and ball queries, SC quantization, grouping,
+               the per-cloud pipelines, the energy model), the batched
+               PreprocessEngine, the ExecutionPolicy, the PC2IMAccelerator
+               entry points and their captured CUDA graphs (graphs.py, the
+               jit artifacts' counterpart, the training step's too)
   kernels/     CUDA kernels (csrc/) with their plain PyTorch versions, the
                device-keyed registry and the nvcc build
-  models/      PointNet2 (cls and seg, delayed aggregation) as nn.Modules,
-               and its training loss
+  models/      PointNet2 (cls and seg; pc2im, baseline1 or baseline2
+               preprocessing; standard or delayed aggregation) as
+               nn.Modules, and its training loss
   configs/     pointnet2-cls and pointnet2-seg, each with its smoke config
   data/        the seeded procedural point-cloud dataset
   optim/       AdamW (in place), the learning-rate schedule and int8

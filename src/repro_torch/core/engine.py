@@ -12,9 +12,20 @@ After partitioning, the B clouds' 2^depth tiles become one (B·T, P, 3)
 tensor, and the FPS and lattice kernels each launch once for the whole
 batch (the paper's C2 equal-size tiles extended to the batch dim).
 
-Only the pc2im pipeline (MSP + L1 FPS + lattice query) is ported so far;
-the engine runs wherever its input lies: kernels for CUDA tensors, plain
-versions for CPU tensors (kernels/registry).
+The three pipelines of `core/preprocess.py` run here, each bitwise equal to
+stacking its per-cloud oracle:
+  * pc2im: MSP, then the FPS kernel (L1) and the lattice-tiles kernel over
+    the folded tiles; `query="ball"` swaps the lattice kernel for the ball
+    query;
+  * baseline1: the FPS kernel (L2) with the B clouds as its tiles, one
+    launch for the batch, then the ball query over each whole cloud;
+  * baseline2: the grid partition, the masked FPS and the ball query.
+Three of these ops have no kernel, as in the reference, which runs them in
+XLA on every backend: the ball query, the grid partition and the masked
+FPS are plain torch ops on every device.  They are not registry kernels and
+count no launch; nothing hands them a CUDA tensor in place of a kernel.
+Kernels run for CUDA tensors and their plain versions for CPU tensors
+(kernels/registry); nothing falls back.
 """
 
 from __future__ import annotations
@@ -28,47 +39,61 @@ import numpy as np
 import torch
 
 from repro_torch.core import partition as part_mod
+from repro_torch.core import preprocess as pp_mod
+from repro_torch.core import query as query_mod
 from repro_torch.core.device import synchronize
 from repro_torch.core.preprocess import PreprocessResult
 from repro_torch.core.query import NeighborSet
 from repro_torch.kernels.fps.ops import fps_tiles
 from repro_torch.kernels.lattice.ops import lattice_query_tiles
 
-Pipeline = Literal["pc2im"]
+Pipeline = Literal["baseline1", "baseline2", "pc2im"]
+QUERIES = ("lattice", "ball")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Static description of one preprocessing pipeline instance.
 
-    metric/query default to the pipeline's canonical choice (pc2im: L1 FPS
-    and the lattice query).
+    metric/query default to the pipeline's canonical choice (pc2im: L1 +
+    lattice; baselines: L2 + ball) and can be overridden to mix, e.g. MSP
+    tiles with an L2 ball query for ablations.
     """
 
     pipeline: Pipeline = "pc2im"
     n_centroids: int = 128
     radius: float = 0.3
     nsample: int = 16
-    depth: int = 3  # MSP: tiles = 2^depth
+    depth: int = 3  # MSP: tiles = 2^depth (pc2im only)
     axis_mode: str = "widest"
     metric: str | None = None  # None -> pipeline default
     query: str | None = None  # None -> pipeline default
+    grid: int = 2  # baseline2 spatial grid
+    capacity: int | None = None  # baseline2 tile capacity (None -> 2x mean)
     backend: str | None = "auto"  # "auto" | "pallas" | "xla" (kernels/registry)
 
     @property
     def resolved_metric(self) -> str:
         """FPS distance metric with the None placeholder resolved."""
-        return self.metric if self.metric is not None else "l1"
+        if self.metric is not None:
+            return self.metric
+        return "l1" if self.pipeline == "pc2im" else "l2"
 
     @property
     def resolved_query(self) -> str:
         """Neighbour-query kind with the None placeholder resolved."""
-        return self.query if self.query is not None else "lattice"
+        if self.query is not None:
+            return self.query
+        return "lattice" if self.pipeline == "pc2im" else "ball"
 
     @property
     def n_tiles(self) -> int:
-        """Tiles per cloud seen by the kernels."""
-        return 1 << self.depth
+        """Tiles per cloud seen by the FPS (1 for the global baseline1)."""
+        if self.pipeline == "pc2im":
+            return 1 << self.depth
+        if self.pipeline == "baseline2":
+            return self.grid**3
+        return 1
 
 
 def clamp_depth(n_points: int, n_centroids: int, depth: int) -> int:
@@ -94,18 +119,18 @@ class PreprocessEngine:
     """
 
     def __init__(self, config: EngineConfig):
-        if config.pipeline != "pc2im":
-            raise ValueError(
-                f"pipeline {config.pipeline!r} is not ported; this engine runs 'pc2im'"
-            )
-        if config.resolved_query != "lattice":
-            raise ValueError(f"query {config.resolved_query!r} is not ported; use 'lattice'")
-        if config.n_centroids % config.n_tiles:
+        if config.pipeline not in pp_mod.PIPELINES:
+            raise ValueError(f"unknown pipeline {config.pipeline!r}")
+        if config.resolved_query not in QUERIES:
+            raise ValueError(f"unknown query {config.resolved_query!r}; use one of {QUERIES}")
+        if config.pipeline == "pc2im" and config.n_centroids % config.n_tiles:
             raise ValueError(
                 f"n_centroids={config.n_centroids} not divisible by "
                 f"2^depth={config.n_tiles} tiles"
             )
         self.config = config
+        self._fn = {"baseline1": self._baseline1, "baseline2": self._baseline2,
+                    "pc2im": self._pc2im}[config.pipeline]
 
     def __call__(self, points: torch.Tensor) -> PreprocessResult:
         """Run the pipeline on (B, N, 3) or single (N, 3) coordinates.
@@ -123,12 +148,36 @@ class PreprocessEngine:
             )
         if points.ndim != 3 or points.shape[-1] != 3:
             raise ValueError(f"expected (B, N, 3) or (N, 3), got {tuple(points.shape)}")
-        if points.shape[1] % self.config.n_tiles:
+        cfg = self.config
+        if cfg.pipeline == "pc2im" and points.shape[1] % cfg.n_tiles:
             raise ValueError(
-                f"N={points.shape[1]} not divisible by 2^depth={self.config.n_tiles}; "
+                f"N={points.shape[1]} not divisible by 2^depth={cfg.n_tiles}; "
                 f"pad the clouds or lower depth (see clamp_depth)"
             )
-        return self._pc2im(points)
+        return self._fn(points)
+
+    def _baseline1(self, points: torch.Tensor) -> PreprocessResult:
+        """Global FPS + global ball query; the B clouds ARE the FPS kernel's tiles."""
+        cfg = self.config
+        b = points.shape[0]
+        cidx = fps_tiles(
+            points, cfg.n_centroids, metric=cfg.resolved_metric, backend=cfg.backend
+        ).long()  # (B, M)
+        cxyz = torch.take_along_dim(points, cidx[..., None], dim=1)  # (B, M, 3)
+        nbrs = query_mod.ball_query(points, cxyz, cfg.radius, cfg.nsample)
+        return PreprocessResult(
+            cidx.to(torch.int32), cxyz, nbrs,
+            torch.ones((b, cfg.n_centroids), dtype=torch.bool, device=points.device),
+        )
+
+    def _baseline2(self, points: torch.Tensor) -> PreprocessResult:
+        """TiPU-like ragged grid tiles: the masked flow of the per-cloud oracle, batched.
+
+        Plain torch ops on every device (no kernel takes a valid mask).
+        """
+        cfg = self.config
+        return pp_mod.preprocess_baseline2(points, cfg.n_centroids, cfg.radius, cfg.nsample,
+                                           grid=cfg.grid, capacity=cfg.capacity)
 
     def _pc2im(self, points: torch.Tensor) -> PreprocessResult:
         """MSP tiles + local FPS + local query; batch x tiles fold into one (B·T, P) launch."""
@@ -153,9 +202,12 @@ class PreprocessEngine:
         cidx = torch.take_along_dim(flat_tiles, local_c, dim=1)  # global
         cxyz = torch.take_along_dim(flat_coords, local_c[..., None], dim=1)
 
-        nbrs_local = lattice_query_tiles(
-            flat_coords, cxyz, cfg.radius, cfg.nsample, backend=cfg.backend
-        )
+        if cfg.resolved_query == "lattice":
+            nbrs_local = lattice_query_tiles(
+                flat_coords, cxyz, cfg.radius, cfg.nsample, backend=cfg.backend
+            )
+        else:  # per-tile ball query: a plain op, as in the reference
+            nbrs_local = query_mod.ball_query(flat_coords, cxyz, cfg.radius, cfg.nsample)
         # local tile slots -> global point indices
         nidx = torch.take_along_dim(flat_tiles[:, None, :], nbrs_local.idx.long(), dim=2)
 

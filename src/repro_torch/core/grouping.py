@@ -1,8 +1,10 @@
-"""Grouping / aggregation for delayed aggregation (paper C5, from Mesorasi [8]).
+"""Grouping / aggregation — standard, and delayed (paper C5, from Mesorasi [8]).
 
-Delayed aggregation runs the MLP per *point* and only then gathers each
-centroid's neighbours and max-pools them, so MLP cost scales with N rather
-than M * nsample.  `interpolate_features` is the segmentation model's
+Standard PointNet++ set abstraction groups first: each centroid's
+neighbours (M, nsample, C) go through the MLP, then a max-pool, so MLP cost
+scales with M * nsample.  Delayed aggregation runs the MLP per *point* and
+only then gathers each centroid's neighbours and max-pools them, so MLP
+cost scales with N.  `interpolate_features` is the segmentation model's
 up-sampling: 3-NN inverse-distance interpolation of coarse features.
 """
 
@@ -23,6 +25,12 @@ def group_features(features: torch.Tensor, nbrs: NeighborSet) -> torch.Tensor:
     return torch.take_along_dim(features, flat, dim=-2).reshape(*lead, m, s, features.shape[-1])
 
 
+def group_relative_coords(xyz: torch.Tensor, centroids_xyz: torch.Tensor,
+                          nbrs: NeighborSet) -> torch.Tensor:
+    """Neighbour coords relative to their centroid: (..., N, 3), (..., M, 3) -> (..., M, S, 3)."""
+    return group_features(xyz, nbrs) - centroids_xyz[..., :, None, :]
+
+
 def masked_maxpool(grouped: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Max over the nsample axis, ignoring padded slots.  (..., M, S, C) -> (..., M, C).
 
@@ -33,6 +41,16 @@ def masked_maxpool(grouped: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     out = torch.where(mask[..., None], grouped, neg).amax(dim=-2)
     any_valid = mask.any(dim=-1)[..., None]
     return torch.where(any_valid, out, torch.zeros_like(out))
+
+
+def aggregate_standard(features: torch.Tensor, nbrs: NeighborSet, mlp_fn) -> torch.Tensor:
+    """group -> mlp -> pool (the un-delayed baseline): (..., N, C) -> (..., M, C')."""
+    return masked_maxpool(mlp_fn(group_features(features, nbrs)), nbrs.mask)
+
+
+def aggregate_delayed(features: torch.Tensor, nbrs: NeighborSet, mlp_fn) -> torch.Tensor:
+    """mlp -> group -> pool (paper C5): (..., N, C) -> (..., M, C')."""
+    return masked_maxpool(group_features(mlp_fn(features), nbrs), nbrs.mask)
 
 
 def interpolate_features(features: torch.Tensor, idx: torch.Tensor,

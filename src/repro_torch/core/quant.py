@@ -112,3 +112,40 @@ def sc_matmul(
             out = out + dot.to(torch.float32) * float(1 << (PLANE_BITS * d))
         return out
     raise ValueError(f"unknown combine mode {combine!r}")
+
+
+def dequantize(t: Quantized) -> torch.Tensor:
+    """Back to float32: q * scale."""
+    return t.q.to(torch.float32) * t.scale
+
+
+def combine_planes(planes: torch.Tensor) -> torch.Tensor:
+    """Inverse of split_planes: (n_planes, ...) int32 -> (...) = sum_i planes[i] << 4i."""
+    out = torch.zeros_like(planes[0])
+    for i in range(planes.shape[0]):
+        out = out + (planes[i] << (PLANE_BITS * i))
+    return out
+
+
+def quantized_linear(x: torch.Tensor, w: torch.Tensor, *, bits: int = 16,
+                     combine: str = "f32") -> torch.Tensor:
+    """WbAb linear layer through the SC decomposition: quantize -> sc_matmul -> dequantize.
+
+    x: (..., K) float, w: (K, N) float -> (..., N) float32.  The plain
+    oracle of the reference's `quantized_linear` (the model's SC path goes
+    through kernels/sc_matmul).
+    """
+    lead = x.shape[:-1]
+    xq = quantize_symmetric(x.reshape(-1, x.shape[-1]), bits)
+    wq = quantize_symmetric(w, bits)
+    y = sc_matmul(xq.q, wq.q, n_planes=bits // PLANE_BITS, combine=combine)
+    y = y.to(torch.float32) * (xq.scale * wq.scale)
+    return y.reshape(*lead, w.shape[-1])
+
+
+def ptq_error(x: torch.Tensor, bits: int = 16) -> torch.Tensor:
+    """Relative RMS round-trip error of symmetric PTQ (Fig 12a's <0.3% claim): a 0-d float32."""
+    t = quantize_symmetric(x, bits)
+    err = dequantize(t) - x
+    floor = torch.full((), 1e-12, dtype=x.dtype, device=x.device)
+    return torch.sqrt((err**2).mean()) / torch.maximum(torch.sqrt((x**2).mean()), floor)

@@ -1,11 +1,17 @@
-"""Neighbour queries — lattice query (paper C1) and k-nearest neighbours (seg FP).
+"""Neighbour queries — ball query (baseline), lattice query (paper C1), kNN.
 
-Lattice query (PC2IM): for each centroid, the *first* `nsample` points (in
-index order) with L1 distance <= L = 1.6 * R, padded with the first hit (the
-PointNet++ convention), plus a mask of the real neighbours.
+Ball query (PointNet++): for each centroid, the *first* `nsample` points
+(in index order) with squared L2 distance <= R * R, padded with the first
+hit (the PointNet++ convention), plus a mask of the real neighbours.
 
-The threshold is the Python double `range_factor * radius` rounded once to
-float32, as in the reference, where it meets float32 distances.
+Lattice query (PC2IM): the same first-k selection under the L1 metric and
+the adaptive range L = 1.6 * R.
+
+Each threshold is a Python double (`radius * radius`, `range_factor *
+radius`) rounded once to float32, as in the reference, where it meets
+float32 distances.  The ball query is a plain torch op on every device (the
+reference runs it in XLA on every backend); the lattice query's tile form
+has a kernel (kernels/lattice).
 
 kNN (the segmentation model's up-sampling): for each query, the k smallest
 distances and their indices, as k rounds of first-index argmin and
@@ -60,6 +66,22 @@ def _first_k_in_range(
     return NeighborSet(idx=out, mask=msk)
 
 
+def ball_query(
+    points: torch.Tensor,
+    centroids: torch.Tensor,
+    radius: float,
+    nsample: int,
+    *,
+    valid: torch.Tensor | None = None,
+) -> NeighborSet:
+    """L2 ball query.  points (..., N, 3), centroids (..., M, 3) -> idx/mask (..., M, nsample).
+
+    `valid` (..., N) keeps padded points out of every neighbour set.
+    """
+    d = pairwise_distance(centroids, points, "l2")  # squared
+    return _first_k_in_range(d, radius * radius, nsample, valid)
+
+
 def lattice_query(
     points: torch.Tensor,
     centroids: torch.Tensor,
@@ -78,16 +100,20 @@ def lattice_query(
 
 
 def knn(query_xyz: torch.Tensor, ref_xyz: torch.Tensor, k: int,
-        metric: str = "l2") -> tuple[torch.Tensor, torch.Tensor]:
+        metric: str = "l2", *, valid: torch.Tensor | None = None
+        ) -> tuple[torch.Tensor, torch.Tensor]:
     """k nearest neighbours of each query point among the reference points.
 
     query_xyz (..., M, 3), ref_xyz (..., N, 3) -> (idx (..., M, k) int32,
     dist (..., M, k)), dist squared for l2.  Each round takes the first index
     of the row minimum (torch.argmin returns the first) and masks it with
     inf, so ties go to the lower index: the first k of a stable sort by
-    (distance, index).
+    (distance, index).  `valid` (..., N) sets padded points' distances to
+    inf before the first round.
     """
     d = pairwise_distance(query_xyz, ref_xyz, metric)  # (..., M, N)
+    if valid is not None:
+        d = torch.where(valid[..., None, :], d, torch.full((), float("inf"), device=d.device))
     idxs, dists = [], []
     for _ in range(k):
         j = torch.argmin(d, dim=-1, keepdim=True)
@@ -95,6 +121,23 @@ def knn(query_xyz: torch.Tensor, ref_xyz: torch.Tensor, k: int,
         idxs.append(j)
         d = d.scatter(-1, j, float("inf"))
     return torch.cat(idxs, dim=-1).to(torch.int32), torch.cat(dists, dim=-1)
+
+
+def neighbor_overlap(ref: NeighborSet, other: NeighborSet, n_points: int) -> tuple:
+    """How many of `ref`'s real neighbours are also `other`'s, row by row (fig12a's recall).
+
+    ref, other: idx/mask (..., M, S) over the same points (indices below
+    n_points).  Returns (found, total), int64 (...): summed over the M rows,
+    found counts ref's real neighbours that are among the same row's real
+    neighbours of `other`, total counts ref's real neighbours.  Real slots
+    hold distinct indices (first-k in index order), so these are set sizes.
+    """
+    lead = other.idx.shape[:-1]
+    member = torch.zeros((*lead, n_points + 1), dtype=torch.bool, device=other.idx.device)
+    member.scatter_(-1, torch.where(other.mask, other.idx.long(), n_points), True)
+    hit = torch.take_along_dim(member, torch.where(ref.mask, ref.idx.long(), n_points), dim=-1)
+    found = (hit & ref.mask).sum(dim=(-2, -1))
+    return found, ref.mask.sum(dim=(-2, -1))
 
 
 def three_nn_interpolate_weights(dist_sq: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -136,6 +136,9 @@ __global__ void __launch_bounds__(128) fps_warp_kernel(const float* __restrict__
   if (lane == 0) to[k - 1] = last;
 }
 
+// fps_tiles_kernel's static shared memory: its two per-warp winner buffers.
+constexpr size_t kStaticSmem = 2 * 32 * (sizeof(float) + sizeof(int));
+
 template <int ITEMS, bool L1>
 __global__ void __launch_bounds__(1024) fps_tiles_kernel(const float* __restrict__ points,
                                  int* __restrict__ out, int P, int k) {
@@ -143,7 +146,7 @@ __global__ void __launch_bounds__(1024) fps_tiles_kernel(const float* __restrict
   float* xs = smem;
   float* ys = xs + P;
   float* zs = ys + P;
-  __shared__ float red_v[2][32];
+  __shared__ float red_v[2][32];  // kStaticSmem bytes of static shared memory
   __shared__ int red_i[2][32];
 
   const float* tp = points + static_cast<size_t>(blockIdx.x) * P * 3;
@@ -214,16 +217,19 @@ __global__ void __launch_bounds__(1024) fps_tiles_kernel(const float* __restrict
   if (tid == 0) to[k - 1] = last;
 }
 
-// Both launchers set the shared-memory attribute on every call that needs more
-// than 48 KB.  No main-path call does (512 points a tile at most: 24 KB), so
-// under a CUDA graph capture of the forward they launch and set nothing else.
+// Both launchers set the shared-memory attribute on every call whose static
+// and dynamic shared memory together exceed the 48 KB a block gets without
+// it.  No pc2im call does (512 points a tile at most: 24 KB); baseline-1's
+// global tiles of 4096 points do (48 KB of points + kStaticSmem).  Setting a
+// function attribute is no stream operation, so under a CUDA graph capture
+// the capture records the launch alone.
 template <int ITEMS, bool L1>
 cudaError_t launch(const float* points, int* out, int T, int P, int k,
                    cudaStream_t stream) {
   const int per_thread = (P + ITEMS - 1) / ITEMS;
   const int threads = ((per_thread + 31) / 32) * 32;
   const size_t smem = static_cast<size_t>(3) * P * sizeof(float);
-  if (smem > 48 * 1024) {
+  if (smem + kStaticSmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         fps_tiles_kernel<ITEMS, L1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));

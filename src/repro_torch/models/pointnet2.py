@@ -3,12 +3,18 @@
 Set-abstraction (SA) stages: sample centroids (FPS), query neighbours, learn
 per-point features (MLP), max-pool per neighbourhood.  Feature-propagation
 (FP) stages (segmentation): 3-NN inverse-distance interpolation + unit MLPs.
-Ported so far: classification and segmentation with pc2im preprocessing
-(MSP + L1 FPS + lattice query) and delayed aggregation (C5), in float or
-under the SC W16A16/W8A8 policies, and the training loss (`loss_fn`).
+Classification and segmentation, in float or under the SC W16A16/W8A8
+policies, and the training loss (`loss_fn`).
 
-Delayed aggregation feeds *absolute* coords + features through the per-point
-MLP and aggregates afterwards (Mesorasi [8], which the paper adopts).
+The paper's switches, all config-selectable:
+  preproc    : "baseline1" (global L2 FPS + ball)  |  "baseline2" (grid tiles)
+               | "pc2im" (MSP + L1 FPS + lattice query)
+  aggregation: "standard" (group->mlp->pool) | "delayed" (mlp->group->pool, C5)
+
+Standard SA feeds the MLP relative coordinates (neighbour - centroid),
+which cannot be precomputed per point; delayed aggregation feeds *absolute*
+coords + features through the per-point MLP and aggregates afterwards
+(Mesorasi [8], which the paper adopts).
 """
 
 from __future__ import annotations
@@ -67,15 +73,13 @@ class PointNet2Config:
 
 
 def check_ported(cfg: PointNet2Config) -> None:
-    """Raise for the parts of the config this package does not run yet."""
+    """Raise for the parts of the config this package does not run yet.
+
+    Every preproc x aggregation corner runs; an unknown preproc is refused
+    by the engine, an unknown aggregation by the SA stage.
+    """
     if cfg.task not in ("cls", "seg"):
         raise ValueError(f"task {cfg.task!r} is not ported; only 'cls' and 'seg' run here")
-    if cfg.preproc != "pc2im":
-        raise ValueError(f"preproc {cfg.preproc!r} is not ported; only 'pc2im' runs here")
-    if cfg.aggregation != "delayed":
-        raise ValueError(
-            f"aggregation {cfg.aggregation!r} is not ported; only 'delayed' runs here"
-        )
 
 
 class PointNet2Params(nn.Module):
@@ -131,18 +135,17 @@ def stage_engine(cfg: PointNet2Config, sa: SAConfig, n_points: int,
     """Batched PreprocessEngine for one SA stage (cached per distinct config).
 
     The policy's backend is part of the engine identity, so preprocessing
-    and the SC feature path run under the same backend decision.
+    and the SC feature path run under the same backend decision.  pc2im's
+    MSP depth is clamped to the stage's sizes; the baselines take the
+    engine's defaults (baseline2: a 2^3 grid at twice the mean occupancy).
     """
     policy = resolve_policy(cfg, policy)
     check_ported(cfg)
-    return get_engine(EngineConfig(
-        pipeline="pc2im",
-        n_centroids=sa.n_centroids,
-        radius=sa.radius,
-        nsample=sa.nsample,
-        depth=clamp_depth(n_points, sa.n_centroids, cfg.msp_depth),
-        backend=policy.backend,
-    ))
+    kw = dict(pipeline=cfg.preproc, n_centroids=sa.n_centroids, radius=sa.radius,
+              nsample=sa.nsample, backend=policy.backend)
+    if cfg.preproc == "pc2im":
+        kw["depth"] = clamp_depth(n_points, sa.n_centroids, cfg.msp_depth)
+    return get_engine(EngineConfig(**kw))
 
 
 def preprocess_stage(cfg: PointNet2Config, points: torch.Tensor,
@@ -175,7 +178,7 @@ def feature_stage(params: PointNet2Params, cfg: PointNet2Config, points: torch.T
     feats = points[..., 3:] if cfg.in_features else None
     levels = [(xyz, feats)]
     for mlp, res in zip(params.sa, preproc):
-        levels.append(_sa_stage(mlp, *levels[-1], res, policy))
+        levels.append(_sa_stage(cfg.aggregation, mlp, *levels[-1], res, policy))
 
     if cfg.task == "cls":
         x = torch.cat(levels[-1], dim=-1)  # (B, M, 3 + C)
@@ -203,16 +206,26 @@ def feature_stage(params: PointNet2Params, cfg: PointNet2Config, points: torch.T
     return params.head(coarse_f, final_act=False, policy=policy)
 
 
-def _sa_stage(mlp: MLP, xyz, feats, res, policy):
-    """One batched delayed-aggregation SA stage.  xyz (B, N, 3), feats (B, N, C) | None.
+def _sa_stage(aggregation: str, mlp: MLP, xyz, feats, res, policy):
+    """One batched SA stage.  xyz (B, N, 3), feats (B, N, C) | None.
 
-    C5: per-POINT MLP on [abs-xyz, feats] over the whole batch, then gather
-    each centroid's neighbours and masked max-pool.
+    delayed (C5): per-POINT MLP on [abs-xyz, feats] over the whole batch,
+    then gather each centroid's neighbours and masked max-pool.  standard:
+    gather [neighbour - centroid xyz, neighbour feats] (B, M, S, 3 + C), the
+    MLP over every grouped row, then the masked max-pool.  Under SC the
+    activation scale spans the whole grouped tensor, masked slots included,
+    as in the reference.
     """
-    x = xyz if feats is None else torch.cat([xyz, feats], dim=-1)
-    pointwise = mlp(x, policy=policy)  # (B, N, C')
-    grouped = G.group_features(pointwise, res.neighbors)  # (B, M, S, C')
-    return res.centroid_xyz, G.masked_maxpool(grouped, res.neighbors.mask)
+    nbrs = res.neighbors
+    if aggregation == "delayed":
+        x = xyz if feats is None else torch.cat([xyz, feats], dim=-1)
+        return res.centroid_xyz, G.aggregate_delayed(x, nbrs, lambda t: mlp(t, policy=policy))
+    if aggregation != "standard":
+        raise ValueError(f"aggregation must be 'standard' or 'delayed', got {aggregation!r}")
+    grouped = G.group_relative_coords(xyz, res.centroid_xyz, nbrs)  # (B, M, S, 3)
+    if feats is not None:
+        grouped = torch.cat([grouped, G.group_features(feats, nbrs)], dim=-1)
+    return res.centroid_xyz, G.masked_maxpool(mlp(grouped, policy=policy), nbrs.mask)
 
 
 def forward(params: PointNet2Params, cfg: PointNet2Config, points: torch.Tensor,

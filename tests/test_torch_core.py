@@ -275,5 +275,7 @@ def test_engine_single_cloud_and_validation():
     with pytest.raises(ValueError):
         TE.PreprocessEngine(TE.EngineConfig(n_centroids=30, depth=2))
     with pytest.raises(ValueError):
-        TE.PreprocessEngine(TE.EngineConfig(query="ball"))
+        TE.PreprocessEngine(TE.EngineConfig(query="cube"))
+    with pytest.raises(ValueError):
+        TE.PreprocessEngine(TE.EngineConfig(pipeline="grid"))
     assert TE.get_engine(TE.EngineConfig()) is TE.get_engine(TE.EngineConfig())

@@ -13,7 +13,10 @@ sharded artifacts against single-device eager infer on two cards and on
 two shards of one card, the collectives' ordering across streams, a
 sharded ServingRuntime beside a thread replaying graphs, pipeline_forward,
 and a kernel on another card leaving the current device alone (the
-two-card tests skip below two cards).
+two-card tests skip below two cards).  And the paper's comparison paths:
+the FPS kernel under L2 at baseline-1's global shapes, the SC kernel at
+standard aggregation's row counts, and the five comparison corners'
+replays against eager with their launches.
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test skips where
 torch.cuda.is_available() is false.  On the card:
@@ -24,6 +27,7 @@ Imports neither jax nor the JAX package: the card's host has neither.
 """
 
 import contextlib
+import dataclasses
 import gc
 import threading
 import time
@@ -1389,3 +1393,90 @@ def test_a_kernel_on_another_card_leaves_the_current_device(cuda):
     sc_matmul_cuda(q, q.t().contiguous(), n_planes=4)
     torch.cuda.synchronize(one)
     assert torch.cuda.current_device() == 0
+
+
+# -- the paper's comparison paths ---------------------------------------------------
+
+# Baseline-1's global FPS, B clouds as the kernel's tiles: (T, P, k) of each SA
+# stage of cls (8 x 1024) and seg (8 x 4096).
+GLOBAL_FPS = [(BATCH, 1024, 256), (BATCH, 256, 64), (BATCH, 4096, 1024), (BATCH, 1024, 256)]
+COMPARISON_CORNERS = [("baseline1", "standard"), ("baseline2", "standard"),
+                      ("pc2im", "standard"), ("baseline1", "delayed"), ("baseline2", "delayed")]
+
+
+def _standard_sa_shapes(cfg):
+    """(M, K, N) of each SA layer under standard aggregation for BATCH clouds:
+    every (centroid, neighbour) row through the MLP."""
+    shapes, c_in = [], 3
+    for sa in cfg.sa:
+        rows = BATCH * sa.n_centroids * sa.nsample
+        for c in sa.mlp:
+            shapes.append((rows, c_in, c))
+            c_in = c
+        c_in += 3
+    return shapes
+
+
+def test_comparison_shapes():
+    assert _standard_sa_shapes(CONFIG)[0] == (65536, 3, 64)
+    assert _standard_sa_shapes(CONFIG)[3] == (16384, 131, 128)
+    assert _standard_sa_shapes(SEG_CONFIG)[0] == (262144, 3, 64)
+    assert _standard_sa_shapes(SEG_CONFIG)[3] == (65536, 131, 128)
+
+
+@pytest.mark.parametrize("t,p,k", GLOBAL_FPS)
+@pytest.mark.parametrize("snapped", [False, True])
+def test_fps_kernel_l2_at_global_shapes(cuda, t, p, k, snapped):
+    """Baseline-1: one tile a cloud, P up to 4096 (a 1024-thread block at 48 KiB
+    of shared memory) and k up to 1024 sequential steps."""
+    pts = _tiles(t, p, cuda, seed=p + k, snapped=snapped)
+    got = fps_tiles_cuda(pts, k, metric="l2")
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_tiles_plain(pts, k, metric="l2"))
+
+
+@pytest.mark.parametrize("shape", sorted(set(_standard_sa_shapes(CONFIG)
+                                             + _standard_sa_shapes(SEG_CONFIG))))
+def test_sc_matmul_kernel_at_standard_aggregation_rows(cuda, shape):
+    """Standard aggregation's grouped rows: 16,384 to 262,144 rows a layer."""
+    m, k, n = shape
+    x, w = _int_operands(m, k, n, 16, cuda, seed=m + k + n)
+    got = sc_matmul_cuda(x, w, n_planes=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc_matmul_plain(x, w, n_planes=4))
+
+
+@pytest.mark.parametrize("model", ["pointnet2-cls", "pointnet2-seg"])
+@pytest.mark.parametrize("preproc,aggregation", COMPARISON_CORNERS)
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_comparison_corner_replays_equal_eager(cuda, model, preproc, aggregation, quant):
+    """Smoke width: each comparison corner's entry points replayed on a batch
+    other than the captured one, bitwise equal to graphs.eager(); a replay's
+    launches: baseline1 2 FPS, baseline2 none, pc2im 2 FPS + 2 lattice; SC
+    12 matmuls; seg 2 knn3."""
+    cfg = dataclasses.replace(get_config(model, smoke=True), preproc=preproc,
+                              aggregation=aggregation)
+    accel = get_accelerator(cfg, ExecutionPolicy(quant=quant), device=cuda)
+    params = accel.init(torch.Generator().manual_seed(0))
+    cap, new = _clouds_for(cfg, 2, seed=11)
+    new[1, :, 2] = 0.5  # planar: empty grid cells, padded centroids under baseline2
+    accel.feature_stage(params, cap, accel.preprocess_stage(cap))
+    accel.infer(params, cap)
+    with graphs.eager():
+        logits, pre = accel.infer_with_preprocess(params, new)
+        host = result_to_host(pre)
+    before = graphs.captures()
+    registry.reset_launches()
+    got = accel.infer(params, new)
+    torch.cuda.synchronize()
+    n_sc = (sum(len(sa.mlp) for sa in cfg.sa)
+            + (len(cfg.global_mlp) if cfg.task == "cls" else 2 * len(cfg.sa))
+            + len(cfg.head) + 1) if quant != "none" else 0
+    want = {"fps_tiles": 0 if preproc == "baseline2" else 2,
+            "lattice_tiles": 2 if preproc == "pc2im" else 0, "sc_matmul": n_sc,
+            "knn3": 2 if cfg.task == "seg" else 0, "lattice_query": 0}
+    assert registry.launches() == want
+    assert torch.equal(got, logits)
+    _same_tree(accel.preprocess_stage(new), pre)
+    assert torch.equal(accel.feature_from_cached(params, new, host), logits)
+    assert graphs.captures() == before

@@ -22,6 +22,7 @@ Nothing here imports jax or the JAX package.
 """
 
 import contextlib
+import dataclasses
 import gc
 import threading
 import weakref
@@ -384,3 +385,29 @@ def test_forward_path_takes_no_host_data(model, policy):
         logits = PN.feature_stage(params, cfg, pts, pre, policy=policy)
     assert check.seen == []
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("model", ["pointnet2-cls", "pointnet2-seg"])
+@pytest.mark.parametrize("preproc,aggregation", [("baseline1", "standard"),
+                                                 ("baseline2", "standard"),
+                                                 ("baseline1", "delayed"),
+                                                 ("baseline2", "delayed"),
+                                                 ("pc2im", "standard")])
+def test_comparison_forward_takes_no_host_data(model, preproc, aggregation):
+    """The paper's comparison paths are capturable too: the grid partition, the
+    masked FPS and the ball query build nothing from host data and read
+    nothing back (SC, the plain versions of the kernels)."""
+    cfg = dataclasses.replace(get_config(model, smoke=True), preproc=preproc,
+                              aggregation=aggregation)
+    params = PN.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pts = np.random.default_rng(2).uniform(-1, 1, (2, cfg.n_points, 3)).astype(np.float32)
+    pts[1, :, 2] = 0.5  # planar: empty grid cells, padded centroids
+    pts = torch.from_numpy(pts)
+    check = _HostDataCheck()
+    with torch.inference_mode(), check:
+        pre = PN.preprocess_stage(cfg, pts, policy=SC)
+        logits = PN.feature_stage(params, cfg, pts, pre, policy=SC)
+    assert check.seen == []
+    assert bool(torch.isfinite(logits).all())
+    if preproc == "baseline2":
+        assert not bool(pre[0].centroid_valid[1].all())

@@ -36,7 +36,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert "repro_torch.core.accelerator" in mods and "repro_torch.params" in mods
     assert {"repro_torch.data.pointclouds", "repro_torch.optim.adamw",
             "repro_torch.optim.schedule", "repro_torch.checkpoint.store",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.core.energy"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

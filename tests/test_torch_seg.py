@@ -143,8 +143,8 @@ def test_bridge_rejects_mismatched_seg_trees(bridged, fault):
         from_jax_params(tree, smoke_config(), device="cpu")
 
 
-@pytest.mark.parametrize("change", [{"aggregation": "standard"}, {"preproc": "baseline1"},
-                                    {"task": "part"}])
+@pytest.mark.parametrize("change", [{"task": "part"}, {"task": "det"},
+                                    {"task": "part", "preproc": "baseline2"}])
 def test_check_ported_refuses_the_rest(change):
     cfg = smoke_config()
     with pytest.raises(ValueError, match="not ported"):
