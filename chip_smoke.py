@@ -17,7 +17,10 @@ exporters), training (launch/train.py, its step one captured CUDA
 graph), and multi-device serving (a replica over a device group running
 the batch- and tensor-sharded artifacts, and the GPipe schedule), and
 the paper's comparison paths (baseline-1 global L2 FPS and ball query,
-baseline-2 grid tiles, standard aggregation).  On
+baseline-2 grid tiles, standard aggregation), and dense LM serving
+(make_serve_fns: stablelm-1.6b at full width and depth, gemma3-12b at
+full width and 6 layers, every linear on the SC matmul kernel under a
+quant policy).  On
 the card the entry points replay captured CUDA graphs (core/graphs.py, the
 counterpart of the JAX package's jit artifacts) unless the caller enters
 graphs.eager(), which is the reference side of every graph check.
@@ -36,15 +39,19 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      float64 torch.matmul of the same operands: the card's busy time a call
      from torch.profiler (a session counts only if it recorded `reps` times
      the device events of one call; else it is profiled again, up to three
-     times), and the time between CUDA events around back-to-back calls,
-     which includes the host's enqueue time;
+     times, and then timed by CUDA events around calls queued behind a spin
+     kernel), and the time between CUDA events around back-to-back calls,
+     which includes the host's enqueue time.  Then one cls and one seg
+     forward under quant="sc_w8a8", every SC call held against the plain
+     version bitwise;
   4. the paths, counted: for each path (and policy), every launch counter
      set to 0 just before it and read just after.  cls and seg run
      get_accelerator(CONFIG, policy).infer on a few batches of 8 clouds for
      quant="none" and quant="sc_w16a16"; a cls forward must launch 2 FPS,
      2 lattice and (under SC) 12 SC-matmul kernels, a seg forward 2 FPS,
      2 lattice, 2 knn3 and (under SC) 12 SC-matmul kernels, and the flat
-     path one flat lattice kernel a query.  The first infer of a shape runs
+     path one flat lattice kernel a query; one cls and one seg batch under
+     "sc_w8a8" are counted likewise.  The first infer of a shape runs
      eagerly and captures its graph, which counts nothing; each later one
      replays it, which adds the captured launches.  Then a forward per batch is
      timed under both policies and one is profiled (device time by kernel,
@@ -57,7 +64,7 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
   5. check the outputs against the port's own CPU run (plain versions):
      preprocessing, the seg FP stages' 3-NN indices and the flat query
      bitwise; logits finite, of shape (8, 8) for cls and (8, 4096, 8) for
-     seg, and within the stated tolerance;
+     seg, and within the stated tolerance (the sc_w8a8 batch too);
   6. the graphs: for cls and seg under both policies, with a fresh params
      copy, each entry point (infer, infer_with_preprocess, preprocess_stage,
      feature_stage, feature_from_cached) is captured on one batch and
@@ -167,10 +174,30 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      the credited launches held against the kernels the card ran) and peak
      memory, each pipeline's preprocess_stage replay alone, and fig12a's
      sampling quality (L1 against L2 FPS through the FPS kernel, the lattice
-     kernel's recall of the ball query's neighbours), equal to the CPU run.
+     kernel's recall of the ball query's neighbours), equal to the CPU run;
+ 12. dense LM serving through make_serve_fns(cfg, policy).  stablelm-1.6b at
+     full width and depth in bf16 (weights drawn on the card from SEED)
+     generates LM_NEW tokens for LM_BATCH prompts of LM_PROMPT tokens (caches
+     of LM_S_MAX) under quant none, sc_w16a16 and sc_w8a8, each with float
+     and int8 KV caches: generate, a prefill and a decode step are counted
+     (7 SC matmuls a layer a step under SC, 168 for 24 layers; none in
+     float), prefill's and decode's greedy tokens must be generate's, and
+     every SC call of one eager prefill and decode step is held against the
+     plain version bitwise, each new shape timed as phase 3 times its calls
+     (float64 torch.matmul as the library call).  It prints prefill ms and
+     decode ms a token (host clock, median of 10), busy and idle share of
+     each (profiled: the SC kernels the card ran = the launches credited)
+     and the peak allocated by generate.  Then stablelm cut to
+     LM_CPU_LAYERS layers (full width, bf16) on the card against the port's
+     CPU run of the same params: prefill logits and LM_CPU_STEPS
+     teacher-forced decode steps within LM_CPU_TOL.  Then gemma3-12b at full
+     width cut to one group of its 5:1 pattern (6 layers): 2 prompts of
+     1280 tokens, past its 1024 window (prefill rolls the local caches), and
+     8 decode steps, float and sc_w16a16, counted, every SC call of a
+     prefill and a decode step held bitwise and new shapes timed.
 
 Then it prints one JSON line with every kernel's launches (summed over the
-counted runs of phases 4, 6, 7, 8, 9, 10 and 11; a replay's are the launches its
+counted runs of phases 4, 6, 7, 8, 9, 10, 11 and 12; a replay's are the launches its
 capture recorded, which the profiled replays of phases 4, 6, 7 and 9 show
 the card running), error and times (summed over the calls recorded in
 phase 3, with a breakdown by path), the card line again, and as its last
@@ -214,7 +241,11 @@ FLAT_SETS = ((2048, 64, 0.3, 16), (4096, 1024, 0.2, 32))
 # products are exact, but a float difference upstream can move an
 # activation across a rounding boundary of the 16-bit quantizer, one
 # quantum (max|x| / 32767) at a time.  Both models get the same bounds.
-LOGIT_ATOL = {"none": 1e-4, "sc_w16a16": 2e-3}
+# SC W8A8: the same reason with a quantum of max|x| / 127, 258 times the
+# 16-bit one, and about as many more activations that cross a boundary; the
+# 16-bit bound scaled by that ratio would be 0.5.  Measured on an H100: cls
+# 1.1e-2, seg 5.6e-2 (every SC call bitwise equal to the plain version).
+LOGIT_ATOL = {"none": 1e-4, "sc_w16a16": 2e-3, "sc_w8a8": 0.25}
 # Serving phase: (model, clouds, smallest and largest cloud) of its traffic,
 # served at the model's full width in one bucket of n_points.
 SERVE_TRAFFIC = {"cls": (64, 600, 1500), "seg": (16, 3000, 6000)}
@@ -300,6 +331,36 @@ COMPARISON_CORNERS = (("baseline1", "standard"), ("baseline2", "standard"),
                       ("pc2im", "standard"), ("baseline1", "delayed"), ("baseline2", "delayed"))
 # fig12a's sampling quality: clouds, points a cloud, samples, query radius.
 QUALITY_CLOUDS, QUALITY_POINTS, QUALITY_K, QUALITY_RADIUS = 8, 512, 128, 0.3
+
+# LM phase (12): stablelm-1.6b at full width and depth in its config dtype
+# (bf16), weights drawn from SEED on the card; LM_BATCH prompts of LM_PROMPT
+# tokens, LM_NEW tokens generated each, caches of LM_S_MAX, under every quant
+# policy and KV-cache kind.
+LM_CFG = "stablelm-1.6b"
+LM_BATCH, LM_PROMPT, LM_NEW, LM_S_MAX = 4, 128, 16, 256
+LM_QUANTS = ("none", "sc_w16a16", "sc_w8a8")
+LM_KV = ("none", "int8")
+# gemma3-12b at full width, cut to one group of its 5:1 local:global pattern
+# (6 of 48 layers): prompts longer than its 1024 window, so prefill rolls the
+# local caches, then GEMMA_STEPS decode steps.
+GEMMA_CFG, GEMMA_LAYERS = "gemma3-12b", 6
+GEMMA_BATCH, GEMMA_PROMPT, GEMMA_STEPS = 2, 1280, 8
+GEMMA_QUANTS = ("none", "sc_w16a16")
+# The card against the port's CPU run of the same params: stablelm cut to
+# LM_CPU_LAYERS layers (full width, bf16), prefill and LM_CPU_STEPS
+# teacher-forced decode steps, per (quant, kv) case.
+LM_CPU_LAYERS, LM_CPU_STEPS = 2, 3
+LM_CPU_CASES = (("none", "none"), ("sc_w16a16", "int8"))
+# bf16 logits up to ~4.5: an ulp is 2^-5 = 0.031 in [4, 8), and cuBLAS and the
+# CPU's bf16 GEMMs sum in other orders and round each layer's outputs to
+# bf16, so the two runs part by an ulp or two (measured 4.3e-2 in float,
+# 4.8e-2 under SC with int8 caches, on an H100; PERF.md sec. 6).
+LM_CPU_TOL = {"none": 0.15, "sc_w16a16": 0.15}
+# SC products of more than LM_BIG_OPS int8 operations take milliseconds each:
+# timed with fewer back-to-back calls (kernel, plain, library).
+LM_BIG_OPS = 1e11
+LM_BIG_REPS = (20, 3, 10)
+GEMMA_BIG_REPS = (5, 2, 3)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -414,7 +475,7 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 
 
 PAD_KERNEL = "spin_kernel"  # the kernel torch.cuda._sleep launches
-PAD_KERNELS = 8  # pads ahead of the profiled call: more than a session was seen to drop
+PAD_KERNELS = 64  # pads ahead of the profiled call: more than a session was seen to drop
 
 
 def device_kernels(torch, fn) -> dict[str, list]:
@@ -425,8 +486,9 @@ def device_kernels(torch, fn) -> dict[str, list]:
     work is left out.  A session now and then loses CUDA events, all or
     some: the callers below check the count and profile again.  Once CUDA
     graphs have been replayed or other threads have run CUDA work, a
-    session drops its first device records, one to two of them in PR 20's
-    runs (a one-call session of a kernel recorded none), so fn() runs after
+    session drops its first device records: one or two after the
+    comparison phase's graphs, nine or more after the serving phases' threads
+    (a one-call session of a kernel, behind 8 pads, recorded none), so fn() runs after
     PAD_KERNELS pad kernels (torch.cuda._sleep's PAD_KERNEL) and before
     one, and the pads are left out.
     """
@@ -458,19 +520,53 @@ def device_ms(torch, fn, reps: int, tries: int = 3) -> float:
     """Device time of one fn() call: the card's busy time over `reps` calls, divided by reps.
 
     A session counts only if it recorded `reps` times the device events of
-    a session around one call; otherwise both are profiled again, up to
-    `tries` times, and then the phase fails.
+    a session around one call, or, where the one-call session lost its few
+    events, if a second session of `reps` calls recorded the same nonzero
+    multiple of `reps`; otherwise they are profiled again, up to `tries`
+    times.  Late in a run the profiler can lose events in every session
+    (some of a long session's too); then the time comes from CUDA events
+    instead (`queued_ms`), and the run says so.
     """
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, tries + 1):
         one = n_events(device_kernels(torch, fn))
         by_name = device_kernels(torch, lambda: [fn() for _ in range(reps)])
-        if one and n_events(by_name) == reps * one:
+        n = n_events(by_name)
+        if one and n == reps * one:
             return sum(ms for _, ms in by_name.values()) / reps
-        say(f"torch.profiler session {attempt} of {tries}: {n_events(by_name)} device events "
+        if not one and n and n % reps == 0:
+            again = device_kernels(torch, lambda: [fn() for _ in range(reps)])
+            if n_events(again) == n:
+                return sum(ms for _, ms in again.values()) / reps
+        say(f"torch.profiler session {attempt} of {tries}: {n} device events "
             f"over {reps} calls, expected {reps} x {one}")
-    fail("torch.profiler lost device events in every session: kernel times not measured")
+    ms = queued_ms(torch, fn, reps)
+    say(f"torch.profiler lost device events in every session: {ms:.4f} ms a call from CUDA "
+        f"events around {reps} calls queued behind a spin kernel")
+    return ms
+
+
+SPIN_CYCLES = 200_000_000  # ~0.1 s at the H100's 1.98 GHz: outlasts the host's enqueue
+
+
+def queued_ms(torch, fn, reps: int) -> float:
+    """The card's time a call from CUDA events around `reps` back-to-back calls
+    enqueued behind a spin kernel (torch.cuda._sleep), which holds the stream
+    while the host enqueues them: the host's enqueue time stays out, the gaps
+    between kernels stay in.  Where the enqueue outlasts the spin, the time
+    includes the rest of it, so it is an upper bound."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound(name: str, args, kw, plain_out) -> tuple[float, float, float]:
@@ -555,34 +651,38 @@ def hold_call(torch, name: str, spec, args, kw, path: str) -> tuple[float, objec
     return worst, want
 
 
-def time_call(torch, name: str, spec, args, kw, want, path: str) -> dict:
+def time_call(torch, name: str, spec, args, kw, want, path: str,
+              reps: tuple[int, int, int] = (50, 5, 20)) -> dict:
     """Device and enqueue times of one recorded call: kernel, plain version and,
     for the SC matmul, one float64 torch.matmul of the same operands; and its bound.
 
     ms / plain_ms / library_ms: the card's busy time a call (profiler);
     *_enqueue_ms: CUDA events around back-to-back calls, which is the host's
-    enqueue time wherever that exceeds the card's.
+    enqueue time wherever that exceeds the card's.  `reps`: back-to-back
+    calls of the kernel, the plain version and the library call (fewer for
+    the LM phase's largest products, each of which takes milliseconds).
     """
+    kernel_reps, plain_reps, library_reps = reps
     kernel_fn = functools.partial(spec.cuda, *args, **kw)
     plain_fn = functools.partial(spec.plain, *args, **kw)
-    ms = device_ms(torch, kernel_fn, reps=50)
-    plain_ms = device_ms(torch, plain_fn, reps=5)
+    ms = device_ms(torch, kernel_fn, reps=kernel_reps)
+    plain_ms = device_ms(torch, plain_fn, reps=plain_reps)
     nbytes, ops, peak = bound(name, args, kw, want)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / peak * 1e3
     row = {"kernel": name, "path": path,
            "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
            "kw": {k: v for k, v in kw.items()}, "ms": ms, "plain_ms": plain_ms,
-           "enqueue_ms": cuda_ms(torch, kernel_fn, reps=50),
-           "plain_enqueue_ms": cuda_ms(torch, plain_fn, reps=5, warmup=1),
+           "enqueue_ms": cuda_ms(torch, kernel_fn, reps=kernel_reps),
+           "plain_enqueue_ms": cuda_ms(torch, plain_fn, reps=plain_reps, warmup=1),
            "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     if name == "sc_matmul":
         xd, wd = args[0].to(torch.float64), args[1].to(torch.float64)
         library_fn = functools.partial(torch.matmul, xd, wd)
-        row["library_ms"] = device_ms(torch, library_fn, reps=20)
-        row["library_enqueue_ms"] = cuda_ms(torch, library_fn, reps=20)
+        row["library_ms"] = device_ms(torch, library_fn, reps=library_reps)
+        row["library_enqueue_ms"] = cuda_ms(torch, library_fn, reps=library_reps)
     return row
 
 
@@ -2435,6 +2535,264 @@ def comparison_phase(torch, cfgs: dict, params: dict, batches: dict, registry, c
     return counted, report
 
 
+def lm_linears(cfg) -> int:
+    """SC matmuls of one LM prefill or decode step: wq, wk, wv, wo and the MLP's
+    three (GLU) or two (dense) linears, every layer; the LM head is a float matmul."""
+    return (4 + (3 if cfg.mlp_kind == "glu" else 2)) * cfg.n_layers
+
+
+def lm_phase(torch, registry, card: str, timed: set) -> tuple[dict, dict]:
+    """Phase 12: dense LM serving through make_serve_fns, the SC matmul at LM shapes.
+
+    `timed` holds the call signatures already timed; calls at other shapes
+    are timed here.  Returns the launch counts of each counted run and the
+    numbers to report.
+    """
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import make_serve_fns
+
+    t_phase = time.perf_counter()
+    counted, report = {}, {"card": card, "stablelm": {}, "gemma3": {}, "cpu": {}}
+    spec = registry.get("sc_matmul")
+    rows, timed = [], set(timed)
+    rng = np.random.default_rng(SEED + 12)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def want_sc(n_sc: int) -> dict[str, int]:
+        return {**dict.fromkeys(KERNELS, 0), "sc_matmul": n_sc}
+
+    def counted_run(label: str, run, n_sc: int):
+        registry.reset_launches()
+        out = run()
+        sync()
+        got = {n: registry.launches()[n] for n in KERNELS}
+        counted[label] = got
+        if got != want_sc(n_sc):
+            fail(f"lm, {label}: launches {got}, expected {want_sc(n_sc)}")
+        return out
+
+    def hold_all(label: str, run, n_sc: int, reps_big: tuple) -> float:
+        """Every SC call of run() against the plain version, bitwise; new shapes timed."""
+        calls = record_calls(torch, registry, run)
+        made = {n: len(c) for n, c in calls.items()}
+        if made != want_sc(n_sc):
+            fail(f"lm, {label}: kernel calls {made}, expected {want_sc(n_sc)}")
+        worst = 0.0
+        for args, kw in calls["sc_matmul"]:
+            err, want = hold_call(torch, "sc_matmul", spec, args, kw, label)
+            worst = max(worst, err)
+            sig = call_signature(torch, "sc_matmul", args, kw)
+            if sig not in timed:
+                timed.add(sig)
+                big = bound("sc_matmul", args, kw, want)[1] > LM_BIG_OPS
+                rows.append(time_call(torch, "sc_matmul", spec, args, kw, want, label,
+                                      reps=reps_big if big else (50, 5, 20)))
+        return worst
+
+    def peak_mib(run) -> float:
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run()
+        sync()
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    def timings(label: str, prefill, decode, n_sc: int, profile_prefill: bool) -> dict:
+        """Prefill and one decode step: host clock (median of TIMED_FORWARDS), busy and
+        idle share (profiled: the port's kernels seen = the launches credited)."""
+        def synced(fn):
+            return lambda: (fn(), sync())
+        out = {"prefill_ms": median_ms(synced(prefill)),
+               "decode_ms_per_token": median_ms(synced(decode))}
+        runs = [("decode", decode, out["decode_ms_per_token"])]
+        if profile_prefill:
+            runs.insert(0, ("prefill", prefill, out["prefill_ms"]))
+        for what, fn, wall in runs:
+            prof = profile_run(torch, fn, wall, registry, f"lm, {label} {what}")
+            if prof["port_kernels_seen"]["sc_matmul"] != n_sc:
+                fail(f"lm, {label} {what}: the card ran {prof['port_kernels_seen']} of the "
+                     f"port's kernels, expected {n_sc} SC matmuls")
+            out[what] = {k: prof[k] for k in ("busy_ms", "idle_share", "kernels_launched",
+                                              "port_kernels_seen", "sessions", "top")}
+        return out
+
+    # -- stablelm-1.6b: full width and depth, bf16 ------------------------------------
+    base = get_config(LM_CFG)
+    n_lin = lm_linears(base)
+    t0 = time.perf_counter()
+    params = T.init_lm(base, generator=torch.Generator("cuda").manual_seed(SEED), device="cuda")
+    sync()
+    say(f"lm: {base.name} ({base.n_layers} layers, d_model {base.d_model}, {base.dtype}, "
+        f"{sum(p.numel() for p in params.parameters()):,} parameters) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = {"tokens": rng.integers(0, base.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)}
+    for q in LM_QUANTS:
+        pol = ExecutionPolicy(quant=q)
+        n_sc = n_lin if q != "none" else 0
+        for kv in LM_KV:
+            label = f"{base.name} quant={q} kv={kv}"
+            cfg = dataclasses.replace(base, kv_quant=kv)
+            fns = make_serve_fns(cfg, pol, device="cuda")
+            box = {}
+            peak = peak_mib(lambda: box.update(gen=counted_run(
+                f"{label} generate", lambda: fns["generate"](params, batch, steps=LM_NEW,
+                                                             s_max=LM_S_MAX), n_sc * LM_NEW)))
+            gen = box.pop("gen").cpu()
+            if gen.shape != (LM_BATCH, LM_NEW) or not bool(
+                    ((gen >= 0) & (gen < base.vocab_size)).all()):
+                fail(f"lm, {label}: generated {tuple(gen.shape)} tokens, some out of range")
+            logits, state = counted_run(f"{label} prefill",
+                                        lambda: fns["prefill"](params, batch, LM_S_MAX), n_sc)
+            if logits.shape != (LM_BATCH, 1, base.vocab_size) or not bool(
+                    torch.isfinite(logits).all()):
+                fail(f"lm, {label}: prefill logits {tuple(logits.shape)}, not all finite")
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            if not torch.equal(tok.cpu(), gen[:, :1]):
+                fail(f"lm, {label}: prefill's greedy token differs from generate's")
+            _, nxt, state1 = counted_run(f"{label} decode",
+                                         lambda: fns["decode"](params, state, {"token": tok}),
+                                         n_sc)
+            if int(state1.cache_len) != LM_PROMPT + 1 or not torch.equal(nxt.cpu(), gen[:, 1:2]):
+                fail(f"lm, {label}: decode's state or greedy token differs from generate's")
+            worst = None
+            if q != "none" and kv == "none":
+                with torch.inference_mode():
+                    worst = hold_all(label, lambda: fns["decode"](
+                        params, fns["prefill"](params, batch, LM_S_MAX)[1], {"token": tok}),
+                        2 * n_sc, LM_BIG_REPS)
+            t = timings(label, lambda: fns["prefill"](params, batch, LM_S_MAX),
+                        lambda: fns["decode"](params, state, {"token": tok}), n_sc,
+                        profile_prefill=kv == "none")
+            t.update(peak_generate_mib=peak, max_abs_err_kernel_vs_plain=worst,
+                     launches={"prefill": n_sc, "decode_step": n_sc, "generate": n_sc * LM_NEW},
+                     tokens=gen[0].tolist())
+            report["stablelm"][label] = t
+            say(f"lm, {label}: generate {LM_BATCH} x {LM_PROMPT} + {LM_NEW} tokens, launches "
+                f"{n_sc} SC a step{'' if worst is None else ', every SC call == plain'}; "
+                f"(host clock, median of {TIMED_FORWARDS}; {card}) prefill {t['prefill_ms']:.3f} "
+                f"ms, decode {t['decode_ms_per_token']:.3f} ms/token, decode busy "
+                f"{t['decode']['busy_ms']:.3f} ms, idle {t['decode']['idle_share']:.3f}"
+                + (f"; prefill busy {t['prefill']['busy_ms']:.3f} ms, idle "
+                   f"{t['prefill']['idle_share']:.3f}" if "prefill" in t else "")
+                + f"; peak allocated by generate {peak:.1f} MiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["stablelm_s"] = time.perf_counter() - t_phase
+
+    # -- against the port's CPU run: stablelm at LM_CPU_LAYERS layers, same width --------
+    cfg2 = dataclasses.replace(base, n_layers=LM_CPU_LAYERS)
+    p_gpu = T.init_lm(cfg2, generator=torch.Generator("cuda").manual_seed(SEED), device="cuda")
+    p_cpu = copy.deepcopy(p_gpu).to("cpu")
+    for q, kv in LM_CPU_CASES:
+        label = f"{cfg2.name}[{LM_CPU_LAYERS} layers] quant={q} kv={kv}"
+        cfg = dataclasses.replace(cfg2, kv_quant=kv)
+        pol = ExecutionPolicy(quant=q)
+        fg = make_serve_fns(cfg, pol, device="cuda")
+        fc = make_serve_fns(cfg, pol, device="cpu")
+        lg, sg = fg["prefill"](p_gpu, batch, LM_S_MAX)
+        lc, sc = fc["prefill"](p_cpu, batch, LM_S_MAX)
+        diffs = [(lg.cpu() - lc).abs().max().item()]
+        scale = lc.abs().max().item()
+        tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+        for _ in range(LM_CPU_STEPS):  # teacher-forced: the card's greedy tokens into both
+            lg, nxt, sg = fg["decode"](p_gpu, sg, {"token": tok})
+            lc, _, sc = fc["decode"](p_cpu, sc, {"token": tok.cpu()})
+            diffs.append((lg.cpu() - lc).abs().max().item())
+            tok = nxt
+        report["cpu"][label] = {"max_abs_diff": diffs, "max_abs_logit": scale,
+                                "tolerance": LM_CPU_TOL[q]}
+        if not all(np.isfinite(diffs)) or max(diffs) > LM_CPU_TOL[q]:
+            fail(f"lm, {label}: logits differ from the CPU run by {diffs} > {LM_CPU_TOL[q]}")
+        say(f"lm, {label}: card vs CPU, prefill and {LM_CPU_STEPS} teacher-forced decode "
+            f"steps: max |logit diff| {[f'{d:.3e}' for d in diffs]} <= {LM_CPU_TOL[q]} "
+            f"(logits up to {scale:.3f})")
+    del p_gpu, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["cpu_check_s"] = time.perf_counter() - t_phase - report["stablelm_s"]
+
+    # -- gemma3-12b: full width, one group of its 5:1 pattern (6 layers) -------------------
+    gcfg = dataclasses.replace(get_config(GEMMA_CFG), n_layers=GEMMA_LAYERS)
+    n_lin = lm_linears(gcfg)
+    t0 = time.perf_counter()
+    params = T.init_lm(gcfg, generator=torch.Generator("cuda").manual_seed(SEED), device="cuda")
+    sync()
+    say(f"lm: {gcfg.name} cut to {gcfg.n_layers} layers ({gcfg.layer_pattern}), d_model "
+        f"{gcfg.d_model}, window {gcfg.window}, {gcfg.dtype}, "
+        f"{sum(p.numel() for p in params.parameters()):,} parameters, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gbatch = {"tokens": rng.integers(0, gcfg.vocab_size, (GEMMA_BATCH, GEMMA_PROMPT)).astype(
+        np.int32)}
+    s_max = GEMMA_PROMPT + GEMMA_STEPS
+    for q in GEMMA_QUANTS:
+        pol = ExecutionPolicy(quant=q)
+        n_sc = n_lin if q != "none" else 0
+        label = f"{gcfg.name}[{gcfg.n_layers} layers] quant={q}"
+        fns = make_serve_fns(gcfg, pol, device="cuda")
+
+        def serve():
+            logits, state = fns["prefill"](params, gbatch, s_max)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            for _ in range(GEMMA_STEPS):
+                logits, tok, state = fns["decode"](params, state, {"token": tok})
+            return logits, state
+
+        box = {}
+        peak = peak_mib(lambda: box.update(out=counted_run(f"{label} prefill + "
+                                                           f"{GEMMA_STEPS} decode steps", serve,
+                                                           n_sc * (1 + GEMMA_STEPS))))
+        logits, state = box.pop("out")
+        s_eff = [c.k.shape[2] for c in state.caches]
+        if (logits.shape != (GEMMA_BATCH, 1, gcfg.vocab_size)
+                or not bool(torch.isfinite(logits).all()) or int(state.cache_len) != s_max
+                or s_eff != [min(s_max, gcfg.window) if t == "local" else s_max
+                             for t in gcfg.layer_pattern]):
+            fail(f"lm, {label}: logits {tuple(logits.shape)}, cache_len "
+                 f"{int(state.cache_len)}, cache lengths {s_eff}")
+        logits0, state0 = fns["prefill"](params, gbatch, s_max)
+        tok = torch.argmax(logits0[:, -1], dim=-1).to(torch.int32)[:, None]
+        worst = None
+        if q != "none":
+            with torch.inference_mode():
+                worst = hold_all(label, lambda: fns["decode"](
+                    params, fns["prefill"](params, gbatch, s_max)[1], {"token": tok}),
+                    2 * n_sc, GEMMA_BIG_REPS)
+        t = timings(label, lambda: fns["prefill"](params, gbatch, s_max),
+                    lambda: fns["decode"](params, state0, {"token": tok}), n_sc,
+                    profile_prefill=True)
+        t.update(peak_serve_mib=peak, max_abs_err_kernel_vs_plain=worst, local_cache=s_eff,
+                 launches={"prefill": n_sc, "decode_step": n_sc})
+        report["gemma3"][label] = t
+        say(f"lm, {label}: {GEMMA_BATCH} x {GEMMA_PROMPT} prompt (window {gcfg.window}: the "
+            f"local caches keep {min(s_max, gcfg.window)} rolled entries) + {GEMMA_STEPS} decode "
+            f"steps, launches {n_sc} SC a step{'' if worst is None else ', every SC call == plain'}"
+            f"; (host clock, median of {TIMED_FORWARDS}; {card}) prefill {t['prefill_ms']:.3f} "
+            f"ms, busy {t['prefill']['busy_ms']:.3f} ms, idle {t['prefill']['idle_share']:.3f}; "
+            f"decode {t['decode_ms_per_token']:.3f} ms/token, busy {t['decode']['busy_ms']:.3f} "
+            f"ms, idle {t['decode']['idle_share']:.3f}; peak allocated {peak:.1f} MiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    report["kernel_calls"] = rows
+    for r in rows:
+        say(f"lm, sc_matmul {r['shapes']} n_planes={r['kw']['n_planes']} ({r['path']}): kernel "
+            f"{r['ms']:.4f} ms (enqueue {r['enqueue_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+            f"float64 torch.matmul {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']})")
+    report["phase_s"] = time.perf_counter() - t_phase
+    say(f"lm phase: {report['phase_s']:.1f} s (stablelm {report['stablelm_s']:.1f} s, against "
+        f"the CPU {report['cpu_check_s']:.1f} s)")
+    return counted, report
+
+
 def main() -> None:
     """Run every phase; any failure exits non-zero before the last line."""
     import torch
@@ -2549,6 +2907,28 @@ def main() -> None:
                 f"device time: kernel {part['ms']:.4f} ms, plain {part['plain_ms']:.4f} ms, "
                 f"bound {part['bound_ms']:.6f} ms")
         summary[name] = tot
+    # SC W8A8 on the main paths: every SC call of one eager forward of each
+    # model against its plain version (its launches and logits: phases 4-5)
+    w8 = ExecutionPolicy(quant="sc_w8a8")
+    w8_accels = {m: get_accelerator(cfg, w8, device="cuda") for m, cfg in configs.items()}
+    for m, accel in w8_accels.items():
+        with graphs.eager():
+            calls = record_calls(torch, registry, functools.partial(
+                accel.infer, params[m], batches[m][0]))
+        made = {n: len(c) for n, c in calls.items()}
+        if made != expected_launches(m, "sc_w8a8", configs[m]):
+            fail(f"{m} quant=sc_w8a8: kernel calls {made}, expected "
+                 f"{expected_launches(m, 'sc_w8a8', configs[m])}")
+        worst = 0.0
+        for args, kw in calls["sc_matmul"]:
+            worst = max(worst, hold_call(torch, "sc_matmul", specs["sc_matmul"], args, kw,
+                                         f"{m} sc_w8a8")[0])
+        summary["sc_matmul"]["max_abs_err"] = max(summary["sc_matmul"]["max_abs_err"], worst)
+        summary["sc_matmul"]["by_path"][f"{m} sc_w8a8"] = {"calls": len(calls["sc_matmul"]),
+                                                         "max_abs_err": worst}
+        say(f"sc_matmul ({m} sc_w8a8 forward): {len(calls['sc_matmul'])} calls, kernel == plain "
+            "version bitwise")
+        del calls
     say(json.dumps({"kernel_calls": per_call}))
 
     # -- 4. the paths, counted -------------------------------------------------
@@ -2576,6 +2956,10 @@ def main() -> None:
                         want_one)
             for i, b in enumerate(batches[m])
         ]
+    for m, accel in w8_accels.items():
+        outputs[m, "sc_w8a8"] = [counted_run(
+            f"{m} quant=sc_w8a8 batch 0", functools.partial(accel.infer, params[m], batches[m][0]),
+            expected_launches(m, "sc_w8a8", configs[m]))]
     flat_out = counted_run("flat", flat_path, expected_launches("flat", "none"))
     say(f"main path launches: {json.dumps(counted)}")
     for name in KERNELS:
@@ -2641,6 +3025,18 @@ def main() -> None:
             extra = ", FP 3-NN indices" if cfg.task == "seg" else ""
             say(f"{m} quant={q}: preprocessing{extra} equal the CPU run bitwise over "
                 f"{len(checked)} batch(es); max |logit diff| {worst:.3e} <= {LOGIT_ATOL[q]}")
+        # SC W8A8: one batch
+        got = outputs[m, "sc_w8a8"][0].cpu()
+        want = get_accelerator(cfg, w8, device="cpu").infer(params_cpu, batches[m][0])
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"{m} quant=sc_w8a8: logits of shape {tuple(got.shape)}, "
+                 f"finite={bool(torch.isfinite(got).all())}")
+        worst = (got - want).abs().max().item()
+        if worst > LOGIT_ATOL["sc_w8a8"]:
+            fail(f"{m} quant=sc_w8a8: logits differ from the CPU run by {worst} > "
+                 f"{LOGIT_ATOL['sc_w8a8']}")
+        say(f"{m} quant=sc_w8a8: max |logit diff| {worst:.3e} <= {LOGIT_ATOL['sc_w8a8']} "
+            "over 1 batch")
     for (pts, cents, radius, ns), got in zip(flat_sets, flat_out):
         want = lattice_query_fused(pts.cpu(), cents.cpu(), radius, ns)
         if not (torch.equal(got.idx.cpu(), want.idx) and torch.equal(got.mask.cpu(), want.mask)):
@@ -2689,6 +3085,19 @@ def main() -> None:
     for n in KERNELS:
         launches[n] += sum(c[n] for c in comparison_counted.values())
     say(json.dumps({"comparison": comparison_report, "comparison_launches": comparison_counted}))
+
+    # -- 12. dense LM serving ---------------------------------------------------------
+    lm_counted, lm_report = lm_phase(
+        torch, registry, card,
+        {call_signature(torch, name, args, kw)
+         for calls in recorded.values() for name, cl in calls.items() for args, kw in cl})
+    for n in KERNELS:
+        launches[n] += sum(c[n] for c in lm_counted.values())
+    lm_rows = lm_report["kernel_calls"]
+    summary["sc_matmul"]["by_path"]["lm"] = {
+        "calls": len(lm_rows), **{k: sum(r[k] for r in lm_rows)
+                                  for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+    say(json.dumps({"lm": lm_report, "lm_launches": lm_counted}))
 
     kernels = []
     for name, meta in KERNELS.items():

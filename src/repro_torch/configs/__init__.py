@@ -1,6 +1,13 @@
-"""Model configs of the port, by the reference's names ("pointnet2-cls")."""
+"""Model configs of the port, by the reference's names ("pointnet2-cls", "stablelm-1.6b").
+
+The pointnet2 models and the dense LMs (stablelm-1.6b, starcoder2-3b,
+gemma3-12b, command-r-plus-104b) are ported; `get_config` raises KeyError
+for the other LM families, which wait for ROADMAP.md queue A step 3.
+"""
 
 import importlib
+
+from repro_torch.configs.base import ARCH_IDS, ModelConfig  # noqa: F401
 
 
 def get_config(name: str, *, smoke: bool = False):

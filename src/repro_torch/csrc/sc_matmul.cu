@@ -2,13 +2,17 @@
 //
 // Replaces: sc_matmul_pallas / _sc_matmul_kernel,
 // src/repro/kernels/sc_matmul/kernel.py:89 (body at :48).  Same function:
-// x (M, K) and w (K, N) hold int32 values of `4 * n_planes` bits; both are
+// x (M, K) and w (K, N) hold int32 values of `4 * n_planes` bits, or
+// 2^(4 * n_planes - 1), which a bf16 quantizer gives (see split4); both are
 // split into 4-bit planes (low planes q >> 4i & 0xF in [0, 15], the top
-// plane the arithmetic shift q >> 4(n-1) in [-8, 7]); every plane pair's dot
+// plane the arithmetic shift q >> 4(n-1) in [-8, 8]); every plane pair's dot
 // product goes to an exact int32 sum per diagonal d = i + j; the f32 result
 // is sum_d float(acc_d) * 16^d, combined in diagonal order from 0.0.
 // The integer sums are exact, so neither the blocking nor the split of K
-// below can change a bit.
+// below can change a bit.  They cannot overflow int32: a diagonal sums at
+// most 4 plane pairs of products of magnitude <= 15 * 15 = 225 (the top
+// plane lies in [-8, 8]), so |acc_d| <= 4 * 225 * K, which is 3.0e7 < 2^31 at the largest K of the
+// LM configs (command-r-plus-104b's d_ff, 33792) and holds up to K = 2.38e6.
 //
 // Bound on an H100 SXM: counted as int8 work, a W16A16 product is
 // 16 * 2*M*K*N operations, ~72 us for one 8-cloud pointnet2-seg forward at
@@ -111,22 +115,29 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Planes of four int32 values q0..q3 (consecutive k), one packed word per
-// plane: byte c of word i is plane i of q_c, the top plane sign-extended.
+// plane: byte c of word i is plane i of q_c.  The low planes are nibbles;
+// the top plane is the low byte of the arithmetic shift q >> 4(NP-1), as the
+// reference's split takes it, so it is exact for every q whose shift fits
+// in s8: the 4*NP-bit range and beyond it, up to 2^(4*NP+3) - 1.  A bf16
+// quantizer reaches 2^(4*NP-1) (its qmax 2^(4*NP-1) - 1 rounds up to a
+// power of two in bf16), whose top plane is 8 where a sign-extended top
+// nibble would be -8.
 template <int NP>
 __device__ __forceinline__ void split4(int q0, int q1, int q2, int q3, unsigned (&p)[NP]) {
   const unsigned b0 = __byte_perm(__byte_perm(q0, q1, 0x0040), __byte_perm(q2, q3, 0x0040),
                                   0x5410);  // byte 0 of each q
   unsigned b1 = 0u;
-  if constexpr (NP > 2) {
+  if constexpr (NP > 3) {
     b1 = __byte_perm(__byte_perm(q0, q1, 0x0051), __byte_perm(q2, q3, 0x0051), 0x5410);
   }
 #pragma unroll
-  for (int i = 0; i < NP; ++i) {
+  for (int i = 0; i < NP - 1; ++i) {
     const unsigned src = (i < 2) ? b0 : b1;
-    const unsigned u = (src >> (4 * (i & 1))) & 0x0F0F0F0Fu;
-    // the top plane signed: bit 3 of each nibble copied into bits 4-7
-    p[i] = (i == NP - 1) ? (u | ((u & 0x08080808u) * 0x1Eu)) : u;
+    p[i] = (src >> (4 * (i & 1))) & 0x0F0F0F0Fu;
   }
+  constexpr int kTop = 4 * (NP - 1);
+  p[NP - 1] = __byte_perm(__byte_perm(q0 >> kTop, q1 >> kTop, 0x0040),
+                          __byte_perm(q2 >> kTop, q3 >> kTop, 0x0040), 0x5410);
 }
 
 // sum_d float(acc_d) * 16^d in diagonal order from 0.0.  float(acc_d) * 16^d

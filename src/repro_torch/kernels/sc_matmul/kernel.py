@@ -54,8 +54,9 @@ def k_splits(m: int, n: int, k: int) -> int:
 def sc_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *, n_planes: int = 4) -> torch.Tensor:
     """(M, K) x (K, N) int32 CUDA -> (M, N) float32, launched on the current stream.
 
-    Operands must hold values of 4 * n_planes bits (two's complement); the
-    kernel splits each 4-bit plane into an s8 tensor-core operand.  Where
+    Operands must hold values of 4 * n_planes bits (two's complement), or
+    2^(4 * n_planes - 1), the largest a bf16 quantizer gives; the kernel
+    splits each 4-bit plane into an s8 tensor-core operand.  Where
     `k_splits` splits K, the partial sums meet in a zeroed int32 workspace.
     """
     registry.require_cuda_tensor(x_q, "x_q", torch.int32, 2)

@@ -19,8 +19,8 @@ kernel of the path carries a gradient (the SC kernel's output is integer
 work the reference's gradient flows around, through the two scales).
 With `--device cpu` it runs eagerly on the plain versions.
 
-The LM families (`--arch` other than pointnet2-*) wait for the LM
-substrate, ROADMAP.md queue A item 11.
+LM training (`--arch` other than pointnet2-*) waits for ROADMAP.md queue
+A item 11, step 3f; the dense LMs already serve (`serve.make_serve_fns`).
 """
 
 from __future__ import annotations
@@ -41,8 +41,9 @@ from repro_torch.optim import AdamWState, adamw_init, adamw_update
 from repro_torch.params import named_jax_params
 from repro_torch.runtime.fault_tolerance import StragglerMonitor
 
-NOT_PORTED_LM = ("--arch {arch!r}: the LM families are not ported yet (ROADMAP.md, queue A "
-                 "item 11, the LM substrate); the port trains pointnet2-cls and pointnet2-seg")
+NOT_PORTED_LM = ("--arch {arch!r}: LM training is not ported yet (ROADMAP.md, queue A item 11, "
+                 "step 3f); the dense LMs serve (repro_torch.serve.make_serve_fns), and the port "
+                 "trains pointnet2-cls and pointnet2-seg")
 # the step's metrics: the loss's, then the optimizer's
 METRICS = ("loss", "accuracy", "grad_norm")
 

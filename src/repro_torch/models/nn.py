@@ -46,19 +46,22 @@ def _shard_mode(policy: ExecutionPolicy | None) -> str | None:
 class Linear(nn.Module):
     """Dense layer y = x @ w + b with w (d_in, d_out), float or SC-quantized.
 
-    Initialised like the reference: w ~ N(0, 1/d_in), b = 0, drawn on the CPU
-    from `generator` and then moved to `device`, so a seed gives the same
-    weights on every device.
+    Initialised like the reference: w ~ N(0, 1/d_in), b = 0, in `dtype`
+    (float32 by default).  The draw is made on the generator's device (the
+    CPU without one) and then moved to `device`: a CPU generator gives the
+    same weights on every device, a CUDA one draws a large model in place.
     """
 
     def __init__(
         self, d_in: int, d_out: int, *, bias: bool = True,
-        generator: torch.Generator | None = None, device=None,
+        generator: torch.Generator | None = None, device=None, dtype=None,
     ):
         super().__init__()
-        w = torch.randn(d_in, d_out, generator=generator) * (1.0 / math.sqrt(d_in))
-        self.w = nn.Parameter(w.to(device))
-        self.b = nn.Parameter(torch.zeros(d_out, device=device)) if bias else None
+        dtype = dtype or torch.float32
+        draw_on = None if generator is None else generator.device
+        w = torch.randn(d_in, d_out, generator=generator, device=draw_on) * (1.0 / math.sqrt(d_in))
+        self.w = nn.Parameter(w.to(device=device, dtype=dtype))
+        self.b = nn.Parameter(torch.zeros(d_out, device=device, dtype=dtype)) if bias else None
 
     def forward(self, x: torch.Tensor, policy: ExecutionPolicy | None = None) -> torch.Tensor:
         """Float matmul, or the SC integer path when the policy quantizes.
@@ -123,11 +126,11 @@ class LayerNorm(nn.Module):
     packages evaluate the same formula.
     """
 
-    def __init__(self, d: int, *, eps: float = 1e-5, device=None):
+    def __init__(self, d: int, *, eps: float = 1e-5, device=None, dtype=None):
         super().__init__()
         self.eps = eps
-        self.g = nn.Parameter(torch.ones(d, device=device))
-        self.b = nn.Parameter(torch.zeros(d, device=device))
+        self.g = nn.Parameter(torch.ones(d, device=device, dtype=dtype or torch.float32))
+        self.b = nn.Parameter(torch.zeros(d, device=device, dtype=dtype or torch.float32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Normalise over the last dim."""

@@ -1,4 +1,7 @@
-"""Weight bridge: the JAX package's PointNet2 parameter tree -> this package's modules.
+"""Weight bridge: the JAX package's parameter trees <-> this package's modules.
+
+PointNet2 (`from_jax_params`, `to_jax_params`) and the dense LMs
+(`lm_from_jax_params`, `lm_to_jax_params`, at the end of this file).
 
 The tree is what the reference's `init_params` returns, with every leaf
 turned into a numpy array (`jax.tree.map(np.asarray, params)`): nested
@@ -23,6 +26,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.models.nn import MLP
 from repro_torch.models.pointnet2 import PointNet2Config, PointNet2Params
+from repro_torch.models.transformer import DenseLM, group_geometry
 
 
 def _copy(param: torch.Tensor, value, where: str) -> None:
@@ -175,3 +179,97 @@ def to_jax_params(params: PointNet2Params) -> dict:
     """The reverse of `from_jax_params`: the reference's parameter tree, leaves as numpy arrays."""
     return _nest((_parts(n), p.detach().cpu().numpy().copy())
                  for n, p in named_jax_params(params).items())
+
+
+# -- the dense LMs -------------------------------------------------------------------
+#
+# The reference's LM tree is {"embed" (V, D), "final_norm" {g[, b]}, "lm_head"
+# (D, V) unless tied, "blocks": [one tree a slot]}, each slot's tree the
+# block's ({"ln1", "attn" {"wq", "wk", "wv", "wo"} {w[, b]}, "ln2", "mlp"
+# {"wi"[, "wg"], "wo"}}) with every leaf stacked over the groups, (n_groups,
+# ...) (`transformer.py:120-125` of the JAX package).  Layer i of the port's
+# `DenseLM.blocks` is group i // g, slot i % g.  bf16 leaves arrive as numpy
+# arrays of ml_dtypes' bfloat16, the dtype `np.asarray` gives a JAX bf16
+# array; they are carried over bit for bit.
+
+
+def _leaf_to_torch(value) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor of the same dtype and bytes (bf16 by its bits)."""
+    arr = np.ascontiguousarray(np.asarray(value))
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array of the same dtype and bytes; bf16 becomes ml_dtypes'
+    bfloat16, which is imported only then."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def _flat_tree(tree, prefix: str = "") -> dict:
+    """{dotted path: leaf} of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat_tree(sub, f"{prefix}{key}.").items()}
+    return {prefix[:-1]: tree}
+
+
+def _fill(params: dict, leaves: dict, where: str, group: int | None = None) -> None:
+    if set(params) != set(leaves):
+        raise ValueError(f"{where}: the tree holds {sorted(leaves)}, the config "
+                         f"{sorted(params)}")
+    for name, p in params.items():
+        t = _leaf_to_torch(leaves[name])
+        if group is not None:
+            t = t[group]
+        if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
+            raise ValueError(f"{where}.{name}: {t.dtype} {tuple(t.shape)} does not match "
+                             f"{p.dtype} {tuple(p.shape)}")
+        p.copy_(t)
+
+
+def lm_from_jax_params(tree, cfg, device=None) -> DenseLM:
+    """A DenseLM for `cfg` holding the reference's LM parameter tree (numpy leaves).
+
+    Every leaf must have the config's shape and dtype.  device: where the
+    parameters end up ("cuda" by default, like every entry point).
+    """
+    dev = resolve_device(device)
+    module = DenseLM(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    n_groups, g = group_geometry(cfg)
+    if len(tree["blocks"]) != g:
+        raise ValueError(f"tree has {len(tree['blocks'])} slots, config has {g}")
+    with torch.no_grad():
+        _fill({n: p for n, p in module.named_parameters() if not n.startswith("blocks.")},
+              _flat_tree({k: v for k, v in tree.items() if k != "blocks"}), "top")
+        for i, block in enumerate(module.blocks):
+            slot, grp = i % g, i // g
+            leaves = _flat_tree(tree["blocks"][slot])
+            for name, leaf in leaves.items():
+                if np.shape(leaf)[0] != n_groups:
+                    raise ValueError(f"blocks[{slot}].{name}: {np.shape(leaf)[0]} groups, "
+                                     f"config has {n_groups}")
+            _fill(dict(block.named_parameters()), leaves, f"blocks[{slot}] group {grp}", grp)
+    return module.to(dev)
+
+
+def lm_to_jax_params(module: DenseLM) -> dict:
+    """The reverse of `lm_from_jax_params`: the reference's tree, numpy leaves, each
+    slot's leaves stacked over the groups."""
+    n_groups, g = group_geometry(module.cfg)
+    tree = _nest((_parts(n), _leaf_to_numpy(p)) for n, p in module.named_parameters()
+                 if not n.startswith("blocks."))
+    tree["blocks"] = []
+    for slot in range(g):
+        layers = [dict(module.blocks[grp * g + slot].named_parameters())
+                  for grp in range(n_groups)]
+        tree["blocks"].append(_nest(
+            (_parts(n), np.stack([_leaf_to_numpy(layer[n]) for layer in layers]))
+            for n in layers[0]))
+    return tree

@@ -18,7 +18,8 @@ built on it.  `adapt` closes the loop from observation back to the knobs:
 the `AdaptiveController` retunes buckets / max_batch / batching patience
 through the runtime's pause-free `reconfigure` path, which warms (on the
 card: captures) the new shapes before the swap.  `pointcloud` is the
-synchronous per-batch serve function.
+synchronous per-batch serve function, and `step` the LM serving steps
+(`make_serve_fns`: prefill and greedy decode of the dense LMs).
 """
 
 from repro_torch.serve.adapt import (  # noqa: F401
@@ -104,3 +105,4 @@ from repro_torch.serve.trace import (  # noqa: F401
     TraceEvent,
     Tracer,
 )
+from repro_torch.serve.step import make_serve_fns  # noqa: F401

@@ -1480,3 +1480,128 @@ def test_comparison_corner_replays_equal_eager(cuda, model, preproc, aggregation
     _same_tree(accel.preprocess_stage(new), pre)
     assert torch.equal(accel.feature_from_cached(params, new, host), logits)
     assert graphs.captures() == before
+
+
+# -- dense LM serving ---------------------------------------------------------------------
+
+LM_DENSE = ["stablelm-1.6b", "starcoder2-3b", "gemma3-12b", "command-r-plus-104b"]
+# Card against the CPU at smoke width (float32): float with float caches as
+# LOGIT_ATOL's reasons in chip_smoke.py; SC or int8 caches as tests/_lm.py's
+# SC_LOGIT_ATOL (a float difference moves an activation across a quantizer
+# boundary, or an int8 K/V value across one step: float with int8 caches
+# measured 4.0e-4 on an H100, command-r-plus smoke).
+LM_CPU_ATOL = {"float": 1e-4, "quantized": 5e-3}
+
+
+def _lm_shapes():
+    """(M, K, N) of the SC matmul in stablelm-1.6b (4 x 128 prompt, decode of 4)
+    and gemma3-12b (2 x 1280 prompt, decode of 2) at full width."""
+    shapes = []
+    for m_pre, m_dec, d, q_out, kv_out, d_ff in ((512, 4, 2048, 2048, 2048, 5632),
+                                                 (2560, 2, 3840, 4096, 2048, 15360)):
+        for m in (m_pre, m_dec):
+            shapes += [(m, d, q_out), (m, d, kv_out), (m, q_out, d), (m, d, d_ff), (m, d_ff, d)]
+    return sorted(set(shapes))
+
+
+def _record_sc(run):
+    """run()'s result and every SC matmul call it made, inputs cloned."""
+    spec = registry.get("sc_matmul")
+    calls = []
+
+    def record(*args, **kw):
+        calls.append(([a.clone() for a in args], dict(kw)))
+        return spec.cuda(*args, **kw)
+
+    registry.register("sc_matmul", plain=spec.plain, cuda=record)
+    try:
+        out = run()
+    finally:
+        registry.register("sc_matmul", plain=spec.plain, cuda=spec.cuda)
+    return out, calls
+
+
+@pytest.mark.parametrize("shape", _lm_shapes())
+@pytest.mark.parametrize("bits", [16, 8])
+def test_sc_matmul_kernel_at_lm_shapes(cuda, shape, bits):
+    """Every SC product of stablelm-1.6b and gemma3-12b serving at full width: K up
+    to 15360 (the streaming kernel: w's planes do not fit in shared memory), split K
+    for the decode rows."""
+    m, k, n = shape
+    x, w = _int_operands(m, k, n, bits, cuda, seed=m + k + n)
+    got = sc_matmul_cuda(x, w, n_planes=bits // 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc_matmul_plain(x, w, n_planes=bits // 4))
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 5632), (512, 2048, 2048), (2000, 1024, 64)])
+@pytest.mark.parametrize("bits", [16, 8])
+def test_sc_matmul_kernel_takes_a_bf16_quantizers_largest_value(cuda, m, k, n, bits):
+    """Under bf16 the quantizer's qmax 2^(b-1) - 1 rounds up to 2^(b-1), which it
+    reaches (the reference does the same): its top plane is +8, not -8, through
+    split K, the streaming and the resident kernel."""
+    x, w = _int_operands(m, k, n, bits, cuda, seed=m + n)
+    top = 1 << (bits - 1)
+    x[:, ::3] = top
+    w[::5] = -top
+    w[1::7] = top
+    got = sc_matmul_cuda(x, w, n_planes=bits // 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc_matmul_plain(x, w, n_planes=bits // 4))
+    exact = (x.cpu().to(torch.int64) @ w.cpu().to(torch.int64)).double()
+    assert (got.cpu().double() - exact).abs().max() <= 1e-6 * exact.abs().max()
+
+
+def test_sc_matmul_kernel_at_the_deepest_lm_k(cuda):
+    """command-r-plus-104b's d_ff, K = 33792, every operand 32767 (planes 15, 15,
+    15, 7): the largest diagonal sum, 660 * K = 2.2e7, stays an exact int32."""
+    x = torch.full((4, 33792), 32767, dtype=torch.int32, device=cuda)
+    w = torch.full((33792, 64), 32767, dtype=torch.int32, device=cuda)
+    got = sc_matmul_cuda(x, w, n_planes=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc_matmul_plain(x, w, n_planes=4))
+    exact = 32767.0 * 32767.0 * 33792
+    assert (got.double() - exact).abs().max() <= 1e-6 * exact
+
+
+@pytest.mark.parametrize("name", LM_DENSE)
+@pytest.mark.parametrize("quant,kv", [("none", "none"), ("none", "int8"), ("sc_w16a16", "none"),
+                                      ("sc_w16a16", "int8"), ("sc_w8a8", "int8")])
+def test_lm_smoke_serving_on_the_card(cuda, name, quant, kv):
+    """Smoke width: prefill of 2 x 16 into caches of 24, then 3 decode steps fed the
+    card's greedy tokens, on the card and on the CPU from the same params: every SC
+    call bitwise equal to the plain version on the card, 7 per layer a step (6
+    with starcoder2's dense MLP), the logits within LM_CPU_ATOL of the CPU's."""
+    import copy
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import make_serve_fns
+
+    cfg = dataclasses.replace(get_config(name, smoke=True), kv_quant=kv)
+    p_cpu = T.init_lm(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(cuda)
+    pol = ExecutionPolicy(quant=quant)
+    fg, fc = make_serve_fns(cfg, pol, device=cuda), make_serve_fns(cfg, pol, device="cpu")
+    batch = {"tokens": np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 16))}
+    n_sc = (4 + (3 if cfg.mlp_kind == "glu" else 2)) * cfg.n_layers if quant != "none" else 0
+    registry.reset_launches()
+    (lg, sg), calls = _record_sc(lambda: fg["prefill"](p_gpu, batch, 24))
+    torch.cuda.synchronize()
+    assert registry.launches()["sc_matmul"] == len(calls) == n_sc
+    lc, sc = fc["prefill"](p_cpu, batch, 24)
+    diffs = [(lg.cpu() - lc).abs().max().item()]
+    tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+    for _ in range(3):
+        registry.reset_launches()
+        (lg, nxt, sg), more = _record_sc(lambda: fg["decode"](p_gpu, sg, {"token": tok}))
+        torch.cuda.synchronize()
+        assert registry.launches()["sc_matmul"] == len(more) == n_sc
+        calls += more
+        lc, _, sc = fc["decode"](p_cpu, sc, {"token": tok.cpu()})
+        diffs.append((lg.cpu() - lc).abs().max().item())
+        tok = nxt
+    assert int(sg.cache_len) == 19
+    for args, kw in calls:
+        assert torch.equal(sc_matmul_cuda(*args, **kw), sc_matmul_plain(*args, **kw))
+    assert max(diffs) <= LM_CPU_ATOL["float" if (quant, kv) == ("none", "none")
+                                     else "quantized"], diffs

@@ -411,3 +411,28 @@ def test_comparison_forward_takes_no_host_data(model, preproc, aggregation):
     assert bool(torch.isfinite(logits).all())
     if preproc == "baseline2":
         assert not bool(pre[0].centroid_valid[1].all())
+
+
+@pytest.mark.parametrize("name", ["stablelm-1.6b", "gemma3-12b"])
+@pytest.mark.parametrize("kv", ["none", "int8"])
+@pytest.mark.parametrize("policy", [ExecutionPolicy(), SC], ids=["none", "sc_w16a16"])
+def test_lm_prefill_and_decode_take_no_host_data(name, kv, policy):
+    """The dense LM's prefill and decode_step, on tokens and a state already in
+    place, build no tensor from host data and read nothing back: cache_len and
+    the write index stay on the device, so decode can be captured (gemma3's
+    rolling local caches included; 3 decode steps pass its window of 8 when
+    the prompt is 7)."""
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(name, smoke=True), kv_quant=kv)
+    params = T.init_lm(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 7)))
+    check = _HostDataCheck()
+    with torch.inference_mode(), check:
+        logits, state = T.prefill(params, cfg, tokens, 12, policy=policy)
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+        for _ in range(3):
+            logits, state = T.decode_step(params, cfg, state, tok, policy=policy)
+            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    assert check.seen == []
+    assert bool(torch.isfinite(logits).all()) and int(state.cache_len) == 10

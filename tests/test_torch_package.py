@@ -36,7 +36,11 @@ def test_port_imports_neither_jax_nor_repro():
     assert "repro_torch.core.accelerator" in mods and "repro_torch.params" in mods
     assert {"repro_torch.data.pointclouds", "repro_torch.optim.adamw",
             "repro_torch.optim.schedule", "repro_torch.checkpoint.store",
-            "repro_torch.launch.train", "repro_torch.core.energy"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.core.energy",
+            "repro_torch.configs.base", "repro_torch.configs.stablelm_1_6b",
+            "repro_torch.configs.gemma3_12b", "repro_torch.models.layers",
+            "repro_torch.models.transformer", "repro_torch.models.families",
+            "repro_torch.serve.step"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -61,7 +65,8 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 
 def test_no_port_source_names_jax_or_repro():
-    for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]:
+    for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
+                 ROOT / "examples" / "torch_serve_lm.py"]:
         assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}, path
 
 
