@@ -17,10 +17,11 @@ exporters), training (launch/train.py, its step one captured CUDA
 graph), and multi-device serving (a replica over a device group running
 the batch- and tensor-sharded artifacts, and the GPipe schedule), and
 the paper's comparison paths (baseline-1 global L2 FPS and ball query,
-baseline-2 grid tiles, standard aggregation), and dense LM serving
+baseline-2 grid tiles, standard aggregation), dense LM serving
 (make_serve_fns: stablelm-1.6b at full width and depth, gemma3-12b at
 full width and 6 layers, every linear on the SC matmul kernel under a
-quant policy).  On
+quant policy), and dense LM training (make_train_step and train_lm, the
+SC kernel in the forward and in the remat recompute).  On
 the card the entry points replay captured CUDA graphs (core/graphs.py, the
 counterpart of the JAX package's jit artifacts) unless the caller enters
 graphs.eager(), which is the reference side of every graph check.
@@ -194,10 +195,32 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      width cut to one group of its 5:1 pattern (6 layers): 2 prompts of
      1280 tokens, past its 1024 window (prefill rolls the local caches), and
      8 decode steps, float and sc_w16a16, counted, every SC call of a
-     prefill and a decode step held bitwise and new shapes timed.
+     prefill and a decode step held bitwise and new shapes timed;
+ 13. dense LM training through make_train_step(cfg, policy=...), eager.
+     stablelm-1.6b at full width and depth in bf16 with remat "full"
+     (weights drawn on the card from SEED) takes LM_TRAIN_STEPS steps of
+     LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens from data.tokens.token_stream under
+     quant none, sc_w16a16 and sc_w8a8, every step counted: 2 x 168 SC
+     launches a step under SC (each of the 7 linears of the 24 layers once
+     in the forward and once in the backward's recompute), none in float.
+     Every SC call of step 1 is held against the plain version bitwise as it
+     is made, and the new shapes (2048 rows) are timed as phase 3 times its
+     calls.  The losses must be finite, and in float the loss on step 1's
+     batch must fall over the steps.  It prints the eager step time (host
+     clock, median of steps 2-5), busy and idle share of one profiled step
+     (the SC kernels the card ran = the launches credited), the memory
+     after init and the peak.  train_lm itself (the entry point of `python -m
+     repro_torch.launch.train`) runs LM_ENTRY_STEPS SC steps, counted.
+     Then stablelm cut to LM_CPU_LAYERS layers (full width, bf16) on the
+     card against the port's CPU run of the same params and batch: the loss
+     within LM_TRAIN_LOSS_TOL and every gradient leaf within
+     LM_TRAIN_GRAD_TOL (SC: the nonzero pattern too).  Last, gemma3-12b at
+     full width cut to one group of 6 layers, one sequence of 2048 tokens
+     (past its 1024 window), GEMMA_TRAIN_STEPS float steps: losses finite,
+     step times and peak memory.
 
 Then it prints one JSON line with every kernel's launches (summed over the
-counted runs of phases 4, 6, 7, 8, 9, 10, 11 and 12; a replay's are the launches its
+counted runs of phases 4 and 6-13; a replay's are the launches its
 capture recorded, which the profiled replays of phases 4, 6, 7 and 9 show
 the card running), error and times (summed over the calls recorded in
 phase 3, with a breakdown by path), the card line again, and as its last
@@ -361,6 +384,48 @@ LM_CPU_TOL = {"none": 0.15, "sc_w16a16": 0.15}
 LM_BIG_OPS = 1e11
 LM_BIG_REPS = (20, 3, 10)
 GEMMA_BIG_REPS = (5, 2, 3)
+
+# LM training phase (13): stablelm-1.6b at full width and depth in bf16 with
+# its remat "full", weights drawn on the card from SEED, LM_TRAIN_STEPS steps
+# of make_train_step on LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens of token_stream
+# (drawn on the CPU as train_lm's prefetch thread draws them) under every
+# policy of LM_QUANTS.  The schedule warms up over one step, so step 1
+# moves no weight (the reference's schedule starts at 0), then peaks at
+# LM_TRAIN_LR.
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 256, 5
+LM_TRAIN_LR = 1e-3
+# The card against the port's CPU run: stablelm cut to LM_CPU_LAYERS layers
+# (full width, bf16), the same params and one batch of LM_TRAIN_CPU_ROWS.
+# Loss (~11.5 at init): a float32 mean over 256 tokens of lse - gold on bf16
+# logits, which cuBLAS and the CPU's GEMMs round an ulp or two apart (0.031
+# at 4) in random directions: ~1e-3 expected, bound 2e-2.  Gradients, of
+# each leaf's max |g|: every leaf is bf16 (an ulp is at most 2^-7 = 7.8e-3
+# of the max) computed from activations and gradients that both sides round
+# to bf16 at every op and that part by an ulp or two (phase 12: logits 1 %
+# apart); float 5e-2, six ulps at the max.  SC: 1e-1 of the leaf's max (a
+# weight's gradient comes through the quantizer scales, sums over whole
+# activations where the sides' one-quantum differences do not cancel: phase
+# 9 measured 4.1e-2 in float32), 2e-1 for leaves whose max is below 1e-3;
+# and the nonzero pattern as phase 9 holds it, except that an exact zero on
+# one side may face up to LM_TRAIN_PATTERN_REL of the leaf's max on the
+# other: bf16 sums cancel to an exact 0 now and then (the CPU's bf16
+# embedding gradient of this cut holds 81 exact zeros among the 522,240
+# entries of its used rows in float, 5 under SC), and where one side
+# cancels, the other keeps its operands' rounding differences, which the
+# float gradients put at up to 1.6e-2 of a leaf's max (H100); the bound is
+# the float one, 5e-2.  An SC linear's weight keeps its whole pattern: its
+# one nonzero (through the scale, at its max |w|) is the leaf's max.
+LM_TRAIN_CPU_ROWS = (2, 128)
+LM_TRAIN_LOSS_TOL = {"none": 2e-2, "sc_w16a16": 2e-2}
+LM_TRAIN_GRAD_TOL = {"none": 5e-2, "sc_w16a16": 1e-1, "sc scale path": 2e-1}
+LM_TRAIN_PATTERN_REL = LM_TRAIN_GRAD_TOL["none"]
+# gemma3-12b at full width cut to one group of its pattern (GEMMA_LAYERS),
+# one sequence of 2048 tokens, past its 1024 window: the windowed flash
+# backward at full width, GEMMA_TRAIN_STEPS float steps.
+GEMMA_TRAIN_ROWS, GEMMA_TRAIN_STEPS = (1, 2048), 2
+# train_lm itself, which `python -m repro_torch.launch.train` runs: a
+# few steps of stablelm under SC.
+LM_ENTRY_STEPS, LM_ENTRY_QUANT = 2, "sc_w16a16"
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -1726,30 +1791,39 @@ def deterministic(torch):
         torch.use_deterministic_algorithms(was, warn_only=warn)
 
 
-def grads_agree(torch, got: dict, want: dict, quant: str) -> tuple[float, str]:
+def grads_agree(torch, got: dict, want: dict, quant: str, tol: dict = TRAIN_GRAD_TOL,
+                what: str = "training", pattern_rel: float = 0.0) -> tuple[float, str]:
     """The worst |got - want| / max|want| over the leaves, after the checks of
-    TRAIN_GRAD_TOL (an SC leaf's nonzero pattern above TRAIN_SC_FLOOR too);
-    fails the phase on a leaf out of bounds."""
-    worst, where = 0.0, ""
+    `tol` (TRAIN_GRAD_TOL's keys) and, under SC, of the nonzero pattern: no
+    entry at or below TRAIN_SC_FLOOR on one side where the other exceeds
+    max(TRAIN_SC_FLOOR, pattern_rel x the leaf's max).  Fails the phase,
+    naming every leaf out of bounds, if any is."""
+    worst, where, bad = 0.0, "", []
     for name, w in want.items():
         g = got[name].detach().cpu().double()
         w = w.detach().cpu().double()
         top = w.abs().max().item()
         diff = (g - w).abs().max().item()
         if quant == "none":
-            bound = TRAIN_GRAD_TOL["none"] * top
+            bound = tol["none"] * top
         else:
-            if not torch.equal(g.abs() > TRAIN_SC_FLOOR, w.abs() > TRAIN_SC_FLOOR):
-                fail(f"training, SC gradient of {name}: nonzero pattern above {TRAIN_SC_FLOOR} "
-                     "differs between the card and the CPU")
+            floor = max(TRAIN_SC_FLOOR, pattern_rel * top)
+            apart = (((g.abs() <= TRAIN_SC_FLOOR) & (w.abs() > floor))
+                     | ((w.abs() <= TRAIN_SC_FLOOR) & (g.abs() > floor)))
+            if bool(apart.any()):
+                bad.append(f"{name}: zero on one side, above {floor:.3e} on the other at "
+                           f"{int(apart.sum())} of {w.numel()} (leaf max {top:.3e}, there up to "
+                           f"{max(g[apart].abs().max().item(), w[apart].abs().max().item()):.3e})")
             if top <= TRAIN_SC_FLOOR:
                 continue
-            bound = TRAIN_GRAD_TOL["sc_w16a16" if top >= 1e-3 else "sc scale path"] * top
+            bound = tol["sc_w16a16" if top >= 1e-3 else "sc scale path"] * top
         if diff > bound:
-            fail(f"training, gradient of {name} (quant={quant}): card vs CPU max |diff| {diff} "
-                 f"> {bound} (leaf max {top})")
+            bad.append(f"{name}: max |diff| {diff:.3e} > {bound:.3e} (leaf max {top:.3e})")
         if top > 0 and diff / top > worst:
             worst, where = diff / top, name
+    if bad:
+        fail(f"{what} (quant={quant}), card vs CPU gradients out of bounds at {len(bad)} "
+             f"leaves: {bad[:8]}")
     return worst, where
 
 
@@ -2793,6 +2867,269 @@ def lm_phase(torch, registry, card: str, timed: set) -> tuple[dict, dict]:
     return counted, report
 
 
+def lm_train_phase(torch, registry, card: str, timed: set) -> tuple[dict, dict]:
+    """Phase 13: dense LM training through make_train_step and train_lm, the SC
+    matmul at training rows, in the forward and again in the remat recompute.
+
+    `timed` holds the call signatures already timed; calls at other shapes
+    are timed here.  Returns the launch counts of each counted run and the
+    numbers to report.
+    """
+    import argparse
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.data.tokens import token_stream
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.params import named_jax_params
+    from repro_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    counted, report = {}, {"card": card, "stablelm": {}, "cpu": {}, "gemma3": {}}
+    spec = registry.get("sc_matmul")
+    rows, timed = [], set(timed)
+    cuda = torch.device("cuda")
+    report["allocated_at_start_mib"] = torch.cuda.memory_allocated() / 2**20
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def want_sc(n_sc: int) -> dict[str, int]:
+        return {**dict.fromkeys(KERNELS, 0), "sc_matmul": n_sc}
+
+    def check_launches(label: str, n_sc: int) -> None:
+        got = {n: registry.launches()[n] for n in KERNELS}
+        counted[label] = got
+        if got != want_sc(n_sc):
+            fail(f"lm train, {label}: launches {got}, expected {want_sc(n_sc)}")
+
+    def stream_batches(cfg, rows_cols: tuple, n: int) -> list[dict]:
+        """The first n batches of token_stream, drawn on the CPU."""
+        stream = token_stream(SEED, *rows_cols, cfg.vocab_size, device="cpu")
+        return [batch for _, (_, batch) in zip(range(n), stream)]
+
+    def held_run(label: str, run) -> tuple:
+        """run() with every SC call held against the plain version as it is made,
+        bitwise (a step's inputs are not kept: they would take ~18 GB); the
+        first call at each shape not timed before is kept and timed after.
+        Returns (run()'s result, the calls made, the kept calls)."""
+        made, bad, kept = [0], [], []
+
+        def hold(*args, **kw):
+            got = spec.cuda(*args, **kw)
+            want = spec.plain(*args, **kw)
+            made[0] += 1
+            if not torch.equal(got, want):
+                bad.append((made[0], [tuple(a.shape) for a in args if torch.is_tensor(a)],
+                            (got.double() - want.double()).abs().max().item()))
+            sig = call_signature(torch, "sc_matmul", args, kw)
+            if sig not in timed:
+                timed.add(sig)
+                kept.append(([a.clone() if torch.is_tensor(a) else a for a in args], dict(kw)))
+            return got
+
+        registry.register("sc_matmul", plain=spec.plain, cuda=hold)
+        try:
+            out = run()
+            sync()
+        finally:
+            registry.register("sc_matmul", plain=spec.plain, cuda=spec.cuda)
+        if bad:
+            fail(f"lm train, {label}: SC calls (index, shapes, max |diff|) {bad[:5]} differ from "
+                 "the plain version")
+        return out, made[0], kept
+
+    def time_kept(label: str, kept: list) -> None:
+        for args, kw in kept:
+            big = bound("sc_matmul", args, kw, None)[1] > LM_BIG_OPS
+            rows.append(time_call(torch, "sc_matmul", spec, args, kw, None, label,
+                                  reps=LM_BIG_REPS if big else (50, 5, 20)))
+
+    def grads(cfg, params, batch, pol) -> tuple:
+        named = named_jax_params(params)
+        loss, _ = T.lm_loss(params, cfg, batch, policy=pol)
+        return loss.detach(), dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- stablelm-1.6b: full width and depth, bf16, remat "full" -------------------------
+    base = get_config(LM_CFG)
+    n_fwd = lm_linears(base)
+    train = stream_batches(base, (LM_TRAIN_BATCH, LM_TRAIN_SEQ), LM_TRAIN_STEPS)
+    for q in LM_QUANTS:
+        pol = ExecutionPolicy(quant=q)
+        # each linear once in the forward and once more in the backward's recompute
+        n_sc = 2 * n_fwd if q != "none" else 0
+        label = f"{base.name} quant={q}"
+        t0 = time.perf_counter()
+        params = T.init_lm(base, generator=torch.Generator("cuda").manual_seed(SEED),
+                           device="cuda")
+        state = adamw_init(params)
+        step_fn = make_train_step(base, peak_lr=LM_TRAIN_LR, warmup_steps=1,
+                                  total_steps=LM_TRAIN_STEPS, policy=pol)
+        on_card = [{k: v.to(cuda) for k, v in b.items()} for b in train]
+        sync()
+        init_s = time.perf_counter() - t0
+        state_mib = torch.cuda.memory_allocated() / 2**20
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        # step 1, every SC call held against the plain version as it is made
+        out, made, kept = held_run(label, lambda: step_fn(params, state, on_card[0]))
+        m = out[2]  # the step returns the params and state it was given: hold no other name
+        del out
+        first_ms = (time.perf_counter() - t0) * 1e3
+        check_launches(f"{label} step 1", n_sc)
+        if made != n_sc:
+            fail(f"lm train, {label}: step 1 made {made} SC calls, expected {n_sc}")
+        time_kept(label, kept)
+        sync()
+        torch.cuda.reset_peak_memory_stats()  # the peak of steps 2-5, no plain version held
+        losses, step_ms = [m["loss"]], []
+        for i, b in enumerate(on_card[1:], start=2):
+            registry.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            m = step_fn(params, state, b)[2]
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check_launches(f"{label} step {i}", n_sc)
+            losses.append(m["loss"])
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        losses = [x.item() for x in losses]
+        if not all(np.isfinite(losses)) or not np.isfinite(m["grad_norm"].item()):
+            fail(f"lm train, {label}: losses {losses}, grad_norm {m['grad_norm'].item()}")
+        learned = None
+        if q == "none":  # the float loss falls: step 1's batch again, after the steps
+            with torch.no_grad():
+                learned = T.lm_loss(params, base, on_card[0], policy=pol)[0].item()
+            if not learned < losses[0]:
+                fail(f"lm train, {label}: the loss on step 1's batch went {losses[0]:.4f} -> "
+                     f"{learned:.4f} in {LM_TRAIN_STEPS} steps")
+        eager_ms = float(np.median(step_ms))
+        prof = profile_run(torch, lambda: step_fn(params, state, on_card[1]), eager_ms, registry,
+                           f"lm train, {label} step")
+        if prof["port_kernels_seen"]["sc_matmul"] != n_sc:
+            fail(f"lm train, {label}: the card ran {prof['port_kernels_seen']} of the port's "
+                 f"kernels in a profiled step, expected {n_sc} SC matmuls")
+        report["stablelm"][label] = {
+            "tokens_a_step": LM_TRAIN_BATCH * LM_TRAIN_SEQ, "init_s": init_s,
+            "losses": losses, "loss_after_on_batch_1": learned,
+            "first_step_ms": first_ms, "eager_step_ms": eager_ms, "step_ms": step_ms,
+            "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
+            "kernels_launched": prof["kernels_launched"], "top": prof["top"],
+            "state_mib": state_mib, "peak_allocated_mib": peak_mib,
+            "sc_launches_a_step": n_sc,
+        }
+        say(f"lm train, {label}: {LM_TRAIN_STEPS} steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} "
+            f"tokens, losses {[f'{x:.4f}' for x in losses]}"
+            + (f" (step 1's batch after: {learned:.4f})" if learned is not None else "")
+            + f"; {n_sc} SC launches a step ({n_fwd} forward + {n_fwd if n_sc else 0} "
+            f"recompute){', every SC call of step 1 == plain' if n_sc else ''}; (host clock, "
+            f"median of {len(step_ms)}; {card}) step {eager_ms:.3f} ms (first {first_ms:.1f}), "
+            f"busy {prof['busy_ms']:.3f} ms, idle {prof['idle_share']:.3f}, "
+            f"{prof['kernels_launched']} kernels; allocated {state_mib:.1f} MiB after init, "
+            f"peak {peak_mib:.1f} MiB")
+        del params, state, step_fn, on_card, m, kept
+        free()
+
+    # -- train_lm, the entry point's own loop (prefetch thread, straggler monitor) ------
+    args = argparse.Namespace(steps=LM_ENTRY_STEPS, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+                              lr=LM_TRAIN_LR, seed=SEED, quant=LM_ENTRY_QUANT, ckpt_dir=None,
+                              ckpt_every=50, log_every=1, device="cuda")
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    driven = train_lm(base, args)
+    sync()
+    entry_s = time.perf_counter() - t0
+    check_launches(f"{base.name} train_lm quant={LM_ENTRY_QUANT}", LM_ENTRY_STEPS * 2 * n_fwd)
+    if int(driven["opt"].step) != LM_ENTRY_STEPS:
+        fail(f"lm train, train_lm: the step count reads {int(driven['opt'].step)}")
+    report["train_lm"] = {"steps": LM_ENTRY_STEPS, "quant": LM_ENTRY_QUANT, "wall_s": entry_s}
+    say(f"lm train, train_lm ({base.name}, quant={LM_ENTRY_QUANT}): {LM_ENTRY_STEPS} steps "
+        f"in {entry_s:.1f} s with init, {LM_ENTRY_STEPS * 2 * n_fwd} SC launches")
+    del driven
+    free()
+    report["stablelm_s"] = time.perf_counter() - t_phase
+
+    # -- against the port's CPU run: stablelm at LM_CPU_LAYERS layers, same width --------
+    cfg2 = dataclasses.replace(base, n_layers=LM_CPU_LAYERS)
+    p_gpu = T.init_lm(cfg2, generator=torch.Generator("cuda").manual_seed(SEED), device="cuda")
+    p_cpu = copy.deepcopy(p_gpu).to("cpu")
+    batch = stream_batches(cfg2, LM_TRAIN_CPU_ROWS, 1)[0]
+    for q in ("none", "sc_w16a16"):
+        label = f"{cfg2.name}[{LM_CPU_LAYERS} layers] quant={q}"
+        pol = ExecutionPolicy(quant=q)
+        loss_gpu, g_gpu = grads(cfg2, p_gpu, {k: v.to(cuda) for k, v in batch.items()}, pol)
+        loss_cpu, g_cpu = grads(cfg2, p_cpu, batch, pol)
+        diff = abs(loss_gpu.item() - loss_cpu.item())
+        if not np.isfinite(diff) or diff > LM_TRAIN_LOSS_TOL[q]:
+            fail(f"lm train, {label}: loss {loss_gpu.item()} on the card, {loss_cpu.item()} "
+                 f"on the CPU (|diff| {diff} > {LM_TRAIN_LOSS_TOL[q]})")
+        worst, where = grads_agree(torch, g_gpu, g_cpu, q, tol=LM_TRAIN_GRAD_TOL,
+                                   what=f"lm train, {label}", pattern_rel=LM_TRAIN_PATTERN_REL)
+        report["cpu"][label] = {"loss_card": loss_gpu.item(), "loss_cpu": loss_cpu.item(),
+                                "loss_abs_diff": diff, "grad_worst_rel": worst,
+                                "grad_worst_leaf": where, "rows": list(LM_TRAIN_CPU_ROWS)}
+        say(f"lm train, {label}: card vs CPU on {LM_TRAIN_CPU_ROWS[0]} x {LM_TRAIN_CPU_ROWS[1]} "
+            f"tokens: loss {loss_gpu.item():.6f} / {loss_cpu.item():.6f} (|diff| {diff:.3e} <= "
+            f"{LM_TRAIN_LOSS_TOL[q]}), gradients within {worst:.3e} of each leaf's max (worst "
+            f"{where}){', nonzero patterns equal' if q != 'none' else ''}")
+        del g_gpu, g_cpu
+    del p_gpu, p_cpu
+    free()
+    report["cpu_check_s"] = time.perf_counter() - t_phase - report["stablelm_s"]
+
+    # -- gemma3-12b: full width, one group of its 5:1 pattern, past its window -----------
+    gcfg = dataclasses.replace(get_config(GEMMA_CFG), n_layers=GEMMA_LAYERS)
+    params = T.init_lm(gcfg, generator=torch.Generator("cuda").manual_seed(SEED), device="cuda")
+    state = adamw_init(params)
+    step_fn = make_train_step(gcfg, peak_lr=LM_TRAIN_LR, warmup_steps=1,
+                              total_steps=GEMMA_TRAIN_STEPS)
+    gb = [{k: v.to(cuda) for k, v in b.items()}
+          for b in stream_batches(gcfg, GEMMA_TRAIN_ROWS, GEMMA_TRAIN_STEPS)]
+    sync()
+    state_mib = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    label = f"{gcfg.name}[{gcfg.n_layers} layers] quant=none"
+    for i, b in enumerate(gb, start=1):
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        m = step_fn(params, state, b)[2]
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check_launches(f"{label} step {i}", 0)
+        losses.append(m["loss"].item())
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if not all(np.isfinite(losses)):
+        fail(f"lm train, {label}: losses {losses}")
+    report["gemma3"][label] = {"rows": list(GEMMA_TRAIN_ROWS), "window": gcfg.window,
+                               "losses": losses, "step_ms": step_ms, "state_mib": state_mib,
+                               "peak_allocated_mib": peak_mib}
+    say(f"lm train, {label}: {GEMMA_TRAIN_ROWS[0]} x {GEMMA_TRAIN_ROWS[1]} tokens (window "
+        f"{gcfg.window}), losses {[f'{x:.4f}' for x in losses]}; (host clock; {card}) steps "
+        f"{[f'{x:.1f}' for x in step_ms]} ms; allocated {state_mib:.1f} MiB after init, peak "
+        f"{peak_mib:.1f} MiB")
+    del params, state, step_fn, gb, m
+    free()
+
+    report["kernel_calls"] = rows
+    for r in rows:
+        say(f"lm train, sc_matmul {r['shapes']} n_planes={r['kw']['n_planes']} ({r['path']}): "
+            f"kernel {r['ms']:.4f} ms (enqueue {r['enqueue_ms']:.4f}), plain {r['plain_ms']:.4f} "
+            f"ms, float64 torch.matmul {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']})")
+    report["phase_s"] = time.perf_counter() - t_phase
+    say(f"lm train phase: {report['phase_s']:.1f} s (stablelm {report['stablelm_s']:.1f} s, "
+        f"against the CPU {report['cpu_check_s']:.1f} s)")
+    return counted, report
+
+
 def main() -> None:
     """Run every phase; any failure exits non-zero before the last line."""
     import torch
@@ -2806,6 +3143,7 @@ def main() -> None:
     from repro_torch.configs.pointnet2_cls import CONFIG as CLS_CONFIG
     from repro_torch.configs.pointnet2_seg import CONFIG as SEG_CONFIG
     from repro_torch.core import graphs
+    from repro_torch.core.accelerator import clear_cache as clear_accelerators
     from repro_torch.core.accelerator import get_accelerator
     from repro_torch.core.policy import ExecutionPolicy
     from repro_torch.kernels import build, registry
@@ -3086,11 +3424,20 @@ def main() -> None:
         launches[n] += sum(c[n] for c in comparison_counted.values())
     say(json.dumps({"comparison": comparison_report, "comparison_launches": comparison_counted}))
 
+    # The point-cloud phases are done.  Their params and accelerators go, and with
+    # them every graph captured over them: the LM phases need the card's memory
+    # (gemma3's training peaks at ~62 GiB).
+    timed = {call_signature(torch, name, args, kw)
+             for calls in recorded.values() for name, cl in calls.items() for args, kw in cl}
+    del params, accels, w8_accels, outputs, flat_out, flat_sets, recorded
+    clear_accelerators()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"memory before the LM phases: {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved")
+
     # -- 12. dense LM serving ---------------------------------------------------------
-    lm_counted, lm_report = lm_phase(
-        torch, registry, card,
-        {call_signature(torch, name, args, kw)
-         for calls in recorded.values() for name, cl in calls.items() for args, kw in cl})
+    lm_counted, lm_report = lm_phase(torch, registry, card, timed)
     for n in KERNELS:
         launches[n] += sum(c[n] for c in lm_counted.values())
     lm_rows = lm_report["kernel_calls"]
@@ -3098,6 +3445,16 @@ def main() -> None:
         "calls": len(lm_rows), **{k: sum(r[k] for r in lm_rows)
                                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
     say(json.dumps({"lm": lm_report, "lm_launches": lm_counted}))
+
+    # -- 13. dense LM training ----------------------------------------------------------
+    lm_train_counted, lm_train_report = lm_train_phase(torch, registry, card, timed)
+    for n in KERNELS:
+        launches[n] += sum(c[n] for c in lm_train_counted.values())
+    train_rows = lm_train_report["kernel_calls"]
+    summary["sc_matmul"]["by_path"]["lm_train"] = {
+        "calls": len(train_rows), **{k: sum(r[k] for r in train_rows)
+                                     for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+    say(json.dumps({"lm_train": lm_train_report, "lm_train_launches": lm_train_counted}))
 
     kernels = []
     for name, meta in KERNELS.items():

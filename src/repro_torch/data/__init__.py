@@ -2,7 +2,6 @@
 
 pointclouds.py  procedural 3D shapes (cls + per-point seg labels), drawn
                 with torch generators on the device the caller names.
-
-The JAX package's `data/tokens.py` (LM token streams) waits for the LM
-substrate (ROADMAP.md, queue A item 11).
+tokens.py       Markov LM token streams, restart-exact, with a background
+                prefetch thread.
 """

@@ -1,14 +1,17 @@
-"""Training driver of the port: pointnet2-cls and pointnet2-seg on the card.
+"""Training driver of the port: pointnet2-cls, pointnet2-seg and the dense LMs.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch pointnet2-cls --steps 200
     PYTHONPATH=src python -m repro_torch.launch.train --arch pointnet2-seg --smoke \\
         --steps 3 --device cpu --ckpt-dir /tmp/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b --smoke \\
+        --steps 50 --batch 8 --seq 128 --device cpu --ckpt-dir /tmp/ckpt
 
-The JAX package's `launch/train.py` for the point-cloud models: config
-registry, the seeded restart-exact batches of `data.pointclouds`, AdamW,
-async checkpoints in the reference's format and the straggler monitor.
-The step is the reference's `step_fn`: the gradient of the accelerator's
-`loss_fn` (`torch.autograd.grad`, the counterpart of
+The JAX package's `launch/train.py`: config registry, seeded
+restart-exact data, AdamW, async checkpoints in the reference's format,
+the straggler monitor and (LMs) restart supervision.
+
+Point clouds: the step is the reference's `step_fn`, the gradient of the
+accelerator's `loss_fn` (`torch.autograd.grad`, the counterpart of
 `jax.value_and_grad`), then `adamw_update`, which writes the parameters
 and moments in place.  On the card the whole step is one captured CUDA
 graph (`core/graphs.GraphedStep`), the counterpart of `jax.jit(step_fn)`:
@@ -17,10 +20,15 @@ forward launches the port's kernels (FPS, lattice tiles, knn3 for seg, SC
 matmul under a quant policy) and its backward is autograd's, since no
 kernel of the path carries a gradient (the SC kernel's output is integer
 work the reference's gradient flows around, through the two scales).
-With `--device cpu` it runs eagerly on the plain versions.
 
-LM training (`--arch` other than pointnet2-*) waits for ROADMAP.md queue
-A item 11, step 3f; the dense LMs already serve (`serve.make_serve_fns`).
+LMs (`train_lm`, the dense family): `train.make_train_step` on batches of
+`data.tokens.token_stream`, drawn on the CPU by a prefetch thread and
+moved to the card by the loop; the step runs eagerly (every linear on the
+SC kernel under an SC policy).  With --ckpt-dir, `run_with_restarts`
+supervises the loop and the checkpoints hold the train state in the
+reference's layout (`LMCheckpoints`).  The encdec and vlm families raise
+the not-ported error of `models.families`.  With `--device cpu` either
+path runs on the plain versions.
 """
 
 from __future__ import annotations
@@ -35,15 +43,16 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import graphs
 from repro_torch.core.accelerator import PC2IMAccelerator, get_accelerator
+from repro_torch.core.device import resolve_device
 from repro_torch.core.policy import ExecutionPolicy, resolve_policy
 from repro_torch.data.pointclouds import fold_in, sample_batch
+from repro_torch.data.tokens import Prefetcher, token_stream
+from repro_torch.models.families import get_family_api
 from repro_torch.optim import AdamWState, adamw_init, adamw_update
-from repro_torch.params import named_jax_params
-from repro_torch.runtime.fault_tolerance import StragglerMonitor
+from repro_torch.params import lm_state_from_tree, lm_state_to_tree, named_jax_params
+from repro_torch.runtime.fault_tolerance import StragglerMonitor, run_with_restarts
+from repro_torch.train.step import make_train_step
 
-NOT_PORTED_LM = ("--arch {arch!r}: LM training is not ported yet (ROADMAP.md, queue A item 11, "
-                 "step 3f); the dense LMs serve (repro_torch.serve.make_serve_fns), and the port "
-                 "trains pointnet2-cls and pointnet2-seg")
 # the step's metrics: the loss's, then the optimizer's
 METRICS = ("loss", "accuracy", "grad_norm")
 
@@ -142,16 +151,97 @@ def train_pointcloud(cfg, args):
     return params
 
 
-def main(argv=None):
-    """Parse the reference's point-cloud flags (plus --device) and train.
+class LMCheckpoints(CheckpointManager):
+    """A CheckpointManager for an LM train state {"params": DenseLM, "opt": AdamWState}:
+    it writes and restores the reference's layout (`params.lm_state_to_tree`), and a
+    restore copies into the state given (`params.lm_state_from_tree`).
 
-    An LM --arch raises the not-ported error.
-    """
+    Both go through the host: a save stacks the layers there, and a restore
+    reads the leaves there and copies each into the state's own tensor, so
+    a state on the card gets no second copy on it."""
+
+    def maybe_save(self, step: int, tree, *, force: bool = False, extra=None) -> bool:
+        """Save the state's reference tree when `step` is a multiple of `every` (or `force`)."""
+        if not force and (self.every <= 0 or step % self.every != 0):
+            return False
+        self.wait()  # the save under way holds the previous host tree
+        return super().maybe_save(step, lm_state_to_tree(tree, device="cpu"), force=True,
+                                  extra=extra)
+
+    def restore_or_none(self, tree_like, *, device=None):
+        """(state restored in place, step, extra) from the newest checkpoint, or None.
+
+        `device` is `run_with_restarts`' and goes unused: the state's own
+        tensors say where each leaf goes."""
+        out = super().restore_or_none(lm_state_to_tree(tree_like, device="meta"), device="cpu")
+        if out is None:
+            return None
+        tree, step, extra = out
+        return lm_state_from_tree(tree_like, tree), step, extra
+
+
+def train_lm(cfg, args):
+    """Train an LM config for `args.steps` steps; returns the final state
+    {"params", "opt"}.  The reference's `train_lm`, on `args.device` (the card
+    unless it names another)."""
+    dev = resolve_device(getattr(args, "device", None))
+    api = get_family_api(cfg)
+    step_fn = make_train_step(
+        cfg, peak_lr=args.lr, warmup_steps=max(args.steps // 10, 1),
+        total_steps=args.steps, policy=_policy_override(cfg, args),
+    )
+    mgr = LMCheckpoints(args.ckpt_dir, every=args.ckpt_every) if args.ckpt_dir else None
+    mon = StragglerMonitor()
+
+    def make_state():
+        params = api["init"](cfg, generator=torch.Generator(device=dev).manual_seed(args.seed),
+                             device=dev)
+        return {"params": params, "opt": adamw_init(params)}
+
+    def loop(state, start_step):
+        stream = Prefetcher(token_stream(args.seed, args.batch, args.seq, cfg.vocab_size,
+                                         start_step=start_step, device="cpu"))
+        t0 = time.time()
+        params, opt = state["params"], state["opt"]
+        try:
+            for step, batch in stream:
+                if step >= args.steps:
+                    break
+                batch = {k: v.to(dev) for k, v in batch.items()}
+                mon.step_start()
+                params, opt, metrics = step_fn(params, opt, batch)
+                dt = mon.step_end(step)
+                if mgr:
+                    mgr.maybe_save(step + 1, {"params": params, "opt": opt})
+                if step % args.log_every == 0 or step == args.steps - 1:
+                    print(
+                        f"step {step}: loss={float(metrics['loss']):.4f} "
+                        f"lr={float(metrics['lr']):.2e} ({dt*1e3:.0f}ms, {time.time()-t0:.0f}s)",
+                        flush=True,
+                    )
+        finally:
+            stream.close()
+        return {"params": params, "opt": opt}, args.steps
+
+    if mgr:
+        state, last, _ = run_with_restarts(make_state, loop, ckpt_manager=mgr)
+        mgr.maybe_save(last, state, force=True)
+        mgr.wait()
+    else:
+        state, _ = loop(make_state(), 0)
+    if mon.events:
+        print(f"stragglers detected: {len(mon.events)}")
+    return state
+
+
+def main(argv=None):
+    """Parse the reference's flags (plus --device) and train a pointnet2 or LM config."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="reduced config (CPU-friendly)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quant", default=None, choices=["none", "sc_w16a16", "sc_w8a8"],
@@ -162,9 +252,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="where to train: the card by default, 'cpu' for the plain versions")
     args = ap.parse_args(argv)
-    if not args.arch.startswith("pointnet2"):
-        raise NotImplementedError(NOT_PORTED_LM.format(arch=args.arch))
-    return train_pointcloud(get_config(args.arch, smoke=args.smoke), args)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if args.arch.startswith("pointnet2"):
+        return train_pointcloud(cfg, args)
+    return train_lm(cfg, args)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,7 @@
 (train/prefill and decode, float and int8 KV caches), block-pair flash
 attention, and the GLU and dense MLPs.
 
-The JAX package's `models/layers.py`, forward only (its `custom_vjp`
-backward comes with LM training):
+The JAX package's `models/layers.py`:
 
 * `flash_attention` walks the same statically enumerated (q block, kv
   block) pairs (`_pick_block`, `_flash_geometry`): causal and windowed
@@ -11,8 +10,11 @@ backward comes with LM training):
   built.  Each q block keeps its running max, denominator and accumulator in
   float32 (the online softmax, masked scores at -2e38, the 1e-20 floor);
   its pairs come row-major as in the reference's scan, so every block sees
-  the same sequence of updates.  Plain torch ops, layout (B, S, H, Dh) at
-  the boundary: the reference's is pure JAX too, no Pallas kernel.
+  the same sequence of updates.  The forward also gives the log-sum-exp,
+  and the backward is the reference's `custom_vjp` (`_FlashCore`, FA2):
+  it keeps only (q, k, v, out, lse) and recomputes each pair's
+  probabilities from them.  Plain torch ops, layout (B, S, H, Dh) at the
+  boundary: the reference's is pure JAX too, no Pallas kernel.
 * Decode attends one query against a cache: dense O(S) row attention.  The
   int8 cache keeps per-(token, head) scales, which factor out of both
   contractions.
@@ -141,6 +143,110 @@ def _pair_mask(i: int, j: int, blk: int, causal: bool, window, device) -> torch.
     return mask
 
 
+def _flash_forward(q, k, v, causal: bool, window, blk: int, pairs, scale: float):
+    """q (B, Hq, S, Dh), k/v (B, Hkv, Skv, Dh) -> (out (B, Hq, S, Dh) float32,
+    lse (B, Hq, S, 1) float32), the reference's `_flash_fwd_impl`."""
+    b, hq, s, dh = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    kf = k.to(torch.float32)
+    out = torch.empty((b, hq, s, dh), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, hq, s, 1), dtype=torch.float32, device=q.device)
+    by_row: dict[int, list[int]] = {}
+    for i, j in pairs:
+        by_row.setdefault(i, []).append(j)
+    for i, cols in by_row.items():
+        rows = slice(i * blk, (i + 1) * blk)
+        # q * scale in q's dtype, then the product in float32
+        qi = (q[:, :, rows] * scale).reshape(b, hkv, g, blk, dh).to(torch.float32)
+        m = torch.full((b, hq, blk, 1), _NEG_INF, dtype=torch.float32, device=q.device)
+        den = torch.zeros((b, hq, blk, 1), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, hq, blk, dh), dtype=torch.float32, device=q.device)
+        for j in cols:
+            keys = slice(j * blk, (j + 1) * blk)
+            scores = torch.matmul(qi, kf[:, :, None, keys].transpose(-1, -2))
+            mask = _pair_mask(i, j, blk, causal, window, q.device)
+            scores = torch.where(mask, scores, _NEG_INF).reshape(b, hq, blk, blk)
+            m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+            safe_m = torch.where(m_new <= _NEG_INF / 2, 0.0, m_new)
+            # masked scores are -2e38: exp underflows to exactly 0
+            p = torch.exp(scores - safe_m)
+            corr = torch.where(m <= _NEG_INF / 2, 0.0, torch.exp(m - safe_m))
+            den = corr * den + p.sum(dim=-1, keepdim=True)
+            pv = torch.matmul(
+                p.reshape(b, hkv, g, blk, blk).to(v.dtype).to(torch.float32),
+                v[:, :, None, keys].to(torch.float32),
+            ).reshape(b, hq, blk, dh)
+            acc = corr * acc + pv
+            m = m_new
+        floored = torch.clamp(den, min=1e-20)
+        out[:, :, rows] = acc / floored
+        lse[:, :, rows] = torch.where(den > 0, m + torch.log(floored), _NEG_INF)
+    return out, lse
+
+
+def _flash_backward(dout, q, k, v, out, lse, causal: bool, window, blk: int, pairs,
+                    scale: float):
+    """The reference's `_flash_core_bwd`: (dq, dk, dv) in q's, k's and v's dtypes.
+
+    FA2: p is recomputed a pair at a time from (q, k, lse), in the forward's
+    row-major pair order, so nothing of size (S, S) is ever held; dk and dv
+    sum over the g query heads of their kv head.  Accumulated in float32.
+    """
+    b, hq, s, dh = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    dout = dout.to(torch.float32)
+    dvec = (dout * out).sum(dim=-1, keepdim=True)  # D_i = rowsum(dO * O)  (B, Hq, S, 1)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    dq = torch.zeros((b, hq, s, dh), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, hkv, k.shape[2], dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for i, j in pairs:
+        rows, keys = slice(i * blk, (i + 1) * blk), slice(j * blk, (j + 1) * blk)
+        qi = q[:, :, rows]
+        qi_g = (qi * scale).reshape(b, hkv, g, blk, dh).to(torch.float32)
+        scores = torch.matmul(qi_g, kf[:, :, None, keys].transpose(-1, -2))
+        mask = _pair_mask(i, j, blk, causal, window, q.device)
+        scores = torch.where(mask, scores, _NEG_INF)  # the single mask pass
+        lsei = lse[:, :, rows].reshape(b, hkv, g, blk, 1)
+        safe_lse = torch.where(lsei <= _NEG_INF / 2, 0.0, lsei)
+        p = torch.exp(scores - safe_lse)  # masked -> exp underflows to exactly 0
+        doi = dout[:, :, rows].reshape(b, hkv, g, blk, dh)
+        # dV_j += P^T dO, summed over the q block and the group: one product over g * blk
+        dv[:, :, keys] += torch.matmul(p.permute(0, 1, 4, 2, 3).reshape(b, hkv, blk, g * blk),
+                                       doi.reshape(b, hkv, g * blk, dh))
+        dp = torch.matmul(doi, vf[:, :, None, keys].transpose(-1, -2))  # dP = dO V^T
+        ds = p * (dp - dvec[:, :, rows].reshape(b, hkv, g, blk, 1))
+        # dQ_i += dS K * scale;  dK_j += dS^T Q * scale
+        dq[:, :, rows] += (torch.matmul(ds, kf[:, :, None, keys]) * scale).reshape(b, hq, blk, dh)
+        qf = qi.reshape(b, hkv, g, blk, dh).to(torch.float32)
+        dk[:, :, keys] += torch.matmul(ds.permute(0, 1, 4, 2, 3).reshape(b, hkv, blk, g * blk),
+                                       qf.reshape(b, hkv, g * blk, dh)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashCore(torch.autograd.Function):
+    """The reference's `custom_vjp` `_flash_core`: forward and FA2 backward over
+    static block pairs.  It saves (q, k, v, out, lse), O(S * Dh), and never an
+    (S, S) block: the forward's per-pair probabilities are not kept."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, geometry):
+        """(B, H, S, Dh) q, k, v -> out (B, Hq, S, Dh) float32; `geometry` is
+        (causal, window, blk, pairs, scale)."""
+        out, lse = _flash_forward(q, k, v, *geometry)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.geometry = geometry
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        """(dq, dk, dv, None) from the saved residuals."""
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_backward(dout, q, k, v, out, lse, *ctx.geometry), None)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -154,49 +260,18 @@ def flash_attention(
     """q: (B, S, Hq, Dh), k/v: (B, Skv, Hkv, Dh) -> (B, S, Hq, Dh) in q's dtype.
 
     Blockwise online-softmax attention over the reference's static list of
-    (q, kv) block pairs; forward only.
+    (q, kv) block pairs, with its FA2 backward (`_FlashCore`).
     """
     b, s, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if hq % hkv:
         raise ValueError(f"{hq} q heads do not group over {hkv} kv heads")
-    g = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     if causal and s != sk:
         raise ValueError("causal flash attention requires q_len == kv_len")
     blk, pairs = _flash_geometry(s, sk, causal, window, block)
-    qh = q.permute(0, 2, 1, 3)  # (B, Hq, S, Dh)
-    kh = k.permute(0, 2, 1, 3).to(torch.float32)  # (B, Hkv, Skv, Dh)
-    vh = v.permute(0, 2, 1, 3)
-    out = torch.empty((b, hq, s, dh), dtype=torch.float32, device=q.device)
-    by_row: dict[int, list[int]] = {}
-    for i, j in pairs:
-        by_row.setdefault(i, []).append(j)
-    for i, cols in by_row.items():
-        rows = slice(i * blk, (i + 1) * blk)
-        # q * scale in q's dtype, then the product in float32
-        qi = (qh[:, :, rows] * scale).reshape(b, hkv, g, blk, dh).to(torch.float32)
-        m = torch.full((b, hq, blk, 1), _NEG_INF, dtype=torch.float32, device=q.device)
-        den = torch.zeros((b, hq, blk, 1), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, hq, blk, dh), dtype=torch.float32, device=q.device)
-        for j in cols:
-            keys = slice(j * blk, (j + 1) * blk)
-            scores = torch.matmul(qi, kh[:, :, None, keys].transpose(-1, -2))
-            mask = _pair_mask(i, j, blk, causal, window, q.device)
-            scores = torch.where(mask, scores, _NEG_INF).reshape(b, hq, blk, blk)
-            m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
-            safe_m = torch.where(m_new <= _NEG_INF / 2, 0.0, m_new)
-            # masked scores are -2e38: exp underflows to exactly 0
-            p = torch.exp(scores - safe_m)
-            corr = torch.where(m <= _NEG_INF / 2, 0.0, torch.exp(m - safe_m))
-            den = corr * den + p.sum(dim=-1, keepdim=True)
-            pv = torch.matmul(
-                p.reshape(b, hkv, g, blk, blk).to(v.dtype).to(torch.float32),
-                vh[:, :, None, keys].to(torch.float32),
-            ).reshape(b, hq, blk, dh)
-            acc = corr * acc + pv
-            m = m_new
-        out[:, :, rows] = acc / torch.clamp(den, min=1e-20)
+    out = _FlashCore.apply(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                           (causal, window, blk, tuple(pairs), scale))
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 

@@ -18,19 +18,28 @@ as it was.  `cache_len` is a 0-d int32 tensor on the model's device and no
 step reads anything back to the host, so a later change can capture decode
 as a CUDA graph.
 
-Not here: the training loss (`lm_loss`, `chunked_cross_entropy`) comes
-with LM training, and the reference's `hint_residual` is a no-op without a
-device mesh (ROADMAP.md queue A steps 3f and 3g).
+Training: `lm_loss` embeds the tokens, runs `backbone` (the layer stack
+without caches, one activation checkpoint a group of layers as
+`cfg.remat` says) and takes `chunked_cross_entropy` against the LM head,
+never building the (B, S, V) logits.  Nothing there reads a value back to
+the host.  The reference's `hint_residual` is a no-op without a device
+mesh, so it is left out (ROADMAP.md queue A step 3g).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
@@ -156,6 +165,104 @@ def embed_tokens(params: DenseLM, cfg: ModelConfig, tokens: torch.Tensor) -> tor
 def lm_head_weights(params: DenseLM, cfg: ModelConfig) -> torch.Tensor:
     """(D, V): the LM head, or the tied embedding transposed."""
     return params.embed.t() if cfg.tie_embeddings else params.lm_head
+
+
+# ---------------------------------------------------------------------------
+# Training: the layer stack and the chunked cross entropy
+# ---------------------------------------------------------------------------
+
+# Remat "block" keeps the outputs of the products without batch dimensions,
+# as the reference's `dots_with_no_batch_dims_saveable` does: the linears'
+# 2-D matmuls.  Attention's batched products (bmm) are recomputed, so no
+# (q block, kv block) score tensor is kept.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn, h: torch.Tensor) -> torch.Tensor:
+    """fn(h) under the reference's `_maybe_remat`: "none" runs it plainly, "full"
+    keeps only its input for the backward (a non-reentrant checkpoint), "block"
+    keeps its dots too.  Values are the same either way."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(h)
+    if cfg.remat not in ("full", "block"):
+        raise ValueError(f"{cfg.name}: remat={cfg.remat!r} is not none, block or full")
+    kw = {}
+    if cfg.remat == "block":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(fn, h, use_reentrant=False, **kw)
+
+
+def backbone(params: DenseLM, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor,
+             policy: ExecutionPolicy | None = None) -> torch.Tensor:
+    """Run the layer stack without a cache (training).  h: (B, S, D) -> (B, S, D),
+    after the final norm; each group of len(cfg.layer_pattern) layers is one
+    remat unit, as the reference's scan body is."""
+    _, g = group_geometry(cfg)
+
+    def group(start: int, hh: torch.Tensor) -> torch.Tensor:
+        for block in params.blocks[start:start + g]:
+            hh, _ = block(hh, positions=positions, attn_block=cfg.attn_block, policy=policy)
+        return hh
+
+    for start in range(0, len(params.blocks), g):
+        h = _remat(cfg, functools.partial(group, start), h)
+    return params.final_norm(h)
+
+
+def _ce_chunk(hh: torch.Tensor, w_out: torch.Tensor, ll: torch.Tensor,
+              mm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(masked NLL sum, mask sum) of one chunk: float32 logits (B, c, V), lse - gold."""
+    logits = (hh @ w_out).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, ll[..., None].to(torch.int64))[..., 0]
+    return ((lse - gold) * mm).sum(), mm.sum()
+
+
+def chunked_cross_entropy(h: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor, *,
+                          chunk: int, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Seq-chunked CE.  h: (B, S, D), w_out: (D, V), labels: (B, S) -> scalar float32.
+
+    Never builds (B, S, V): a chunk's logits live inside a non-reentrant
+    checkpoint (the reference's `@jax.checkpoint` body), so the backward
+    keeps only the chunk's inputs and recomputes its logits.  The chunk is
+    min(chunk, S), halved while it does not divide S; the masked NLL sum is
+    divided by max(mask sum, 1).
+    """
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk //= 2
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, s, chunk):
+        part = slice(c, c + chunk)
+        args = (h[:, part], w_out, labels[:, part], mask[:, part])
+        nll, n = (checkpoint(_ce_chunk, *args, use_reentrant=False) if torch.is_grad_enabled()
+                  else _ce_chunk(*args))
+        nll_sum = nll_sum + nll
+        cnt = cnt + n
+    return nll_sum / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params: DenseLM, cfg: ModelConfig, batch: dict,
+            policy: ExecutionPolicy | None = None) -> tuple[torch.Tensor, dict]:
+    """batch: {tokens (B, S), labels (B, S)} int tensors on the params' device ->
+    (loss, {"loss": loss}), the mean next-token NLL over every position."""
+    check_dense(cfg)
+    policy = resolve_policy(cfg, policy)
+    tokens = batch["tokens"]
+    h = embed_tokens(params, cfg, tokens)
+    h = backbone(params, cfg, h, torch.arange(tokens.shape[1], device=tokens.device)[None, :],
+                 policy=policy)
+    loss = chunked_cross_entropy(h, lm_head_weights(params, cfg), batch["labels"],
+                                 chunk=cfg.loss_chunk)
+    return loss, {"loss": loss}
 
 
 # ---------------------------------------------------------------------------

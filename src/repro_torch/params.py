@@ -1,7 +1,9 @@
 """Weight bridge: the JAX package's parameter trees <-> this package's modules.
 
 PointNet2 (`from_jax_params`, `to_jax_params`) and the dense LMs
-(`lm_from_jax_params`, `lm_to_jax_params`, at the end of this file).
+(`lm_from_jax_params`, `lm_to_jax_params`, and their train state in the
+reference's layout, `lm_state_to_tree`, `lm_state_from_tree`, at the end
+of this file).
 
 The tree is what the reference's `init_params` returns, with every leaf
 turned into a numpy array (`jax.tree.map(np.asarray, params)`): nested
@@ -195,10 +197,10 @@ def to_jax_params(params: PointNet2Params) -> dict:
 
 def _leaf_to_torch(value) -> torch.Tensor:
     """A numpy leaf as a CPU tensor of the same dtype and bytes (bf16 by its bits)."""
-    arr = np.ascontiguousarray(np.asarray(value))
+    arr = np.array(value, order="C")  # a C-ordered copy; a 0-d leaf stays 0-d
     if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(arr.copy())
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -262,14 +264,106 @@ def lm_from_jax_params(tree, cfg, device=None) -> DenseLM:
 def lm_to_jax_params(module: DenseLM) -> dict:
     """The reverse of `lm_from_jax_params`: the reference's tree, numpy leaves, each
     slot's leaves stacked over the groups."""
-    n_groups, g = group_geometry(module.cfg)
-    tree = _nest((_parts(n), _leaf_to_numpy(p)) for n, p in module.named_parameters()
-                 if not n.startswith("blocks."))
+    def to_numpy(tree):
+        if isinstance(tree, dict):
+            return {k: to_numpy(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_numpy(v) for v in tree]
+        return _leaf_to_numpy(tree)
+
+    return to_numpy(_lm_tree(named_jax_params(module), *group_geometry(module.cfg)))
+
+
+# -- the LM train state in the reference's layout ------------------------------------
+#
+# A checkpoint of {"params": DenseLM, "opt": AdamWState} through
+# `tree_leaves` would name layer i "blocks.i....": not the reference's tree,
+# whose blocks[slot] leaves are stacked over the groups.  The two functions
+# below convert the whole train state, the moments and the float32 master
+# copy stacked as the parameters are, so a checkpoint written by the port
+# is the one the reference writes from the same state.
+
+
+def _lm_tree(named: dict, n_groups: int, g: int, device=None) -> dict:
+    """{reference dotted name: tensor} of a DenseLM -> the reference's nested tree,
+    each slot's leaves stacked over the groups (new tensors) on `device`
+    (None: where the tensors lie).  Each tensor moves before it is stacked,
+    so a stack on the host takes no memory on the card."""
+
+    def leaf(t: torch.Tensor) -> torch.Tensor:
+        return t.detach() if device is None else t.detach().to(device)
+
+    tree = _nest((_parts(n), leaf(t)) for n, t in named.items() if not n.startswith("blocks."))
     tree["blocks"] = []
     for slot in range(g):
-        layers = [dict(module.blocks[grp * g + slot].named_parameters())
-                  for grp in range(n_groups)]
+        prefix = f"blocks.{slot}."
+        names = [n[len(prefix):] for n in named if n.startswith(prefix)]
         tree["blocks"].append(_nest(
-            (_parts(n), np.stack([_leaf_to_numpy(layer[n]) for layer in layers]))
-            for n in layers[0]))
+            (_parts(n), torch.stack([leaf(named[f"blocks.{grp * g + slot}.{n}"])
+                                     for grp in range(n_groups)]))
+            for n in names))
     return tree
+
+
+def _lm_leaf(tree: dict, name: str, g: int) -> torch.Tensor:
+    """The leaf of `tree` (the reference's layout) that holds port parameter `name`."""
+    parts = _parts(name)
+    group = None
+    if parts[0] == "blocks":
+        layer = parts[1]
+        node, parts, group = tree["blocks"][layer % g], parts[2:], layer // g
+    else:
+        node = tree
+    for part in parts:
+        node = node[part]
+    return node if group is None else node[group]
+
+
+def lm_state_to_tree(state: dict, device=None) -> dict:
+    """{"params": DenseLM, "opt": AdamWState} -> the reference's train state tree.
+
+    {"params": the LM tree of `lm_to_jax_params` as tensors, "opt":
+    AdamWState(step, mu, nu, master)} with mu, nu and master (None when
+    absent) stacked like the parameters.  The leaves are new tensors on
+    `device` (None: the state's; "cpu" stages a card's state through the
+    host; "meta" gives the structure alone, a restore's template);
+    `checkpoint.save_checkpoint` of this tree writes the reference's bytes.
+    """
+    module, opt = state["params"], state["opt"]
+    n_groups, g = group_geometry(module.cfg)
+
+    def tree(named):
+        return None if named is None else _lm_tree(named, n_groups, g, device)
+
+    step = opt.step if device is None else opt.step.to(device)
+    return {"params": tree(named_jax_params(module)),
+            "opt": type(opt)(step, tree(opt.mu), tree(opt.nu), tree(opt.master))}
+
+
+def lm_state_from_tree(state: dict, tree: dict) -> dict:
+    """Copy `tree` (the reference's layout, as `lm_state_to_tree` gives it and a
+    checkpoint restores it) into `state`'s own tensors in place; returns `state`.
+
+    Every leaf must have its target's shape and dtype, and the master copy
+    must be present in both or in neither.
+    """
+    module, opt = state["params"], state["opt"]
+    _, g = group_geometry(module.cfg)
+    src = tree["opt"]
+    if (opt.master is None) != (src.master is None):
+        raise ValueError("the tree and the state disagree on a float32 master copy")
+    pairs = [(opt.step, src.step, "opt.step")]
+    pairs += [(p, _lm_leaf(tree["params"], n, g), n)
+              for n, p in named_jax_params(module).items()]
+    for field in ("mu", "nu", "master"):
+        named = getattr(opt, field)
+        if named is not None:
+            pairs += [(t, _lm_leaf(getattr(src, field), n, g), f"opt.{field}.{n}")
+                      for n, t in named.items()]
+    with torch.no_grad():
+        for dst, value, where in pairs:
+            if tuple(value.shape) != tuple(dst.shape) or value.dtype != dst.dtype:
+                raise ValueError(f"{where}: {value.dtype} {tuple(value.shape)} does not match "
+                                 f"{dst.dtype} {tuple(dst.shape)}")
+            dst.copy_(value)
+    return state

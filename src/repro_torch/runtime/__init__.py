@@ -1,1 +1,1 @@
-"""Runtime support: heartbeat and straggler monitors (`fault_tolerance`) for serving and training."""
+"""Runtime support (`fault_tolerance`): the restart driver, heartbeat and straggler monitors."""

@@ -1,17 +1,18 @@
-"""Liveness and straggler detection for the serving replicas.
+"""Restart supervision, liveness and straggler detection.
 
 The replica pool (serve/dispatch.py) drives both monitors with in-process
 signals, and the training driver (launch/train.py) times its steps with
-the straggler monitor:
+the straggler monitor and supervises its LM loop with the restart driver:
 
+  run_with_restarts  — supervises a train loop; on any exception (a
+      simulated preemption or device loss) it resumes from the newest
+      complete checkpoint, up to max_restarts.  The data stream is
+      step-keyed, so a restart replays the exact schedule.
   StragglerMonitor   — per-batch wall time against the running median;
       flags batches slower than `threshold` x the median (recorded and
       reported through a callback, never evicted).
   HeartbeatMonitor   — background liveness thread; a missed deadline invokes
       the on_dead callback (the pool evicts the replica).
-
-The JAX package's training restart loop (`run_with_restarts`) waits for
-the LM substrate (ROADMAP.md, queue A item 11): only its LM training loop uses it.
 """
 
 from __future__ import annotations
@@ -97,3 +98,31 @@ class HeartbeatMonitor:
             if time.monotonic() - self._last > self.timeout_s and not self._fired:
                 self._fired = True
                 self.on_dead()
+
+
+def run_with_restarts(make_state, train_loop, *, ckpt_manager, max_restarts: int = 3,
+                      restore_device=None):
+    """Supervise `train_loop(state, start_step) -> (state, last_step)`.
+
+    make_state() builds a fresh state; where a complete checkpoint exists,
+    `ckpt_manager.restore_or_none(state, device=restore_device)` replaces it
+    (the reference's `restore_shardings` is the device here).  Returns
+    (state, last_step, n_restarts); the exception of the restart past
+    `max_restarts` propagates.
+    """
+    n_restarts = 0
+    while True:
+        state = make_state()
+        start_step = 0
+        restored = ckpt_manager.restore_or_none(state, device=restore_device)
+        if restored is not None:
+            state, start_step, _extra = restored
+        try:
+            state, last = train_loop(state, start_step)
+            ckpt_manager.wait()
+            return state, last, n_restarts
+        except Exception:  # noqa: BLE001 — a simulated preemption or hardware loss
+            n_restarts += 1
+            if n_restarts > max_restarts:
+                raise
+            ckpt_manager.wait()

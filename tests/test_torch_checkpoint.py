@@ -11,6 +11,8 @@ atomicity (an incomplete step is ignored), and keep/every garbage
 collection.
 """
 
+import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -29,7 +31,7 @@ from repro.optim import adamw_init as j_adamw_init
 from repro.optim import adamw_update as j_adamw_update
 from repro_torch.checkpoint import CheckpointManager, latest_step, load_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
-from repro_torch.launch.train import main
+from repro_torch.launch.train import train_lm
 from repro_torch.models.pointnet2 import PointNet2Params
 from repro_torch.optim import AdamWState, adamw_init, adamw_update
 from repro_torch.params import from_jax_params, to_jax_params, tree_leaves
@@ -236,8 +238,13 @@ def test_train_entry_point_leaves_a_checkpoint_jax_reads(tmp_path):
 
 
 def test_an_lm_arch_raises_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(["--arch", "stablelm-1.6b", "--smoke", "--steps", "1", "--device", "cpu"])
+    """The dense LMs train (tests/test_torch_lm_launch.py); an LM of a family the
+    port lacks (encdec, vlm, ...) raises the not-ported error before any step."""
+    cfg = dataclasses.replace(get_config("stablelm-1.6b", smoke=True), family="encdec")
+    args = argparse.Namespace(steps=1, batch=2, seq=16, lr=1e-3, seed=0, quant=None,
+                              ckpt_dir=None, ckpt_every=50, log_every=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="'encdec' family is not ported"):
+        train_lm(cfg, args)
 
 
 def test_adamw_state_saved_mid_training_resumes_bitwise(tmp_path):

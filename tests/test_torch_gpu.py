@@ -1605,3 +1605,143 @@ def test_lm_smoke_serving_on_the_card(cuda, name, quant, kv):
         assert torch.equal(sc_matmul_cuda(*args, **kw), sc_matmul_plain(*args, **kw))
     assert max(diffs) <= LM_CPU_ATOL["float" if (quant, kv) == ("none", "none")
                                      else "quantized"], diffs
+
+
+# -- dense LM training ---------------------------------------------------------------------
+
+# Card against the CPU at smoke width (float32), one batch: the loss within
+# LM_CPU_ATOL["float"] (float) or ["quantized"] (SC), the reasons above;
+# gradients within LM_TRAIN_GRAD_REL of each leaf's max |g|: float as the
+# matmul orders allow (~1e-6 relative a product, through 2-6 layers and the
+# flash backward).  SC: the nonzero pattern above 1e-30, then 1e-2 for every
+# leaf, a few times the worst reading.  A linear passes a gradient to its
+# input only through its quantizer's amax, and the float ops around the
+# bitwise SC kernel round otherwise on the card, so a one-quantum difference
+# reaches every leaf through the scale path.  Measured (H100; the test
+# prints its worst ratios under -rP), the largest over the norms' leaves /
+# the other leaves with a max of at least 1e-3 / the others: stablelm 1.09e-3 / 1.09e-3 / 0, starcoder2 1.60e-3 / 1.60e-3
+# / 1.60e-3, gemma3 7.3e-4 / 7.3e-4 / 2.19e-3, command-r-plus 1.1e-4 /
+# 6.8e-5 / 0 of the leaf's max.
+LM_TRAIN_GRAD_REL = {"none": 1e-4, "sc_w16a16": 1e-2}
+
+
+def _lm_grads(cfg, params, batch, pol):
+    from repro_torch.models import transformer as T
+    from repro_torch.params import named_jax_params
+
+    named = named_jax_params(params)
+    loss, _ = T.lm_loss(params, cfg, batch, policy=pol)
+    return loss.detach(), dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+
+@pytest.mark.parametrize("name", LM_DENSE)
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_lm_train_step_on_the_card_against_the_cpu(cuda, name, quant):
+    """Smoke width, float32, remat full, 2 x 48 tokens: lm_loss and every gradient
+    leaf on the card against the CPU from the same params.  Under SC every SC
+    call of the step is bitwise equal to the plain version, and the step makes 2 x
+    7 per layer (6 with starcoder2's dense MLP): each linear in the forward and
+    again in the backward's recompute.  Then three make_train_step steps, whose
+    losses stay within the same bound of the CPU's."""
+    import copy
+
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(name, smoke=True)
+    p_cpu = T.init_lm(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(cuda)
+    pol = ExecutionPolicy(quant=quant)
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48)).astype(np.int32))
+        batches.append({"tokens": toks, "labels": torch.roll(toks, -1, dims=1)})
+    on_card = {k: v.to(cuda) for k, v in batches[0].items()}
+    n_sc = 2 * (4 + (3 if cfg.mlp_kind == "glu" else 2)) * cfg.n_layers if quant != "none" else 0
+    registry.reset_launches()
+    (loss_gpu, g_gpu), calls = _record_sc(lambda: _lm_grads(cfg, p_gpu, on_card, pol))
+    torch.cuda.synchronize()
+    assert registry.launches()["sc_matmul"] == len(calls) == n_sc
+    for args, kw in calls:
+        assert torch.equal(sc_matmul_cuda(*args, **kw), sc_matmul_plain(*args, **kw))
+    loss_cpu, g_cpu = _lm_grads(cfg, p_cpu, batches[0], pol)
+    atol = LM_CPU_ATOL["float" if quant == "none" else "quantized"]
+    assert abs(loss_gpu.item() - loss_cpu.item()) <= atol
+    ratios, bad = {}, []
+    for k, want in g_cpu.items():
+        got = g_gpu[k].cpu().double()
+        want = want.double()
+        top = want.abs().max().item()
+        if quant != "none" and not torch.equal(got.abs() > 1e-30, want.abs() > 1e-30):
+            bad.append(f"{k}: nonzero pattern")
+        if top > 1e-30:
+            ratios[k] = (got - want).abs().max().item() / top
+            if ratios[k] > LM_TRAIN_GRAD_REL[quant]:
+                bad.append(f"{k}: {ratios[k]:.3e} of its max {top:.3e}")
+    norms = [r for k, r in ratios.items() if {"ln1", "ln2", "final_norm"} & set(k.split("."))]
+    print(f"{name} {quant}: gradients, the worst |card - cpu| / max: norms {max(norms):.3e}, "
+          f"all {max(ratios.values()):.3e}")
+    assert not bad, (bad, sorted(ratios.items(), key=lambda kv: -kv[1])[:6])
+    step_gpu = make_train_step(cfg, peak_lr=1e-3, warmup_steps=1, policy=pol)
+    step_cpu = make_train_step(cfg, peak_lr=1e-3, warmup_steps=1, policy=pol)
+    s_gpu, s_cpu = adamw_init(p_gpu), adamw_init(p_cpu)
+    for b in batches:
+        _, _, m_gpu = step_gpu(p_gpu, s_gpu, {k: v.to(cuda) for k, v in b.items()})
+        _, _, m_cpu = step_cpu(p_cpu, s_cpu, b)
+        assert m_gpu["loss"].is_cuda
+        assert abs(m_gpu["loss"].item() - m_cpu["loss"].item()) <= atol
+    assert int(s_gpu.step) == 3
+
+
+def test_lm_train_entry_point_on_the_card(tmp_path):
+    """python -m repro_torch.launch.train on an LM smoke config, on the card by
+    default, with checkpoints the CPU reads back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch.train import main
+
+    state = main(["--arch", "gemma3-12b", "--smoke", "--steps", "3", "--batch", "2",
+                  "--seq", "32", "--ckpt-dir", str(tmp_path)])
+    assert state["params"].embed.is_cuda and int(state["opt"].step) == 3
+    assert latest_step(str(tmp_path)) == 3
+
+
+def test_lm_train_checkpoint_stages_through_the_host(cuda, tmp_path):
+    """An LM checkpoint of a train state on the card, saved and restored through
+    LMCheckpoints, allocates no more on the card than its largest leaf (the
+    layers are stacked on the host, and a restore copies leaf by leaf into the
+    state's own tensors); the restored state equals the saved one bitwise."""
+    import dataclasses
+
+    from repro_torch.launch.train import LMCheckpoints
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.params import lm_state_to_tree, tree_leaves
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b", smoke=True), dtype_str="bfloat16")
+
+    def state(seed):
+        params = T.init_lm(cfg, generator=torch.Generator(device=cuda).manual_seed(seed),
+                           device=cuda)
+        return {"params": params, "opt": adamw_init(params)}
+
+    saved, fresh = state(0), state(1)
+    leaves = tree_leaves(lm_state_to_tree(saved, device="meta"))
+    largest = max(t.numel() * t.element_size() for t in leaves)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mgr = LMCheckpoints(str(tmp_path), every=1)
+    assert mgr.maybe_save(1, saved)
+    mgr.wait()
+    restored, step, _ = mgr.restore_or_none(fresh)
+    torch.cuda.synchronize()
+    assert restored is fresh and step == 1
+    assert torch.cuda.max_memory_allocated() - base <= largest
+    assert fresh["params"].embed.is_cuda
+    for a, b in zip(tree_leaves(lm_state_to_tree(saved, device="cpu")),
+                    tree_leaves(lm_state_to_tree(fresh, device="cpu"))):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -436,3 +436,27 @@ def test_lm_prefill_and_decode_take_no_host_data(name, kv, policy):
             tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     assert check.seen == []
     assert bool(torch.isfinite(logits).all()) and int(state.cache_len) == 10
+
+
+@pytest.mark.parametrize("name", ["stablelm-1.6b", "gemma3-12b"])
+@pytest.mark.parametrize("policy", [ExecutionPolicy(), SC], ids=["none", "sc_w16a16"])
+def test_lm_loss_and_its_backward_take_no_host_data(name, policy):
+    """The LM training loss and its gradient (the remat recompute, the chunked
+    cross entropy's checkpointed chunks and the flash attention backward
+    included), on a batch already in place, build no tensor from host data and
+    read nothing back, so a later change can capture the train step."""
+    from repro_torch.models import transformer as T
+    from repro_torch.params import named_jax_params
+
+    cfg = get_config(name, smoke=True)
+    params = T.init_lm(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(
+        np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 48)).astype(np.int32))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    named = named_jax_params(params)
+    check = _HostDataCheck()
+    with check:
+        loss, _ = T.lm_loss(params, cfg, batch, policy=policy)
+        grads = torch.autograd.grad(loss, list(named.values()))
+    assert check.seen == []
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)

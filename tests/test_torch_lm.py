@@ -202,8 +202,9 @@ def test_other_families_are_not_ported(family):
 
 def test_family_api_is_the_dense_one():
     api = families.get_family_api(get_config("gemma3-12b", smoke=True))
-    assert set(api) == {"init", "prefill", "decode_step", "init_decode_state"}
+    assert set(api) == {"init", "train_loss", "prefill", "decode_step", "init_decode_state"}
     assert api["init"] is T.init_lm and api["init_decode_state"] is T.init_decode_state
+    assert api["train_loss"] is T.lm_loss
 
 
 # -- the weight bridge -------------------------------------------------------------------

@@ -40,7 +40,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.configs.base", "repro_torch.configs.stablelm_1_6b",
             "repro_torch.configs.gemma3_12b", "repro_torch.models.layers",
             "repro_torch.models.transformer", "repro_torch.models.families",
-            "repro_torch.serve.step"} <= set(mods)
+            "repro_torch.serve.step", "repro_torch.train.step",
+            "repro_torch.data.tokens"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
