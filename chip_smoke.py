@@ -18,10 +18,12 @@ graph), and multi-device serving (a replica over a device group running
 the batch- and tensor-sharded artifacts, and the GPipe schedule), and
 the paper's comparison paths (baseline-1 global L2 FPS and ball query,
 baseline-2 grid tiles, standard aggregation), dense LM serving
-(make_serve_fns: stablelm-1.6b at full width and depth, gemma3-12b at
+(make_serve_fns: stablelm-1.6b at full width and 12 layers, gemma3-12b at
 full width and 6 layers, every linear on the SC matmul kernel under a
-quant policy), and dense LM training (make_train_step and train_lm, the
-SC kernel in the forward and in the remat recompute).  On
+quant policy), dense LM training (make_train_step and train_lm, the
+SC kernel in the forward and in the remat recompute), and the moe, ssm
+and hybrid LM families (granite-moe-3b-a800m, dbrx-132b, mamba2-1.3b,
+recurrentgemma-2b) through the same two entry points.  On
 the card the entry points replay captured CUDA graphs (core/graphs.py, the
 counterpart of the JAX package's jit artifacts) unless the caller enters
 graphs.eager(), which is the reference side of every graph check.
@@ -177,11 +179,12 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      sampling quality (L1 against L2 FPS through the FPS kernel, the lattice
      kernel's recall of the ball query's neighbours), equal to the CPU run;
  12. dense LM serving through make_serve_fns(cfg, policy).  stablelm-1.6b at
-     full width and depth in bf16 (weights drawn on the card from SEED)
+     full width in bf16, cut to LM_LAYERS (12) of its 24 layers since phase
+     14 came (weights drawn on the card from SEED)
      generates LM_NEW tokens for LM_BATCH prompts of LM_PROMPT tokens (caches
      of LM_S_MAX) under quant none, sc_w16a16 and sc_w8a8, each with float
      and int8 KV caches: generate, a prefill and a decode step are counted
-     (7 SC matmuls a layer a step under SC, 168 for 24 layers; none in
+     (7 SC matmuls a layer a step under SC, 84 for 12 layers; none in
      float), prefill's and decode's greedy tokens must be generate's, and
      every SC call of one eager prefill and decode step is held against the
      plain version bitwise, each new shape timed as phase 3 times its calls
@@ -197,11 +200,11 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      8 decode steps, float and sc_w16a16, counted, every SC call of a
      prefill and a decode step held bitwise and new shapes timed;
  13. dense LM training through make_train_step(cfg, policy=...), eager.
-     stablelm-1.6b at full width and depth in bf16 with remat "full"
+     stablelm-1.6b at full width and LM_LAYERS layers in bf16 with remat "full"
      (weights drawn on the card from SEED) takes LM_TRAIN_STEPS steps of
      LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens from data.tokens.token_stream under
-     quant none, sc_w16a16 and sc_w8a8, every step counted: 2 x 168 SC
-     launches a step under SC (each of the 7 linears of the 24 layers once
+     quant none, sc_w16a16 and sc_w8a8, every step counted: 2 x 84 SC
+     launches a step under SC (each of the 7 linears of the 12 layers once
      in the forward and once in the backward's recompute), none in float.
      Every SC call of step 1 is held against the plain version bitwise as it
      is made, and the new shapes (2048 rows) are timed as phase 3 times its
@@ -217,10 +220,37 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      LM_TRAIN_GRAD_TOL (SC: the nonzero pattern too).  Last, gemma3-12b at
      full width cut to one group of 6 layers, one sequence of 2048 tokens
      (past its 1024 window), GEMMA_TRAIN_STEPS float steps: losses finite,
-     step times and peak memory.
+     step times and peak memory;
+ 14. the moe, ssm and hybrid LM families (lm_families_phase), bf16,
+     weights drawn on the card from SEED.  Serving through
+     make_serve_fns under quant none, sc_w16a16 and sc_w8a8 (FAMILY_SERVE):
+     granite-moe-3b-a800m (32 layers, 4 x 128 + 16, also int8 caches),
+     mamba2-1.3b (48 layers, 4 x 128 + 16), recurrentgemma-2b (26 layers,
+     2 x 2176 + 8, past its 2048 window: the local caches keep 2048 rolled
+     entries) and dbrx-132b cut to 2 of its 40 layers (1 x 512 + 8: its
+     ~250 GB of bf16 weights do not fit in 80 GB; the run says so), each
+     with generate, a prefill and a decode step counted (the SC launches a
+     step lm_linears gives: 160, 96, 200, 10; none in float), the greedy
+     tokens of prefill and decode equal to generate's, every SC call of a
+     prefill and a decode step held against the plain version bitwise and
+     the FAMILY_TIMED_KN shapes (routers, mamba2's in_proj and out_proj,
+     the RG-LRU's square linears) timed as phase 3 times its calls; prefill
+     ms and decode ms a token (host clock, median of FAMILY_TIMED), busy and
+     idle share (profiled: decode always, prefill in float), the peak of
+     generate.  Training through
+     make_train_step (remat "full", FAMILY_TRAIN_STEPS steps of
+     FAMILY_TRAIN_ROWS tokens, quant none and sc_w16a16) for granite,
+     mamba2 and recurrentgemma at full width and depth: each step counted
+     (lm_linears(train=True): 320, 192, 384 SC launches), every SC call of
+     step 1 held bitwise, the float loss on step 1's batch must fall; step
+     ms, busy, idle, memory after init and peak.  Then each of the three at
+     smoke width on the card against the port's CPU run: prefill and
+     LM_CPU_STEPS teacher-forced decode steps within LM_CPU_TOL, under SC
+     the MoE's top-k picks equal (their count of differences printed, 0),
+     step 1's loss and gradients within phase 13's bounds.
 
 Then it prints one JSON line with every kernel's launches (summed over the
-counted runs of phases 4 and 6-13; a replay's are the launches its
+counted runs of phases 4 and 6-14; a replay's are the launches its
 capture recorded, which the profiled replays of phases 4, 6, 7 and 9 show
 the card running), error and times (summed over the calls recorded in
 phase 3, with a breakdown by path), the card line again, and as its last
@@ -355,11 +385,14 @@ COMPARISON_CORNERS = (("baseline1", "standard"), ("baseline2", "standard"),
 # fig12a's sampling quality: clouds, points a cloud, samples, query radius.
 QUALITY_CLOUDS, QUALITY_POINTS, QUALITY_K, QUALITY_RADIUS = 8, 512, 128, 0.3
 
-# LM phase (12): stablelm-1.6b at full width and depth in its config dtype
-# (bf16), weights drawn from SEED on the card; LM_BATCH prompts of LM_PROMPT
-# tokens, LM_NEW tokens generated each, caches of LM_S_MAX, under every quant
-# policy and KV-cache kind.
+# LM phase (12): stablelm-1.6b at full width in its config dtype (bf16), cut
+# to LM_LAYERS of its 24 layers, weights drawn from SEED on the card;
+# LM_BATCH prompts of LM_PROMPT tokens, LM_NEW tokens generated each, caches
+# of LM_S_MAX, under every quant policy and KV-cache kind.  Phases 12 and 13
+# ran it at all 24 layers until phase 14 pushed the whole run to ~1,050 s of
+# its 1,200 s limit; the run says so.
 LM_CFG = "stablelm-1.6b"
+LM_LAYERS = 12
 LM_BATCH, LM_PROMPT, LM_NEW, LM_S_MAX = 4, 128, 16, 256
 LM_QUANTS = ("none", "sc_w16a16", "sc_w8a8")
 LM_KV = ("none", "int8")
@@ -385,7 +418,7 @@ LM_BIG_OPS = 1e11
 LM_BIG_REPS = (20, 3, 10)
 GEMMA_BIG_REPS = (5, 2, 3)
 
-# LM training phase (13): stablelm-1.6b at full width and depth in bf16 with
+# LM training phase (13): stablelm-1.6b at full width and LM_LAYERS layers in bf16 with
 # its remat "full", weights drawn on the card from SEED, LM_TRAIN_STEPS steps
 # of make_train_step on LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens of token_stream
 # (drawn on the CPU as train_lm's prefetch thread draws them) under every
@@ -426,6 +459,36 @@ GEMMA_TRAIN_ROWS, GEMMA_TRAIN_STEPS = (1, 2048), 2
 # train_lm itself, which `python -m repro_torch.launch.train` runs: a
 # few steps of stablelm under SC.
 LM_ENTRY_STEPS, LM_ENTRY_QUANT = 2, "sc_w16a16"
+
+# LM families phase (14): the moe, ssm and hybrid families in their config dtype
+# (bf16), weights drawn on the card from SEED.  Serving through make_serve_fns
+# under FAMILY_QUANTS, each (config, layers kept or None for all, prompts,
+# prompt tokens, tokens generated); recurrentgemma's prompts pass its 2048
+# window, so prefill rolls its local caches.  dbrx-132b's 40 layers of 16
+# experts of 6144 x 10752 (~250 GB in bf16) do not fit in 80 GB: it keeps 2.
+FAMILY_SERVE = (
+    ("granite-moe-3b-a800m", None, 4, 128, 16),
+    ("mamba2-1.3b", None, 4, 128, 16),
+    ("recurrentgemma-2b", None, 2, 2176, 8),
+    ("dbrx-132b", 2, 1, 512, 8),
+)
+FAMILY_QUANTS = ("none", "sc_w16a16", "sc_w8a8")
+FAMILY_TIMED = 3  # host-clock timings: the median of this many calls
+# The SC products this phase times beside float64 torch.matmul, by (K, N):
+# the routers, mamba2's in_proj and out_proj, the RG-LRU's square linears;
+# at every row count the W16A16 runs give them.
+FAMILY_TIMED_KN = {(1536, 40), (6144, 16), (2048, 8512), (4096, 2048), (2560, 2560)}
+# Training through make_train_step, remat "full": FAMILY_TRAIN_STEPS steps of
+# FAMILY_TRAIN_ROWS tokens a step from token_stream, under quant none and
+# sc_w16a16 (warmup over one step, then LM_TRAIN_LR).
+FAMILY_TRAIN = ("granite-moe-3b-a800m", "mamba2-1.3b", "recurrentgemma-2b")
+FAMILY_TRAIN_ROWS, FAMILY_TRAIN_STEPS = (8, 256), 4
+# The card against the port's CPU run, at smoke width (the smoke configs:
+# granite and mamba2 at 2 layers, recurrentgemma at 5, one group and two
+# remainder layers; float32): prefill of FAMILY_CPU_ROWS and LM_CPU_STEPS
+# teacher-forced decode steps within LM_CPU_TOL, step 1's loss and gradients
+# within phase 13's bounds, and under SC the MoE's top-k picks equal.
+FAMILY_CPU_ROWS = (2, 24)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -2609,10 +2672,38 @@ def comparison_phase(torch, cfgs: dict, params: dict, batches: dict, registry, c
     return counted, report
 
 
-def lm_linears(cfg) -> int:
+def lm_linears(cfg, train: bool = False) -> int:
     """SC matmuls of one LM prefill or decode step: wq, wk, wv, wo and the MLP's
-    three (GLU) or two (dense) linears, every layer; the LM head is a float matmul."""
-    return (4 + (3 if cfg.mlp_kind == "glu" else 2)) * cfg.n_layers
+    three (GLU) or two (dense) linears, every layer; the LM head is a float matmul.
+    moe: the attention's 4 and the router (the experts are plain batched
+    products); ssm: in_proj and out_proj; hybrid: an RG-LRU layer's 5 (in_x,
+    in_y, gate_a, gate_x, out) or a local attention's 4, and the GLU's 3.
+    train: one training step under remat "full", each linear once in the forward
+    and once in the backward's recompute of its remat unit, but for the hybrid's
+    remainder layers, which the reference does not remat."""
+    kinds = cfg.pattern_for_layers()
+    if cfg.family == "ssm":
+        per = [2] * cfg.n_layers
+    elif cfg.family == "moe":
+        per = [4 + 1] * cfg.n_layers
+    elif cfg.family == "hybrid":
+        per = [(5 if t == "recurrent" else 4) + 3 for t in kinds]
+    else:
+        per = [4 + (3 if cfg.mlp_kind == "glu" else 2)] * cfg.n_layers
+    if not train:
+        return sum(per)
+    rem = cfg.n_layers % len(cfg.layer_pattern) if cfg.family == "hybrid" else 0
+    return 2 * sum(per) - sum(per[len(per) - rem:])
+
+
+def stablelm_cut(what: str):
+    """stablelm-1.6b at full width cut to LM_LAYERS layers, the cut said."""
+    from repro_torch.configs import get_config
+
+    full = get_config(LM_CFG)
+    say(f"{what}: {full.name} cut to {LM_LAYERS} of its {full.n_layers} layers, so that the "
+        "whole run, phase 14 included, stays well inside its time limit")
+    return dataclasses.replace(full, n_layers=LM_LAYERS)
 
 
 def lm_phase(torch, registry, card: str, timed: set) -> tuple[dict, dict]:
@@ -2696,8 +2787,8 @@ def lm_phase(torch, registry, card: str, timed: set) -> tuple[dict, dict]:
                                               "port_kernels_seen", "sessions", "top")}
         return out
 
-    # -- stablelm-1.6b: full width and depth, bf16 ------------------------------------
-    base = get_config(LM_CFG)
+    # -- stablelm-1.6b: full width, LM_LAYERS of its layers, bf16 ----------------------
+    base = stablelm_cut("lm")
     n_lin = lm_linears(base)
     t0 = time.perf_counter()
     params = T.init_lm(base, generator=torch.Generator("cuda").manual_seed(SEED), device="cuda")
@@ -2957,8 +3048,8 @@ def lm_train_phase(torch, registry, card: str, timed: set) -> tuple[dict, dict]:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # -- stablelm-1.6b: full width and depth, bf16, remat "full" -------------------------
-    base = get_config(LM_CFG)
+    # -- stablelm-1.6b: full width, LM_LAYERS of its layers, bf16, remat "full" ---------
+    base = stablelm_cut("lm train")
     n_fwd = lm_linears(base)
     train = stream_batches(base, (LM_TRAIN_BATCH, LM_TRAIN_SEQ), LM_TRAIN_STEPS)
     for q in LM_QUANTS:
@@ -3127,6 +3218,384 @@ def lm_train_phase(torch, registry, card: str, timed: set) -> tuple[dict, dict]:
     report["phase_s"] = time.perf_counter() - t_phase
     say(f"lm train phase: {report['phase_s']:.1f} s (stablelm {report['stablelm_s']:.1f} s, "
         f"against the CPU {report['cpu_check_s']:.1f} s)")
+    return counted, report
+
+
+def lm_families_phase(torch, registry, card: str, timed: set) -> tuple[dict, dict]:
+    """Phase 14: the moe, ssm and hybrid LM families through make_serve_fns and
+    make_train_step, the SC matmul at their shapes.
+
+    `timed` holds the call signatures already timed.  Returns the launch
+    counts of each counted run and the numbers to report.
+    """
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.data.tokens import token_stream
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.families import get_family_api
+    from repro_torch.optim import adamw_init
+    from repro_torch.params import named_jax_params
+    from repro_torch.serve import make_serve_fns
+    from repro_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    counted = {}
+    report = {"card": card, "serving": {}, "training": {}, "cpu": {}}
+    spec = registry.get("sc_matmul")
+    rows, timed = [], set(timed)
+    rng = np.random.default_rng(SEED + 14)
+    cuda = torch.device("cuda")
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def want_sc(n_sc: int) -> dict[str, int]:
+        return {**dict.fromkeys(KERNELS, 0), "sc_matmul": n_sc}
+
+    def check_launches(label: str, n_sc: int) -> None:
+        got = {n: registry.launches()[n] for n in KERNELS}
+        counted[label] = got
+        if got != want_sc(n_sc):
+            fail(f"lm families, {label}: launches {got}, expected {want_sc(n_sc)}")
+
+    def counted_run(label: str, run, n_sc: int):
+        registry.reset_launches()
+        out = run()
+        sync()
+        check_launches(label, n_sc)
+        return out
+
+    def held_run(label: str, run, timing: bool) -> tuple:
+        """run() with every SC call held against the plain version as it is made,
+        bitwise; with `timing`, the first call at each (K, N) of FAMILY_TIMED_KN and
+        row count not timed before is kept.  Returns (run()'s result, calls made,
+        kept calls)."""
+        made, bad, kept = [0], [], []
+
+        def hold(*args, **kw):
+            got = spec.cuda(*args, **kw)
+            want = spec.plain(*args, **kw)
+            made[0] += 1
+            if not torch.equal(got, want):
+                bad.append((made[0], [tuple(a.shape) for a in args if torch.is_tensor(a)],
+                            (got.double() - want.double()).abs().max().item()))
+            sig = call_signature(torch, "sc_matmul", args, kw)
+            if timing and (args[0].shape[1], args[1].shape[1]) in FAMILY_TIMED_KN and (
+                    sig not in timed):
+                timed.add(sig)
+                kept.append(([a.clone() if torch.is_tensor(a) else a for a in args], dict(kw)))
+            return got
+
+        registry.register("sc_matmul", plain=spec.plain, cuda=hold)
+        try:
+            out = run()
+            sync()
+        finally:
+            registry.register("sc_matmul", plain=spec.plain, cuda=spec.cuda)
+        if bad:
+            fail(f"lm families, {label}: SC calls (index, shapes, max |diff|) {bad[:5]} differ "
+                 "from the plain version")
+        return out, made[0], kept
+
+    def time_kept(label: str, kept: list) -> None:
+        for args, kw in kept:
+            big = bound("sc_matmul", args, kw, None)[1] > LM_BIG_OPS
+            rows.append(time_call(torch, "sc_matmul", spec, args, kw, None, label,
+                                  reps=LM_BIG_REPS if big else (50, 5, 20)))
+
+    def peak_mib(run) -> float:
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run()
+        sync()
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    def profiled(label: str, fn, wall: float, n_sc: int) -> dict:
+        prof = profile_run(torch, fn, wall, registry, f"lm families, {label}")
+        if prof["port_kernels_seen"]["sc_matmul"] != n_sc:
+            fail(f"lm families, {label}: the card ran {prof['port_kernels_seen']} of the "
+                 f"port's kernels, expected {n_sc} SC matmuls")
+        return {k: prof[k] for k in ("busy_ms", "idle_share", "kernels_launched",
+                                     "port_kernels_seen", "sessions", "top")}
+
+    def init(cfg):
+        return get_family_api(cfg)["init"](
+            cfg, generator=torch.Generator("cuda").manual_seed(SEED), device="cuda")
+
+    # -- serving at full width (dbrx cut to 2 layers) ----------------------------------
+    t0 = time.perf_counter()
+    for name, layers, b, prompt, new in FAMILY_SERVE:
+        base = get_config(name)
+        if layers is not None:
+            say(f"lm families: {name} cut to {layers} of its {base.n_layers} layers "
+                f"({base.n_experts} experts of {base.d_model} x {base.d_ff} a layer, "
+                f"{base.param_count() * 2 / 1e9:.0f} GB of bf16 weights in all, do not fit in "
+                "the card's 80 GB)")
+            base = dataclasses.replace(base, n_layers=layers)
+        n_lin = lm_linears(base)
+        t1 = time.perf_counter()
+        params = init(base)
+        sync()
+        n_params = sum(p.numel() for p in params.parameters())
+        say(f"lm families: {base.name} ({base.family}, {base.n_layers} layers, d_model "
+            f"{base.d_model}, {base.dtype}, {n_params:,} parameters) drawn on the card in "
+            f"{time.perf_counter() - t1:.1f} s, {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+            "allocated")
+        batch = {"tokens": rng.integers(0, base.vocab_size, (b, prompt)).astype(np.int32)}
+        s_max = prompt + new
+        runs = [(q, "none") for q in FAMILY_QUANTS]
+        if base.family == "moe" and layers is None:
+            runs.insert(1, ("none", "int8"))
+        for q, kv in runs:
+            cfg = dataclasses.replace(base, kv_quant=kv)
+            pol = ExecutionPolicy(quant=q)
+            n_sc = n_lin if q != "none" else 0
+            label = (f"{base.name}[{base.n_layers} layers] quant={q}"
+                     + (f" kv={kv}" if kv != "none" else ""))
+            t_run = time.perf_counter()
+            fns = make_serve_fns(cfg, pol, device="cuda")
+            box = {}
+            peak = peak_mib(lambda: box.update(gen=counted_run(
+                f"{label} generate", lambda: fns["generate"](params, batch, steps=new,
+                                                             s_max=s_max), n_sc * new)))
+            gen = box.pop("gen").cpu()
+            if gen.shape != (b, new) or not bool(((gen >= 0) & (gen < base.vocab_size)).all()):
+                fail(f"lm families, {label}: generated {tuple(gen.shape)} tokens, some out "
+                     "of range")
+            logits, state = counted_run(f"{label} prefill",
+                                        lambda: fns["prefill"](params, batch, s_max), n_sc)
+            if logits.shape != (b, 1, base.vocab_size) or not bool(torch.isfinite(logits).all()):
+                fail(f"lm families, {label}: prefill logits {tuple(logits.shape)}, not all "
+                     "finite")
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            if not torch.equal(tok.cpu(), gen[:, :1]):
+                fail(f"lm families, {label}: prefill's greedy token differs from generate's")
+            _, nxt, state1 = counted_run(
+                f"{label} decode", lambda: fns["decode"](params, state, {"token": tok}), n_sc)
+            if int(state1.cache_len) != prompt + 1 or not torch.equal(nxt.cpu(), gen[:, 1:2]):
+                fail(f"lm families, {label}: decode's state or greedy token differs from "
+                     "generate's")
+            extra = {}
+            if base.family == "hybrid":  # the local caches keep the window, rolled
+                local = base.layer_pattern.index("local")
+                extra["local_cache"] = state.group_caches[local].k.shape[2]
+                if extra["local_cache"] != min(s_max, base.window):
+                    fail(f"lm families, {label}: local caches of {extra['local_cache']}")
+            worst = None
+            if q != "none":
+                with torch.inference_mode():
+                    _, made, kept = held_run(label, lambda: fns["decode"](
+                        params, fns["prefill"](params, batch, s_max)[1], {"token": tok}),
+                        timing=q == "sc_w16a16")
+                if made != 2 * n_sc:
+                    fail(f"lm families, {label}: a prefill and a decode step made {made} SC "
+                         f"calls, expected {2 * n_sc}")
+                worst = 0.0
+                time_kept(label, kept)
+
+            def synced(fn):
+                return lambda: (fn(), sync())
+
+            prefill = (lambda: fns["prefill"](params, batch, s_max))
+            decode = (lambda: fns["decode"](params, state, {"token": tok}))
+            t = {"prefill_ms": median_ms(synced(prefill), reps=FAMILY_TIMED),
+                 "decode_ms_per_token": median_ms(synced(decode), reps=FAMILY_TIMED)}
+            t["decode"] = profiled(f"{label} decode", decode, t["decode_ms_per_token"], n_sc)
+            if kv == "none" and q == "none":  # recurrentgemma's prefill: ~40k kernels a session
+                t["prefill"] = profiled(f"{label} prefill", prefill, t["prefill_ms"], n_sc)
+            t.update(peak_generate_mib=peak, max_abs_err_kernel_vs_plain=worst,
+                     launches={"prefill": n_sc, "decode_step": n_sc, "generate": n_sc * new},
+                     prompts=b, prompt_tokens=prompt, new_tokens=new, parameters=n_params,
+                     tokens=gen[0].tolist(), **extra)
+            t["run_s"] = time.perf_counter() - t_run
+            report["serving"][label] = t
+            say(f"lm families, {label}: generate {b} x {prompt} + {new} tokens, launches "
+                f"{n_sc} SC a step"
+                + ("" if worst is None else ", every SC call of a prefill and a decode step "
+                   "== plain")
+                + (f", local caches of {extra['local_cache']} (rolled)" if extra else "")
+                + f"; (host clock, median of {FAMILY_TIMED}; {card}) prefill "
+                f"{t['prefill_ms']:.3f} ms"
+                + (f" (busy {t['prefill']['busy_ms']:.3f} ms, idle "
+                   f"{t['prefill']['idle_share']:.3f})" if "prefill" in t else "")
+                + f", decode {t['decode_ms_per_token']:.3f} ms/token (busy "
+                f"{t['decode']['busy_ms']:.3f} ms, idle {t['decode']['idle_share']:.3f}, "
+                f"{t['decode']['kernels_launched']} kernels); peak allocated by generate "
+                f"{peak:.1f} MiB; this run {t['run_s']:.1f} s")
+        del params, state, state1, logits
+        free()
+    report["serving_s"] = time.perf_counter() - t0
+
+    # -- training at full width, remat "full" -------------------------------------------
+    t0 = time.perf_counter()
+    for name in FAMILY_TRAIN:
+        base = get_config(name)
+        stream = token_stream(SEED, *FAMILY_TRAIN_ROWS, base.vocab_size, device="cpu")
+        train = [batch for _, (_, batch) in zip(range(FAMILY_TRAIN_STEPS), stream)]
+        for q in ("none", "sc_w16a16"):
+            pol = ExecutionPolicy(quant=q)
+            n_sc = lm_linears(base, train=True) if q != "none" else 0
+            label = f"{base.name} quant={q}"
+            t_run = t1 = time.perf_counter()
+            params = init(base)
+            state = adamw_init(params)
+            step_fn = make_train_step(base, peak_lr=LM_TRAIN_LR, warmup_steps=1,
+                                      total_steps=FAMILY_TRAIN_STEPS, policy=pol)
+            on_card = [{k: v.to(cuda) for k, v in bt.items()} for bt in train]
+            sync()
+            init_s = time.perf_counter() - t1
+            state_mib = torch.cuda.memory_allocated() / 2**20
+            registry.reset_launches()
+            t1 = time.perf_counter()
+            out, made, kept = held_run(label, lambda: step_fn(params, state, on_card[0]),
+                                       timing=q != "none")
+            m = out[2]
+            del out
+            first_ms = (time.perf_counter() - t1) * 1e3
+            check_launches(f"{label} train step 1", n_sc)
+            if made != n_sc:
+                fail(f"lm families, {label}: train step 1 made {made} SC calls, expected {n_sc}")
+            time_kept(f"{label} train", kept)
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            losses, step_ms = [m["loss"]], []
+            for i, bt in enumerate(on_card[1:], start=2):
+                registry.reset_launches()
+                sync()
+                t1 = time.perf_counter()
+                m = step_fn(params, state, bt)[2]
+                sync()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                check_launches(f"{label} train step {i}", n_sc)
+                losses.append(m["loss"])
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            losses = [x.item() for x in losses]
+            if not all(np.isfinite(losses)) or not np.isfinite(m["grad_norm"].item()):
+                fail(f"lm families, {label}: losses {losses}, grad_norm {m['grad_norm'].item()}")
+            learned = None
+            if q == "none":  # the float loss on step 1's batch falls
+                with torch.no_grad():
+                    learned = get_family_api(base)["train_loss"](params, base, on_card[0],
+                                                                 policy=pol)[0].item()
+                if not learned < losses[0]:
+                    fail(f"lm families, {label}: the loss on step 1's batch went "
+                         f"{losses[0]:.4f} -> {learned:.4f} in {FAMILY_TRAIN_STEPS} steps")
+            step_med = float(np.median(step_ms))
+            prof = profiled(f"{label} train step", lambda: step_fn(params, state, on_card[1]),
+                            step_med, n_sc)
+            report["training"][label] = {
+                "tokens_a_step": FAMILY_TRAIN_ROWS[0] * FAMILY_TRAIN_ROWS[1], "init_s": init_s,
+                "losses": losses, "loss_after_on_batch_1": learned, "first_step_ms": first_ms,
+                "eager_step_ms": step_med, "step_ms": step_ms, **prof,
+                "state_mib": state_mib, "peak_allocated_mib": peak, "sc_launches_a_step": n_sc,
+                "run_s": time.perf_counter() - t_run}
+            say(f"lm families, train {label}: {FAMILY_TRAIN_STEPS} steps of "
+                f"{FAMILY_TRAIN_ROWS[0]} x {FAMILY_TRAIN_ROWS[1]} tokens, losses "
+                f"{[f'{x:.4f}' for x in losses]}"
+                + (f" (step 1's batch after: {learned:.4f})" if learned is not None else "")
+                + f"; {n_sc} SC launches a step"
+                + (", every SC call of step 1 == plain" if n_sc else "")
+                + f"; (host clock, median of {len(step_ms)}; {card}) step {step_med:.3f} ms "
+                f"(first {first_ms:.1f}), busy {prof['busy_ms']:.3f} ms, idle "
+                f"{prof['idle_share']:.3f}, {prof['kernels_launched']} kernels; allocated "
+                f"{state_mib:.1f} MiB after init, peak {peak:.1f} MiB; this run "
+                f"{report['training'][label]['run_s']:.1f} s")
+            del params, state, step_fn, on_card, m, kept
+            free()
+    report["training_s"] = time.perf_counter() - t0
+
+    # -- against the port's CPU run, at smoke width ---------------------------------------
+    t0 = time.perf_counter()
+    picks = {"cuda": [], "cpu": []}
+    real_route = moe_mod.route
+
+    def recording_route(cfg, logits):
+        probs = torch.softmax(logits, dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True)[1][..., :cfg.top_k]
+        picks[logits.device.type].append(top.cpu())
+        return real_route(cfg, logits)
+
+    for name in FAMILY_TRAIN:
+        cfg = get_config(name, smoke=True)
+        api = get_family_api(cfg)
+        p_cpu = api["init"](cfg, generator=torch.Generator().manual_seed(SEED), device="cpu")
+        p_gpu = copy.deepcopy(p_cpu).to(cuda)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, FAMILY_CPU_ROWS).astype(np.int32)}
+        s_max = FAMILY_CPU_ROWS[1] + LM_CPU_STEPS
+        for q in ("none", "sc_w16a16"):
+            pol = ExecutionPolicy(quant=q)
+            label = f"{cfg.name}[smoke, {cfg.n_layers} layers] quant={q}"
+            fg, fc = make_serve_fns(cfg, pol, device="cuda"), make_serve_fns(cfg, pol,
+                                                                             device="cpu")
+            for side in picks.values():
+                side.clear()
+            moe_mod.route = recording_route
+            try:
+                lg, sg = fg["prefill"](p_gpu, batch, s_max)
+                lc, sc = fc["prefill"](p_cpu, batch, s_max)
+                diffs = [(lg.cpu() - lc).abs().max().item()]
+                tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+                for _ in range(LM_CPU_STEPS):  # teacher-forced: the card's tokens into both
+                    lg, nxt, sg = fg["decode"](p_gpu, sg, {"token": tok})
+                    lc, _, sc = fc["decode"](p_cpu, sc, {"token": tok.cpu()})
+                    diffs.append((lg.cpu() - lc).abs().max().item())
+                    tok = nxt
+            finally:
+                moe_mod.route = real_route
+            differing = sum(int((a != b).sum()) for a, b in zip(picks["cuda"], picks["cpu"]))
+            n_picks = sum(a.numel() for a in picks["cpu"])
+            if len(picks["cuda"]) != len(picks["cpu"]) or differing:
+                fail(f"lm families, {label}: {differing} of {n_picks} MoE top-k picks differ "
+                     "between the card and the CPU")
+            if not all(np.isfinite(diffs)) or max(diffs) > LM_CPU_TOL[q]:
+                fail(f"lm families, {label}: logits differ from the CPU run by {diffs} > "
+                     f"{LM_CPU_TOL[q]}")
+            named_g, named_c = named_jax_params(p_gpu), named_jax_params(p_cpu)
+            tb = {k: torch.from_numpy(v) for k, v in zip(
+                ("tokens", "labels"), (batch["tokens"], np.roll(batch["tokens"], -1, axis=1)))}
+            loss_g, _ = api["train_loss"](p_gpu, cfg, {k: v.to(cuda) for k, v in tb.items()},
+                                          policy=pol)
+            g_gpu = dict(zip(named_g, torch.autograd.grad(loss_g, list(named_g.values()))))
+            loss_c, _ = api["train_loss"](p_cpu, cfg, tb, policy=pol)
+            g_cpu = dict(zip(named_c, torch.autograd.grad(loss_c, list(named_c.values()))))
+            ldiff = abs(loss_g.item() - loss_c.item())
+            if not np.isfinite(ldiff) or ldiff > LM_TRAIN_LOSS_TOL[q]:
+                fail(f"lm families, {label}: loss {loss_g.item()} on the card, {loss_c.item()} "
+                     f"on the CPU (|diff| {ldiff} > {LM_TRAIN_LOSS_TOL[q]})")
+            gworst, gwhere = grads_agree(torch, g_gpu, g_cpu, q, tol=LM_TRAIN_GRAD_TOL,
+                                         what=f"lm families, {label}",
+                                         pattern_rel=LM_TRAIN_PATTERN_REL)
+            report["cpu"][label] = {"logit_max_abs_diff": diffs, "tolerance": LM_CPU_TOL[q],
+                                    "moe_picks": n_picks, "moe_picks_differing": differing,
+                                    "loss_card": loss_g.item(), "loss_cpu": loss_c.item(),
+                                    "grad_worst_rel": gworst, "grad_worst_leaf": gwhere}
+            say(f"lm families, {label}: card vs CPU, prefill of {FAMILY_CPU_ROWS[0]} x "
+                f"{FAMILY_CPU_ROWS[1]} and {LM_CPU_STEPS} teacher-forced decode steps: max "
+                f"|logit diff| {[f'{d:.3e}' for d in diffs]} <= {LM_CPU_TOL[q]}"
+                + (f"; MoE top-k picks differing: {differing} of {n_picks}"
+                   if cfg.family == "moe" else "")
+                + f"; train_loss {loss_g.item():.6f} / {loss_c.item():.6f}, gradients within "
+                f"{gworst:.3e} of each leaf's max (worst {gwhere})")
+        del p_gpu, p_cpu
+        free()
+    report["cpu_check_s"] = time.perf_counter() - t0
+
+    report["kernel_calls"] = rows
+    for r in rows:
+        say(f"lm families, sc_matmul {r['shapes']} n_planes={r['kw']['n_planes']} ({r['path']}): "
+            f"kernel {r['ms']:.4f} ms (enqueue {r['enqueue_ms']:.4f}), plain {r['plain_ms']:.4f} "
+            f"ms, float64 torch.matmul {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']})")
+    report["phase_s"] = time.perf_counter() - t_phase
+    say(f"lm families phase: {report['phase_s']:.1f} s (serving {report['serving_s']:.1f} s, "
+        f"training {report['training_s']:.1f} s, against the CPU {report['cpu_check_s']:.1f} s)")
     return counted, report
 
 
@@ -3455,6 +3924,16 @@ def main() -> None:
         "calls": len(train_rows), **{k: sum(r[k] for r in train_rows)
                                      for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
     say(json.dumps({"lm_train": lm_train_report, "lm_train_launches": lm_train_counted}))
+
+    # -- 14. the moe, ssm and hybrid LM families ------------------------------------------
+    fam_counted, fam_report = lm_families_phase(torch, registry, card, timed)
+    for n in KERNELS:
+        launches[n] += sum(c[n] for c in fam_counted.values())
+    fam_rows = fam_report["kernel_calls"]
+    summary["sc_matmul"]["by_path"]["lm_families"] = {
+        "calls": len(fam_rows), **{k: sum(r[k] for r in fam_rows)
+                                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+    say(json.dumps({"lm_families": fam_report, "lm_families_launches": fam_counted}))
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -2,10 +2,14 @@
 
     PYTHONPATH=src python examples/torch_serve_lm.py --device cpu
     PYTHONPATH=src python examples/torch_serve_lm.py --device cpu --arch gemma3-12b --quant sc_w16a16
+    PYTHONPATH=src python examples/torch_serve_lm.py --device cpu --arch mamba2-1.3b
     PYTHONPATH=src python examples/torch_serve_lm.py              # full stablelm-1.6b on the card
 
-The port's counterpart of examples/serve_lm.py, for the dense family
-(stablelm-1.6b, starcoder2-3b, gemma3-12b, command-r-plus-104b).  With
+The port's counterpart of examples/serve_lm.py, for every ported LM
+family: dense (stablelm-1.6b, starcoder2-3b, gemma3-12b,
+command-r-plus-104b), moe (granite-moe-3b-a800m, dbrx-132b, whose full
+config does not fit on one card), ssm (mamba2-1.3b) and hybrid
+(recurrentgemma-2b).  With
 --device cpu it serves the reduced (smoke) config on the CPU, with the
 kernels' plain versions; on the card it serves the full config, with
 seeded random weights drawn there.  --quant pins an ExecutionPolicy on the
@@ -22,7 +26,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.core.policy import ExecutionPolicy
-from repro_torch.models.transformer import init_lm
+from repro_torch.models.families import get_family_api
 from repro_torch.serve import make_serve_fns
 
 
@@ -41,7 +45,8 @@ def main():
     policy = ExecutionPolicy(quant=args.quant) if args.quant else None
     fns = make_serve_fns(cfg, policy=policy, device=device)
     t0 = time.time()
-    params = init_lm(cfg, generator=torch.Generator(device).manual_seed(0), device=device)
+    params = get_family_api(cfg)["init"](cfg, generator=torch.Generator(device).manual_seed(0),
+                                         device=device)
     print(f"{cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}) on {device}: "
           f"params in {time.time() - t0:.2f}s")
 

@@ -117,7 +117,8 @@ class ModelConfig:
 
 
 # Every architecture id of the JAX package; `configs.get_config` serves those
-# with a module here (the pointnet2 models and the dense LMs).
+# with a module here (the pointnet2 models and every LM but whisper-small and
+# internvl2-2b).
 ARCH_IDS = [
     "stablelm-1.6b",
     "gemma3-12b",

@@ -36,9 +36,13 @@ class Quantized(NamedTuple):
 
 
 def quantize_symmetric(
-    x: torch.Tensor, bits: int = 16, *, axis_name: str | None = None
+    x: torch.Tensor, bits: int = 16, axis=None, *, axis_name: str | None = None
 ) -> Quantized:
-    """Symmetric signed per-tensor quantization: q = round(x / s), s = max|x| / (2^(b-1)-1).
+    """Symmetric signed quantization: q = round(x / s), s = max|x| / (2^(b-1)-1).
+
+    The scale is per tensor, or with `axis` (a dim or tuple of dims) one per
+    slice along the other dims, kept as size-1 dims (the reference's
+    `keepdims=True`).
 
     Rounds half to even and clips to [-2^(b-1), 2^(b-1)-1], like the
     reference.  Every divisor is a tensor on x's device: a CUDA division by a
@@ -52,7 +56,7 @@ def quantize_symmetric(
     on x's device.
     """
     qmax = (1 << (bits - 1)) - 1
-    amax = x.abs().amax()
+    amax = x.abs().amax() if axis is None else x.abs().amax(dim=axis, keepdim=True)
     if axis_name is not None:
         amax = hints.all_max(amax, axis_name)
     qmax_t = torch.full((), qmax, dtype=x.dtype, device=x.device)  # no host copy: capturable

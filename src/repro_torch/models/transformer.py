@@ -1,12 +1,14 @@
-"""Decoder-only transformer LM of the `dense` family: the module, its seeded
-init, and serving (prefill and decode with stacked KV caches).
+"""Decoder-only transformer LM of the `dense` and `moe` families: the module,
+its seeded init, and serving (prefill and decode with stacked KV caches).
 
 The JAX package's `models/transformer.py` for stablelm-1.6b, starcoder2-3b,
-gemma3-12b and command-r-plus-104b.  The reference scans over groups of
-`len(cfg.layer_pattern)` layers with each slot's parameters stacked
-(n_groups, ...); here the layers are one `ModuleList` in order, layer i
-being group i // g, slot i % g (`group_geometry`), which is how
-`params.lm_from_jax_params` maps the stacked leaves.  Mixed local/global
+gemma3-12b and command-r-plus-104b (dense), and granite-moe-3b-a800m and
+dbrx-132b (moe), whose blocks put a routed mixture of experts
+(`models/moe.py`) where the dense blocks have their MLP.  The reference
+scans over groups of `len(cfg.layer_pattern)` layers with each slot's
+parameters stacked (n_groups, ...); here the layers are one `ModuleList`
+in order, layer i being group i // g, slot i % g (`group_geometry`), which
+is how `params.lm_from_jax_params` maps the stacked leaves.  Mixed local/global
 patterns (gemma3's 5:1) give each slot its own attention config, so each
 slot's sliding-window block pairs stay static.
 
@@ -54,16 +56,24 @@ from repro_torch.models.layers import (
     RMSNorm,
     quantize_kv,
 )
+from repro_torch.models.moe import MoE
 from repro_torch.models.nn import LayerNorm
 
 NOT_PORTED_FAMILY = ("{name}: the {family!r} family is not ported yet (ROADMAP.md queue A "
-                     "step 3); the port serves the dense LMs")
+                     "step 3e); the port serves the dense, moe, ssm and hybrid LMs")
+TRANSFORMER_FAMILIES = ("dense", "moe")
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless `cfg` is of the ported `dense` family."""
-    if cfg.family != "dense":
-        raise NotImplementedError(NOT_PORTED_FAMILY.format(name=cfg.name, family=cfg.family))
+def check_transformer(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError unless `cfg` is of a family this module runs
+    (dense, moe); ssm and hybrid run in `models.families`, and a ValueError
+    names a family no package knows."""
+    if cfg.family in TRANSFORMER_FAMILIES:
+        return
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(f"{cfg.name}: the {cfg.family!r} family runs through "
+                         "models.families.get_family_api, not the transformer")
+    raise NotImplementedError(NOT_PORTED_FAMILY.format(name=cfg.name, family=cfg.family))
 
 
 def attn_cfg_for(cfg: ModelConfig, slot_type: str) -> AttnConfig:
@@ -94,7 +104,8 @@ def _norm(cfg: ModelConfig, device, dtype) -> nn.Module:
 
 
 class Block(nn.Module):
-    """One pre-norm layer: h + attn(ln1 h), then h + mlp(ln2 h)."""
+    """One pre-norm layer: h + attn(ln1 h), then h + mlp(ln2 h); the mlp is an MoE
+    in the moe family."""
 
     def __init__(self, cfg: ModelConfig, slot_type: str, *,
                  generator: torch.Generator | None = None, device=None):
@@ -105,9 +116,12 @@ class Block(nn.Module):
         self.attn = Attention(attn_cfg_for(cfg, slot_type), generator=generator, device=device,
                               dtype=dtype)
         self.ln2 = _norm(cfg, device, dtype)
-        mlp = GLUMLP if cfg.mlp_kind == "glu" else DenseMLP
-        self.mlp = mlp(cfg.d_model, cfg.d_ff, bias=cfg.use_bias, act=cfg.act,
-                       generator=generator, device=device, dtype=dtype)
+        if cfg.family == "moe":
+            self.mlp = MoE(cfg, generator=generator, device=device, dtype=dtype)
+        else:
+            mlp = GLUMLP if cfg.mlp_kind == "glu" else DenseMLP
+            self.mlp = mlp(cfg.d_model, cfg.d_ff, bias=cfg.use_bias, act=cfg.act,
+                           generator=generator, device=device, dtype=dtype)
 
     def forward(self, h: torch.Tensor, *, positions: torch.Tensor, attn_block: int,
                 policy: ExecutionPolicy | None = None, **attn_kw):
@@ -121,13 +135,14 @@ class Block(nn.Module):
 
 
 class DenseLM(nn.Module):
-    """The dense LM's parameters: `embed` (V, D), `blocks` (layer i = group i // g,
-    slot i % g), `final_norm`, and `lm_head` (D, V) unless the embeddings are tied."""
+    """A dense or moe LM's parameters: `embed` (V, D), `blocks` (layer i = group
+    i // g, slot i % g), `final_norm`, and `lm_head` (D, V) unless the embeddings
+    are tied."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None = None,
                  device=None):
         super().__init__()
-        check_dense(cfg)
+        check_transformer(cfg)
         group_geometry(cfg)
         self.cfg = cfg
         dtype = cfg.dtype
@@ -182,7 +197,7 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat(cfg: ModelConfig, fn, h: torch.Tensor) -> torch.Tensor:
+def remat(cfg: ModelConfig, fn, h: torch.Tensor) -> torch.Tensor:
     """fn(h) under the reference's `_maybe_remat`: "none" runs it plainly, "full"
     keeps only its input for the backward (a non-reentrant checkpoint), "block"
     keeps its dots too.  Values are the same either way."""
@@ -209,7 +224,7 @@ def backbone(params: DenseLM, cfg: ModelConfig, h: torch.Tensor, positions: torc
         return hh
 
     for start in range(0, len(params.blocks), g):
-        h = _remat(cfg, functools.partial(group, start), h)
+        h = remat(cfg, functools.partial(group, start), h)
     return params.final_norm(h)
 
 
@@ -254,7 +269,7 @@ def lm_loss(params: DenseLM, cfg: ModelConfig, batch: dict,
             policy: ExecutionPolicy | None = None) -> tuple[torch.Tensor, dict]:
     """batch: {tokens (B, S), labels (B, S)} int tensors on the params' device ->
     (loss, {"loss": loss}), the mean next-token NLL over every position."""
-    check_dense(cfg)
+    check_transformer(cfg)
     policy = resolve_policy(cfg, policy)
     tokens = batch["tokens"]
     h = embed_tokens(params, cfg, tokens)
@@ -305,6 +320,22 @@ def init_decode_state(cfg: ModelConfig, batch: int, s_max: int, *, device=None) 
                                                                    device=dev))
 
 
+def fit_cache(t: torch.Tensor, s_eff: int, *, dim: int) -> torch.Tensor:
+    """A prefill's K or V of S positions along `dim` as a cache of s_eff: padded
+    with zeros when S < s_eff; else the last s_eff entries, rolled by S % s_eff so
+    that position p sits at slot p % s_eff (decode's write invariant)."""
+    s = t.shape[dim]
+    if s_eff > s:
+        pad = [0, 0] * (t.ndim - 1 - dim) + [0, s_eff - s]
+        return F.pad(t, pad)
+    if s_eff < s:
+        t = t.narrow(dim, s - s_eff, s_eff)
+        shift = s % s_eff
+        if shift:
+            t = torch.roll(t, shift, dims=dim)
+    return t
+
+
 def prefill(params: DenseLM, cfg: ModelConfig, tokens: torch.Tensor, s_max: int | None = None,
             policy: ExecutionPolicy | None = None):
     """Run the stack over the prompt: (last-position logits (B, 1, V) float32, DecodeState).
@@ -313,7 +344,7 @@ def prefill(params: DenseLM, cfg: ModelConfig, tokens: torch.Tensor, s_max: int 
     entries, rolled so that position p sits at slot p % S_eff (decode's
     invariant).
     """
-    check_dense(cfg)
+    check_transformer(cfg)
     policy = resolve_policy(cfg, policy)
     b, s = tokens.shape
     s_max = s_max or s
@@ -333,13 +364,7 @@ def prefill(params: DenseLM, cfg: ModelConfig, tokens: torch.Tensor, s_max: int 
         k = torch.stack([kv[0] for kv in kvs[slot]])  # (n_groups, B, S, Hkv, Dh)
         v = torch.stack([kv[1] for kv in kvs[slot]])
         s_eff = _s_eff(cfg, slot_type, s_max)
-        if s_eff > s:
-            k, v = (F.pad(t, (0, 0, 0, 0, 0, s_eff - s)) for t in (k, v))
-        elif s_eff < s:
-            k, v = k[:, :, -s_eff:], v[:, :, -s_eff:]
-            shift = s % s_eff
-            if shift:
-                k, v = torch.roll(k, shift, dims=2), torch.roll(v, shift, dims=2)
+        k, v = fit_cache(k, s_eff, dim=2), fit_cache(v, s_eff, dim=2)
         if cfg.kv_quant == "int8":
             kq, ks = quantize_kv(k)
             vq, vs = quantize_kv(v)
@@ -359,7 +384,7 @@ def decode_step(params: DenseLM, cfg: ModelConfig, state: DecodeState, token: to
     reference's clamped update).  A local slot writes at cache_len % S_eff and
     attends over min(cache_len + 1, S_eff) entries.
     """
-    check_dense(cfg)
+    check_transformer(cfg)
     policy = resolve_policy(cfg, policy)
     _, g = group_geometry(cfg)
     cl = state.cache_len

@@ -1,9 +1,9 @@
 """Weight bridge: the JAX package's parameter trees <-> this package's modules.
 
-PointNet2 (`from_jax_params`, `to_jax_params`) and the dense LMs
-(`lm_from_jax_params`, `lm_to_jax_params`, and their train state in the
-reference's layout, `lm_state_to_tree`, `lm_state_from_tree`, at the end
-of this file).
+PointNet2 (`from_jax_params`, `to_jax_params`) and the LMs of the dense,
+moe, ssm and hybrid families (`lm_from_jax_params`, `lm_to_jax_params`,
+and their train state in the reference's layout, `lm_state_to_tree`,
+`lm_state_from_tree`, at the end of this file).
 
 The tree is what the reference's `init_params` returns, with every leaf
 turned into a numpy array (`jax.tree.map(np.asarray, params)`): nested
@@ -28,7 +28,8 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.models.nn import MLP
 from repro_torch.models.pointnet2 import PointNet2Config, PointNet2Params
-from repro_torch.models.transformer import DenseLM, group_geometry
+from repro_torch.models.families import get_family_api, hybrid_geometry
+from repro_torch.models.transformer import group_geometry
 
 
 def _copy(param: torch.Tensor, value, where: str) -> None:
@@ -183,16 +184,23 @@ def to_jax_params(params: PointNet2Params) -> dict:
                  for n, p in named_jax_params(params).items())
 
 
-# -- the dense LMs -------------------------------------------------------------------
+# -- the LMs -------------------------------------------------------------------------
 #
-# The reference's LM tree is {"embed" (V, D), "final_norm" {g[, b]}, "lm_head"
-# (D, V) unless tied, "blocks": [one tree a slot]}, each slot's tree the
-# block's ({"ln1", "attn" {"wq", "wk", "wv", "wo"} {w[, b]}, "ln2", "mlp"
-# {"wi"[, "wg"], "wo"}}) with every leaf stacked over the groups, (n_groups,
-# ...) (`transformer.py:120-125` of the JAX package).  Layer i of the port's
-# `DenseLM.blocks` is group i // g, slot i % g.  bf16 leaves arrive as numpy
-# arrays of ml_dtypes' bfloat16, the dtype `np.asarray` gives a JAX bf16
-# array; they are carried over bit for bit.
+# The reference's LM trees (numpy leaves, as `jax.tree.map(np.asarray, params)`
+# gives them):
+#   dense / moe: {"embed" (V, D), "final_norm" {g[, b]}, "lm_head" (D, V) unless
+#     tied, "blocks": [one tree a slot]}, each slot's tree the block's ({"ln1",
+#     "attn" {"wq", "wk", "wv", "wo"} {w[, b]}, "ln2", "mlp" {"wi"[, "wg"], "wo"}},
+#     moe's "mlp" {"router" {w}, "wi", "wg", "wo"}) with every leaf stacked over
+#     the groups, (n_groups, ...) (`transformer.py:120-125` of the JAX package);
+#   ssm: {"embed", "blocks" {"norm", "mixer"} stacked over the L layers (one
+#     dict, not a list of slots), "final_norm"};
+#   hybrid: {"embed", "blocks": [one tree a slot, stacked over the groups],
+#     "rem": [one unstacked tree a remainder layer], "final_norm"}.
+# The port's layer i of `blocks` is group i // g, slot i % g (the ssm: g = 1);
+# the hybrid's `rem` are its own modules.  bf16 leaves arrive as numpy arrays
+# of ml_dtypes' bfloat16, the dtype `np.asarray` gives a JAX bf16 array; they
+# are carried over bit for bit.
 
 
 def _leaf_to_torch(value) -> torch.Tensor:
@@ -214,81 +222,85 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def _flat_tree(tree, prefix: str = "") -> dict:
-    """{dotted path: leaf} of nested dicts."""
+def _map_tree(tree, fn):
+    """fn over every leaf of nested dicts and lists."""
     if isinstance(tree, dict):
-        return {k: v for key, sub in tree.items()
-                for k, v in _flat_tree(sub, f"{prefix}{key}.").items()}
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _flat_tree(tree, prefix: str = "") -> dict:
+    """{dotted path: leaf} of nested dicts and lists."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        return {k: v for key, sub in items for k, v in _flat_tree(sub, f"{prefix}{key}.").items()}
     return {prefix[:-1]: tree}
 
 
-def _fill(params: dict, leaves: dict, where: str, group: int | None = None) -> None:
-    if set(params) != set(leaves):
-        raise ValueError(f"{where}: the tree holds {sorted(leaves)}, the config "
-                         f"{sorted(params)}")
-    for name, p in params.items():
-        t = _leaf_to_torch(leaves[name])
-        if group is not None:
-            t = t[group]
-        if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
-            raise ValueError(f"{where}.{name}: {t.dtype} {tuple(t.shape)} does not match "
-                             f"{p.dtype} {tuple(p.shape)}")
-        p.copy_(t)
+def lm_layout(cfg) -> tuple[int, int, str]:
+    """(n_groups, layers a group, family) of the reference's LM tree for `cfg`:
+    the ssm's blocks are its L layers stacked, g = 1."""
+    if cfg.family == "ssm":
+        return cfg.n_layers, 1, "ssm"
+    if cfg.family == "hybrid":
+        n_groups, g, _ = hybrid_geometry(cfg)
+        return n_groups, g, "hybrid"
+    return (*group_geometry(cfg), cfg.family)
 
 
-def lm_from_jax_params(tree, cfg, device=None) -> DenseLM:
-    """A DenseLM for `cfg` holding the reference's LM parameter tree (numpy leaves).
+def lm_from_jax_params(tree, cfg, device=None) -> torch.nn.Module:
+    """The family's module (`get_family_api(cfg)["init"]`) holding the reference's LM
+    parameter tree (numpy leaves).
 
-    Every leaf must have the config's shape and dtype.  device: where the
-    parameters end up ("cuda" by default, like every entry point).
+    The tree must hold exactly the config's leaves, each of its shape and
+    dtype.  device: where the parameters end up ("cuda" by default, like every
+    entry point).
     """
     dev = resolve_device(device)
-    module = DenseLM(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    n_groups, g = group_geometry(cfg)
-    if len(tree["blocks"]) != g:
-        raise ValueError(f"tree has {len(tree['blocks'])} slots, config has {g}")
+    module = get_family_api(cfg)["init"](cfg, generator=torch.Generator().manual_seed(0),
+                                         device="cpu")
+    layout = lm_layout(cfg)
+    want = _flat_tree(_lm_tree(named_jax_params(module), *layout, device="meta"))
+    torch_tree = _map_tree(tree, _leaf_to_torch)
+    got = _flat_tree(torch_tree)
+    if set(got) != set(want):
+        raise ValueError(f"the tree holds {sorted(set(got) - set(want))} beyond the config's "
+                         f"leaves and lacks {sorted(set(want) - set(got))}")
+    for path, t in got.items():
+        w = want[path]
+        if tuple(t.shape) != tuple(w.shape) or t.dtype != w.dtype:
+            raise ValueError(f"{path}: {t.dtype} {tuple(t.shape)} does not match "
+                             f"{w.dtype} {tuple(w.shape)}")
     with torch.no_grad():
-        _fill({n: p for n, p in module.named_parameters() if not n.startswith("blocks.")},
-              _flat_tree({k: v for k, v in tree.items() if k != "blocks"}), "top")
-        for i, block in enumerate(module.blocks):
-            slot, grp = i % g, i // g
-            leaves = _flat_tree(tree["blocks"][slot])
-            for name, leaf in leaves.items():
-                if np.shape(leaf)[0] != n_groups:
-                    raise ValueError(f"blocks[{slot}].{name}: {np.shape(leaf)[0]} groups, "
-                                     f"config has {n_groups}")
-            _fill(dict(block.named_parameters()), leaves, f"blocks[{slot}] group {grp}", grp)
+        for name, p in named_jax_params(module).items():
+            p.copy_(_lm_leaf(torch_tree, name, layout))
     return module.to(dev)
 
 
-def lm_to_jax_params(module: DenseLM) -> dict:
-    """The reverse of `lm_from_jax_params`: the reference's tree, numpy leaves, each
-    slot's leaves stacked over the groups."""
-    def to_numpy(tree):
-        if isinstance(tree, dict):
-            return {k: to_numpy(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_numpy(v) for v in tree]
-        return _leaf_to_numpy(tree)
-
-    return to_numpy(_lm_tree(named_jax_params(module), *group_geometry(module.cfg)))
+def lm_to_jax_params(module: torch.nn.Module) -> dict:
+    """The reverse of `lm_from_jax_params`: the reference's tree, numpy leaves, the
+    layers stacked as the reference stacks them."""
+    return _map_tree(_lm_tree(named_jax_params(module), *lm_layout(module.cfg)), _leaf_to_numpy)
 
 
 # -- the LM train state in the reference's layout ------------------------------------
 #
-# A checkpoint of {"params": DenseLM, "opt": AdamWState} through
-# `tree_leaves` would name layer i "blocks.i....": not the reference's tree,
-# whose blocks[slot] leaves are stacked over the groups.  The two functions
-# below convert the whole train state, the moments and the float32 master
-# copy stacked as the parameters are, so a checkpoint written by the port
-# is the one the reference writes from the same state.
+# A checkpoint of {"params": module, "opt": AdamWState} through `tree_leaves`
+# would name layer i "blocks.i....": not the reference's tree, whose layers
+# are stacked.  The two functions below convert the whole train state, the
+# moments and the float32 master copy stacked as the parameters are, so a
+# checkpoint written by the port is the one the reference writes from the
+# same state.
 
 
-def _lm_tree(named: dict, n_groups: int, g: int, device=None) -> dict:
-    """{reference dotted name: tensor} of a DenseLM -> the reference's nested tree,
-    each slot's leaves stacked over the groups (new tensors) on `device`
-    (None: where the tensors lie).  Each tensor moves before it is stacked,
-    so a stack on the host takes no memory on the card."""
+def _lm_tree(named: dict, n_groups: int, g: int, family: str = "dense",
+             device=None) -> dict:
+    """{reference dotted name: tensor} of an LM module -> the reference's nested tree
+    (`lm_layout`), each slot's leaves stacked over the groups (new tensors) on
+    `device` (None: where the tensors lie).  Each tensor moves before it is
+    stacked, so a stack on the host takes no memory on the card."""
 
     def leaf(t: torch.Tensor) -> torch.Tensor:
         return t.detach() if device is None else t.detach().to(device)
@@ -302,16 +314,22 @@ def _lm_tree(named: dict, n_groups: int, g: int, device=None) -> dict:
             (_parts(n), torch.stack([leaf(named[f"blocks.{grp * g + slot}.{n}"])
                                      for grp in range(n_groups)]))
             for n in names))
+    if family == "ssm":
+        tree["blocks"] = tree["blocks"][0]
+    if family == "hybrid":
+        tree.setdefault("rem", [])
     return tree
 
 
-def _lm_leaf(tree: dict, name: str, g: int) -> torch.Tensor:
+def _lm_leaf(tree: dict, name: str, layout: tuple) -> torch.Tensor:
     """The leaf of `tree` (the reference's layout) that holds port parameter `name`."""
+    _, g, family = layout
     parts = _parts(name)
     group = None
     if parts[0] == "blocks":
         layer = parts[1]
-        node, parts, group = tree["blocks"][layer % g], parts[2:], layer // g
+        node = tree["blocks"] if family == "ssm" else tree["blocks"][layer % g]
+        parts, group = parts[2:], layer // g
     else:
         node = tree
     for part in parts:
@@ -320,7 +338,7 @@ def _lm_leaf(tree: dict, name: str, g: int) -> torch.Tensor:
 
 
 def lm_state_to_tree(state: dict, device=None) -> dict:
-    """{"params": DenseLM, "opt": AdamWState} -> the reference's train state tree.
+    """{"params": LM module, "opt": AdamWState} -> the reference's train state tree.
 
     {"params": the LM tree of `lm_to_jax_params` as tensors, "opt":
     AdamWState(step, mu, nu, master)} with mu, nu and master (None when
@@ -330,10 +348,10 @@ def lm_state_to_tree(state: dict, device=None) -> dict:
     `checkpoint.save_checkpoint` of this tree writes the reference's bytes.
     """
     module, opt = state["params"], state["opt"]
-    n_groups, g = group_geometry(module.cfg)
+    layout = lm_layout(module.cfg)
 
     def tree(named):
-        return None if named is None else _lm_tree(named, n_groups, g, device)
+        return None if named is None else _lm_tree(named, *layout, device=device)
 
     step = opt.step if device is None else opt.step.to(device)
     return {"params": tree(named_jax_params(module)),
@@ -348,17 +366,17 @@ def lm_state_from_tree(state: dict, tree: dict) -> dict:
     must be present in both or in neither.
     """
     module, opt = state["params"], state["opt"]
-    _, g = group_geometry(module.cfg)
+    layout = lm_layout(module.cfg)
     src = tree["opt"]
     if (opt.master is None) != (src.master is None):
         raise ValueError("the tree and the state disagree on a float32 master copy")
     pairs = [(opt.step, src.step, "opt.step")]
-    pairs += [(p, _lm_leaf(tree["params"], n, g), n)
+    pairs += [(p, _lm_leaf(tree["params"], n, layout), n)
               for n, p in named_jax_params(module).items()]
     for field in ("mu", "nu", "master"):
         named = getattr(opt, field)
         if named is not None:
-            pairs += [(t, _lm_leaf(getattr(src, field), n, g), f"opt.{field}.{n}")
+            pairs += [(t, _lm_leaf(getattr(src, field), n, layout), f"opt.{field}.{n}")
                       for n, t in named.items()]
     with torch.no_grad():
         for dst, value, where in pairs:

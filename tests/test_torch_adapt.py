@@ -29,6 +29,7 @@ import jax
 import numpy as np
 import pytest
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.configs.pointnet2_cls import smoke_config as j_cls_smoke
 from repro.core.policy import ExecutionPolicy as JPolicy
 from repro.models import pointnet2 as JPN

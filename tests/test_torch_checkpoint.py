@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.checkpoint import load_checkpoint as j_load
 from repro.checkpoint import save_checkpoint as j_save
 from repro.configs.base import get_config as j_get_config

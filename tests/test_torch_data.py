@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.data import pointclouds as JD
 from repro_torch.data import pointclouds as TD
 

@@ -16,7 +16,10 @@ and a kernel on another card leaving the current device alone (the
 two-card tests skip below two cards).  And the paper's comparison paths:
 the FPS kernel under L2 at baseline-1's global shapes, the SC kernel at
 standard aggregation's row counts, and the five comparison corners'
-replays against eager with their launches.
+replays against eager with their launches.  Then the LMs: the SC kernel
+at every dense, moe, ssm and hybrid LM shape, the smoke configs served and
+trained on the card against plain and against the CPU (`-k lm`,
+`-k lm_families`), and tied MoE routing alike on both.
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test skips where
 torch.cuda.is_available() is false.  On the card:
@@ -1745,3 +1748,189 @@ def test_lm_train_checkpoint_stages_through_the_host(cuda, tmp_path):
     for a, b in zip(tree_leaves(lm_state_to_tree(saved, device="cpu")),
                     tree_leaves(lm_state_to_tree(fresh, device="cpu"))):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# -- the moe, ssm and hybrid LM families ------------------------------------------------
+
+LM_FAMILIES = ["granite-moe-3b-a800m", "dbrx-132b", "mamba2-1.3b", "recurrentgemma-2b"]
+
+
+def _lm_families_shapes():
+    """(M, K, N) of the SC matmul at the new families' full widths: the routers (K =
+    d_model, N = E: granite 1536 -> 40, dbrx 6144 -> 16) at decode rows 2-4 and
+    prefill rows; granite's and dbrx's attention projections; mamba2's in_proj
+    (2048 -> 8512) and out_proj (4096 -> 2048); recurrentgemma's RG-LRU linears
+    (2560 -> 2560), attention (2560 -> 2560 / 256) and GLU (2560 <-> 7680); at
+    decode rows (2, 4), prefill rows (512, 4352) and training rows (2048)."""
+    shapes = set()
+    for m in (2, 3, 4, 512):
+        shapes |= {(m, 1536, 40), (m, 6144, 16)}
+    for m in (4, 512, 2048):
+        shapes |= {(m, 1536, 1536), (m, 1536, 512), (m, 2048, 8512), (m, 4096, 2048)}
+    for m in (2, 512):
+        shapes |= {(m, 6144, 6144), (m, 6144, 1024)}
+    for m in (2, 4352):
+        shapes |= {(m, 2560, 2560), (m, 2560, 256), (m, 2560, 7680), (m, 7680, 2560)}
+    return sorted(shapes)
+
+
+def _family_sc_calls(cfg, train: bool = False) -> int:
+    """SC matmuls of one forward step (train: one training step, remat full): 4 for
+    attention, 1 for the MoE router, 2 for a Mamba-2 block, 5 for an RG-LRU block,
+    3 for a GLU MLP; training recomputes every remat unit once more, but for the
+    hybrid's remainder layers, which the reference does not remat."""
+    from repro_torch.models.families import hybrid_geometry
+
+    kinds = cfg.pattern_for_layers()
+    if cfg.family == "ssm":
+        per = [2] * cfg.n_layers
+    elif cfg.family == "moe":
+        per = [5] * cfg.n_layers
+    else:
+        per = [(5 if t == "recurrent" else 4) + 3 for t in kinds]
+    if not train:
+        return sum(per)
+    rem = hybrid_geometry(cfg)[2] if cfg.family == "hybrid" else 0
+    return 2 * sum(per) - sum(per[len(per) - rem:])
+
+
+@pytest.mark.parametrize("shape", _lm_families_shapes())
+@pytest.mark.parametrize("bits", [16, 8])
+def test_sc_matmul_kernel_at_lm_families_shapes(cuda, shape, bits):
+    """Every new shape of the moe, ssm and hybrid families, the N = 40 and N = 16
+    routers at 2-4 rows included."""
+    m, k, n = shape
+    x, w = _int_operands(m, k, n, bits, cuda, seed=m + 3 * k + n)
+    got = sc_matmul_cuda(x, w, n_planes=bits // 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc_matmul_plain(x, w, n_planes=bits // 4))
+
+
+@pytest.mark.parametrize("name", LM_FAMILIES)
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16", "sc_w8a8"])
+def test_lm_families_smoke_serving_on_the_card(cuda, name, quant):
+    """Smoke width: prefill of 2 x 12 (past the hybrid's window of 8) into caches of
+    20, then 3 decode steps fed the card's greedy tokens, on the card and on the CPU
+    from the same params: every SC call bitwise equal to the plain version, the
+    counted launches a step as the family's linears say, the logits within
+    LM_CPU_ATOL of the CPU's."""
+    import copy
+
+    from repro_torch.models.families import get_family_api
+    from repro_torch.serve import make_serve_fns
+
+    cfg = get_config(name, smoke=True)
+    p_cpu = get_family_api(cfg)["init"](cfg, generator=torch.Generator().manual_seed(0),
+                                        device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(cuda)
+    pol = ExecutionPolicy(quant=quant)
+    fg, fc = make_serve_fns(cfg, pol, device=cuda), make_serve_fns(cfg, pol, device="cpu")
+    batch = {"tokens": np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 12))}
+    n_sc = _family_sc_calls(cfg) if quant != "none" else 0
+    registry.reset_launches()
+    (lg, sg), calls = _record_sc(lambda: fg["prefill"](p_gpu, batch, 20))
+    torch.cuda.synchronize()
+    assert registry.launches()["sc_matmul"] == len(calls) == n_sc
+    lc, sc = fc["prefill"](p_cpu, batch, 20)
+    diffs = [(lg.cpu() - lc).abs().max().item()]
+    tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+    for _ in range(3):
+        registry.reset_launches()
+        (lg, nxt, sg), more = _record_sc(lambda: fg["decode"](p_gpu, sg, {"token": tok}))
+        torch.cuda.synchronize()
+        assert registry.launches()["sc_matmul"] == len(more) == n_sc
+        calls += more
+        lc, _, sc = fc["decode"](p_cpu, sc, {"token": tok.cpu()})
+        diffs.append((lg.cpu() - lc).abs().max().item())
+        tok = nxt
+    assert int(sg.cache_len) == 15
+    for args, kw in calls:
+        assert torch.equal(sc_matmul_cuda(*args, **kw), sc_matmul_plain(*args, **kw))
+    assert max(diffs) <= LM_CPU_ATOL["float" if quant == "none" else "quantized"], diffs
+
+
+@pytest.mark.parametrize("name", LM_FAMILIES)
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_lm_families_train_step_on_the_card_against_the_cpu(cuda, name, quant):
+    """Smoke width, float32, remat full, 2 x 48 tokens: train_loss and every gradient
+    leaf on the card against the CPU (LM_TRAIN_GRAD_REL; SC the nonzero pattern
+    too), every SC call of the step bitwise equal to the plain version and as many
+    as the remat rule gives; then one make_train_step step on each side."""
+    import copy
+
+    from repro_torch.models.families import get_family_api
+    from repro_torch.optim import adamw_init
+    from repro_torch.params import named_jax_params
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(name, smoke=True)
+    api = get_family_api(cfg)
+    p_cpu = api["init"](cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(cuda)
+    pol = ExecutionPolicy(quant=quant)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 48))
+                            .astype(np.int32))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+
+    def grads(params, b):
+        named = named_jax_params(params)
+        loss, _ = api["train_loss"](params, cfg, b, policy=pol)
+        return loss.detach(), dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    registry.reset_launches()
+    (loss_gpu, g_gpu), calls = _record_sc(lambda: grads(p_gpu, on_card))
+    torch.cuda.synchronize()
+    assert registry.launches()["sc_matmul"] == len(calls) == (
+        _family_sc_calls(cfg, train=True) if quant != "none" else 0)
+    for args, kw in calls:
+        assert torch.equal(sc_matmul_cuda(*args, **kw), sc_matmul_plain(*args, **kw))
+    loss_cpu, g_cpu = grads(p_cpu, batch)
+    atol = LM_CPU_ATOL["float" if quant == "none" else "quantized"]
+    assert abs(loss_gpu.item() - loss_cpu.item()) <= atol
+    bad = []
+    for k, want in g_cpu.items():
+        got, want = g_gpu[k].cpu().double(), want.double()
+        top = want.abs().max().item()
+        if quant != "none" and not torch.equal(got.abs() > 1e-30, want.abs() > 1e-30):
+            bad.append(f"{k}: nonzero pattern")
+        if top > 1e-30 and (got - want).abs().max().item() > LM_TRAIN_GRAD_REL[quant] * top:
+            bad.append(f"{k}: {(got - want).abs().max().item() / top:.3e} of its max")
+    assert not bad, bad
+    step_gpu = make_train_step(cfg, peak_lr=1e-3, warmup_steps=1, policy=pol)
+    step_cpu = make_train_step(cfg, peak_lr=1e-3, warmup_steps=1, policy=pol)
+    m_gpu = step_gpu(p_gpu, adamw_init(p_gpu), on_card)[2]
+    m_cpu = step_cpu(p_cpu, adamw_init(p_cpu), batch)[2]
+    assert m_gpu["loss"].is_cuda and abs(m_gpu["loss"].item() - m_cpu["loss"].item()) <= atol
+
+
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_lm_families_moe_ties_route_alike_on_the_card(cuda, quant):
+    """granite smoke's router with experts 1-3 tied on every token: the card's
+    routing (expert rows, columns, kept pairs) equals the CPU's bitwise, the lower
+    experts picked, its weights within 1e-6 (the softmax's order of operations
+    differs), and the MoE's outputs agree within LM_CPU_ATOL."""
+    import copy
+
+    from repro_torch.models import moe as M
+
+    cfg = get_config("granite-moe-3b-a800m", smoke=True)
+    m_cpu = M.MoE(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        m_cpu.router.w[:, 1:4] = 1.0
+        m_cpu.router.w[:, 0] = 0.5
+        m_cpu.router.w[:, 4:] = -1.0
+    m_gpu = copy.deepcopy(m_cpu).to(cuda)
+    x = torch.from_numpy(np.abs(np.random.default_rng(7).standard_normal((2, 12, cfg.d_model)))
+                         .astype(np.float32))
+    pol = ExecutionPolicy(quant=quant)
+    with torch.no_grad():
+        r_cpu = M.route(cfg, M.router_logits(m_cpu.router, x, pol))
+        r_gpu = M.route(cfg, M.router_logits(m_gpu.router, x.to(cuda), pol))
+        out_cpu = M.moe_apply(m_cpu, cfg, x, pol)
+        out_gpu = M.moe_apply(m_gpu, cfg, x.to(cuda), pol)
+    for i in (0, 1, 3):  # the expert rows, their columns and the kept pairs
+        assert torch.equal(r_gpu[i].cpu(), r_cpu[i])
+    assert (r_gpu[2].cpu() - r_cpu[2]).abs().max().item() <= 1e-6  # the softmax weights
+    assert set(torch.where(r_cpu[3], r_cpu[0], -1).unique().tolist()) <= {-1, 1, 2}
+    assert (out_gpu.cpu() - out_cpu).abs().max().item() <= LM_CPU_ATOL["float"]

@@ -32,6 +32,7 @@ import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.configs import get_config
 from repro_torch.core import graphs
 from repro_torch.core.accelerator import get_accelerator
@@ -457,6 +458,58 @@ def test_lm_loss_and_its_backward_take_no_host_data(name, policy):
     check = _HostDataCheck()
     with check:
         loss, _ = T.lm_loss(params, cfg, batch, policy=policy)
+        grads = torch.autograd.grad(loss, list(named.values()))
+    assert check.seen == []
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+FAMILIES = ["granite-moe-3b-a800m", "mamba2-1.3b", "recurrentgemma-2b"]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("policy", [ExecutionPolicy(), SC], ids=["none", "sc_w16a16"])
+def test_lm_family_prefill_and_decode_take_no_host_data(name, policy):
+    """The moe, ssm and hybrid families' prefill and decode_step, through the family
+    API on tokens and a state already in place, build no tensor from host data and
+    read nothing back: the MoE's routing (capacity from shapes, one-hot by
+    comparison), the SSM's and RG-LRU's states and the hybrid's rolling local
+    caches (a prompt of 7 and 3 steps pass its window of 8) stay on the device."""
+    from repro_torch.models.families import get_family_api
+
+    cfg = get_config(name, smoke=True)
+    api = get_family_api(cfg)
+    params = api["init"](cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 7)))
+    check = _HostDataCheck()
+    with torch.inference_mode(), check:
+        logits, state = api["prefill"](params, cfg, {"tokens": tokens}, 12, policy=policy)
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+        for _ in range(3):
+            logits, state = api["decode_step"](params, cfg, state, {"token": tok}, policy=policy)
+            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    assert check.seen == []
+    assert bool(torch.isfinite(logits).all()) and int(state.cache_len) == 10
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("policy", [ExecutionPolicy(), SC], ids=["none", "sc_w16a16"])
+def test_lm_family_loss_and_its_backward_take_no_host_data(name, policy):
+    """The moe, ssm and hybrid families' train_loss and its gradient (the remat
+    recompute of each layer or group included) build no tensor from host data and
+    read nothing back."""
+    from repro_torch.models.families import get_family_api
+    from repro_torch.params import named_jax_params
+
+    cfg = get_config(name, smoke=True)
+    api = get_family_api(cfg)
+    params = api["init"](cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(
+        np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 48)).astype(np.int32))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    named = named_jax_params(params)
+    check = _HostDataCheck()
+    with check:
+        loss, _ = api["train_loss"](params, cfg, batch, policy=policy)
         grads = torch.autograd.grad(loss, list(named.values()))
     assert check.seen == []
     assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.kernels.fps.ops import fps_tiles as j_fps_tiles
 from repro.kernels.knn3.ops import knn3 as j_knn3
 from repro.kernels.knn3.ref import knn3_ref as j_knn3_ref

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.core.policy import ExecutionPolicy as JPolicy
 from repro.models import layers as JL
 from repro_torch.core.policy import ExecutionPolicy

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from _lm import (
     SC_LOGIT_ATOL,
     assert_logits_close,

@@ -10,6 +10,7 @@ import jax
 import numpy as np
 import pytest
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from _lm import SC_LOGIT_ATOL, assert_logits_close, assert_sc_states_close, jax_case, port_case
 
 jax.config.update("jax_platform_name", "cpu")

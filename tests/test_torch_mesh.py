@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.launch.mesh import carve_device_groups as j_carve
 from repro.sharding.policy import REPLICA_SHARDING_MODES as J_MODES
 from repro_torch.configs import get_config

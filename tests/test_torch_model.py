@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.configs.pointnet2_cls import smoke_config as j_smoke_config
 from repro.core.policy import ExecutionPolicy as JPolicy
 from repro.models import nn as jnn

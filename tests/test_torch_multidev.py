@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from _multidev import run_in_child
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.optim import compression as j_compression
 from repro_torch.optim import compression as t_compression
 from repro_torch.parallel import pipeline_forward

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.serve import metrics as j_metrics_mod
 from repro.serve import obs as j_obs
 from repro.serve import trace as j_trace

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.core import fps as JF
 from repro.core import grouping as JGroup
 from repro.core import partition as JPart

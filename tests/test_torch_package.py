@@ -41,7 +41,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.configs.gemma3_12b", "repro_torch.models.layers",
             "repro_torch.models.transformer", "repro_torch.models.families",
             "repro_torch.serve.step", "repro_torch.train.step",
-            "repro_torch.data.tokens"} <= set(mods)
+            "repro_torch.data.tokens", "repro_torch.models.moe", "repro_torch.models.mamba2",
+            "repro_torch.models.rglru", "repro_torch.configs.granite_moe_3b_a800m",
+            "repro_torch.configs.dbrx_132b", "repro_torch.configs.mamba2_1_3b",
+            "repro_torch.configs.recurrentgemma_2b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

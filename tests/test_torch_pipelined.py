@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.configs.pointnet2_cls import smoke_config as j_cls_smoke
 from repro.core.accelerator import get_accelerator as j_get_accelerator
 from repro.core.engine import result_row as j_result_row

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.configs.pointnet2_seg import smoke_config as j_smoke_config
 from repro.core import query as JQuery
 from repro.core.policy import ExecutionPolicy as JPolicy

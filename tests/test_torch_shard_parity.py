@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.configs.pointnet2_cls import smoke_config as j_cls_smoke
 from repro.configs.pointnet2_seg import smoke_config as j_seg_smoke
 from repro.core.policy import ExecutionPolicy as JPolicy

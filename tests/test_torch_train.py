@@ -44,6 +44,7 @@ import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
+from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.configs.base import get_config as j_get_config
 from repro.core.accelerator import get_accelerator as j_get_accelerator
 from repro.core.policy import ExecutionPolicy as JPolicy
