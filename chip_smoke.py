@@ -21,9 +21,11 @@ baseline-2 grid tiles, standard aggregation), dense LM serving
 (make_serve_fns: stablelm-1.6b at full width and 12 layers, gemma3-12b at
 full width and 6 layers, every linear on the SC matmul kernel under a
 quant policy), dense LM training (make_train_step and train_lm, the
-SC kernel in the forward and in the remat recompute), and the moe, ssm
-and hybrid LM families (granite-moe-3b-a800m, dbrx-132b, mamba2-1.3b,
-recurrentgemma-2b) through the same two entry points.  On
+SC kernel in the forward and in the remat recompute), the moe, ssm and
+hybrid LM families (granite-moe-3b-a800m, dbrx-132b, mamba2-1.3b,
+recurrentgemma-2b) and the encdec and vlm families (whisper-small with its
+cross-attention, internvl2-2b with its patch connector) through the same
+two entry points.  On
 the card the entry points replay captured CUDA graphs (core/graphs.py, the
 counterpart of the JAX package's jit artifacts) unless the caller enters
 graphs.eager(), which is the reference side of every graph check.
@@ -243,14 +245,40 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      mamba2 and recurrentgemma at full width and depth: each step counted
      (lm_linears(train=True): 320, 192, 384 SC launches), every SC call of
      step 1 held bitwise, the float loss on step 1's batch must fall; step
-     ms, busy, idle, memory after init and peak.  Then each of the three at
+     ms, memory after init and peak, busy and idle of a profiled step, in
+     which the card must run as many SC kernels as were counted.  Then each of the three at
      smoke width on the card against the port's CPU run: prefill and
      LM_CPU_STEPS teacher-forced decode steps within LM_CPU_TOL, under SC
      the MoE's top-k picks equal (their count of differences printed, 0),
-     step 1's loss and gradients within phase 13's bounds.
+     step 1's loss and gradients within phase 13's bounds;
+ 15. the encdec and vlm LM families (lm_encdec_vlm_phase), bf16, full
+     width and depth, weights and stub frontend outputs drawn on the card
+     from SEED.  Serving through make_serve_fns under quant none,
+     sc_w16a16 and sc_w8a8 (ENCDEC_VLM_SERVE): whisper-small, 4 prompts of
+     64 tokens over ENCDEC_FRAMES (1536) stub encoder frames, s_max 128, 16
+     new tokens; internvl2-2b, 4 x (256 patches + 128 tokens), s_max 512,
+     16 new tokens.  A generate, a prefill and a decode step counted (SC
+     launches encdec_vlm_linears gives: 192 / 96 whisper, 169 / 168
+     internvl2; none in float), greedy tokens equal to generate's, float
+     caches of the shapes the reference's have (whisper's cross caches the
+     frames'), every SC call of a prefill and a decode step held bitwise
+     and the ENCDEC_VLM_TIMED_KN shapes timed as phase 3 times its calls;
+     prefill and decode ms (median of FAMILY_TIMED), busy and idle share
+     (profiled: decode always, prefill in float).  Training through
+     make_train_step (remat "full", ENCDEC_VLM_TRAIN_STEPS steps of
+     ENCDEC_VLM_TRAIN_ROWS tokens; whisper with the reference's zero
+     frames, internvl2 with seeded normal patches, since zero ones overflow
+     its gradient, in the reference too) under the three policies: 384 / 337 SC launches a step, step 1 held bitwise, the
+     float loss on step 1's batch must fall; step ms, memory after init and
+     peak, busy and idle of a profiled step, in which the card must run as
+     many SC kernels as were counted.  Then both at smoke width on
+     the card against the port's CPU run: prefill and LM_CPU_STEPS
+     teacher-forced decode steps within LM_CPU_TOL, step 1's loss and
+     gradients within phase 13's bounds (whisper's key biases, whose exact
+     gradient is zero, within ZERO_GRAD_REL of the largest).
 
 Then it prints one JSON line with every kernel's launches (summed over the
-counted runs of phases 4 and 6-14; a replay's are the launches its
+counted runs of phases 4 and 6-15; a replay's are the launches its
 capture recorded, which the profiled replays of phases 4, 6, 7 and 9 show
 the card running), error and times (summed over the calls recorded in
 phase 3, with a breakdown by path), the card line again, and as its last
@@ -490,6 +518,46 @@ FAMILY_TRAIN_ROWS, FAMILY_TRAIN_STEPS = (8, 256), 4
 # within phase 13's bounds, and under SC the MoE's top-k picks equal.
 FAMILY_CPU_ROWS = (2, 24)
 
+# LM encdec and vlm phase (15): whisper-small and internvl2-2b at full width and
+# depth in their config dtype (bf16), weights drawn on the card from SEED, the
+# stubbed frontends' outputs drawn there too.  Serving through make_serve_fns
+# under FAMILY_QUANTS, each (config, prompts, prompt tokens, tokens generated,
+# s_max); whisper's prompts attend to ENCDEC_FRAMES stub encoder frames
+# (whisper's own 1500 have no power-of-two divisor above 4, so the flash
+# attention's blocks would be 4 wide: 140,625 block pairs a layer in the
+# port's Python loop over pairs, ROADMAP.md queue B), internvl2's to its 256
+# patches, which its s_max counts.
+ENCDEC_VLM_SERVE = (
+    ("whisper-small", 4, 64, 16, 128),
+    ("internvl2-2b", 4, 128, 16, 512),
+)
+ENCDEC_FRAMES = 1536
+# The SC products this phase times beside float64 torch.matmul, by (K, N):
+# whisper's 768 -> 768 / 3072 and 3072 -> 768, internvl2's 2048 -> 2048 /
+# 1024 / 8192 and 8192 -> 2048; at every row count the W16A16 runs give them.
+ENCDEC_VLM_TIMED_KN = {(768, 768), (768, 3072), (3072, 768), (2048, 2048), (2048, 1024),
+                       (2048, 8192), (8192, 2048)}
+# Training through make_train_step, remat "full": ENCDEC_VLM_TRAIN_STEPS steps of
+# ENCDEC_VLM_TRAIN_ROWS tokens a step from token_stream, under FAMILY_QUANTS.
+# whisper takes the reference's zero stubs (as many encoder frames as
+# tokens).  internvl2 takes seeded normal patches (its 256 ahead of the
+# tokens), not the reference's zeros: a zero patch row stays zero through
+# every layer, and each RMSNorm's backward multiplies its gradient there by
+# rsqrt(eps) = 1000, which the attention carries into the layer below; the
+# gradient norm grows ~1e5 every two layers and overflows by 8 (smoke width,
+# the reference and the port alike: 9.0e4, 2.4e10, 3.7e16, inf at 2, 4, 6,
+# 8 layers), so at 24 layers every step is NaN.
+ENCDEC_VLM_TRAIN_ROWS, ENCDEC_VLM_TRAIN_STEPS = (8, 256), 4
+# The card against the port's CPU run at smoke width (float32): prefill of
+# FAMILY_CPU_ROWS with ENCDEC_CPU_FRAMES encoder frames (or the smoke config's
+# 8 patches) and LM_CPU_STEPS teacher-forced decode steps within LM_CPU_TOL,
+# step 1's loss and gradients within phase 13's bounds.  whisper's attention
+# key biases get zero gradient in exact arithmetic (the softmax cancels the
+# shift they add to a query's scores): both sides' are rounding noise, held
+# within ZERO_GRAD_REL of the tree's largest gradient, not to their own max.
+ENCDEC_CPU_FRAMES = 32
+ZERO_GRAD_REL = 1e-6
+
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS = 67e12
@@ -619,6 +687,12 @@ def device_kernels(torch, fn) -> dict[str, list]:
     (a one-call session of a kernel, behind 8 pads, recorded none), so fn() runs after
     PAD_KERNELS pad kernels (torch.cuda._sleep's PAD_KERNEL) and before
     one, and the pads are left out.
+
+    The session's raw records are read (the kineto results), not
+    `prof.events()`: that builds a Python event tree of every host-side
+    record too, tens of microseconds each, so tens of seconds for a train
+    step's session of ~38k kernels; names are demangled as `prof.events()`
+    demangles them.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -630,12 +704,19 @@ def device_kernels(torch, fn) -> dict[str, list]:
         fn()
         torch.cuda._sleep(1)
         torch.cuda.synchronize()
-    by_name: dict[str, list] = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA and PAD_KERNEL not in evt.name:
-            entry = by_name.setdefault(evt.name, [0, 0.0])
+    raw: dict[str, list] = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CUDA:
+            entry = raw.setdefault(evt.name(), [0, 0])
             entry[0] += 1
-            entry[1] += evt.time_range.elapsed_us() / 1e3
+            entry[1] += evt.end_ns() - evt.start_ns()
+    by_name: dict[str, list] = {}
+    for name, (n, ns) in raw.items():
+        name = torch._C._demangle(name) if len(name) > 1 else name
+        if PAD_KERNEL not in name:
+            entry = by_name.setdefault(name, [0, 0.0])
+            entry[0] += n
+            entry[1] += ns / 1e6
     return by_name
 
 
@@ -1855,18 +1936,28 @@ def deterministic(torch):
 
 
 def grads_agree(torch, got: dict, want: dict, quant: str, tol: dict = TRAIN_GRAD_TOL,
-                what: str = "training", pattern_rel: float = 0.0) -> tuple[float, str]:
+                what: str = "training", pattern_rel: float = 0.0,
+                zero: frozenset = frozenset()) -> tuple[float, str]:
     """The worst |got - want| / max|want| over the leaves, after the checks of
     `tol` (TRAIN_GRAD_TOL's keys) and, under SC, of the nonzero pattern: no
     entry at or below TRAIN_SC_FLOOR on one side where the other exceeds
-    max(TRAIN_SC_FLOOR, pattern_rel x the leaf's max).  Fails the phase,
-    naming every leaf out of bounds, if any is."""
+    max(TRAIN_SC_FLOOR, pattern_rel x the leaf's max).  The leaves named in
+    `zero`, whose exact gradient is zero, are held on both sides within
+    ZERO_GRAD_REL of the largest |want| of the tree instead.  Fails the
+    phase, naming every leaf out of bounds, if any is."""
     worst, where, bad = 0.0, "", []
+    largest = max(w.detach().abs().max().item() for w in want.values())
     for name, w in want.items():
         g = got[name].detach().cpu().double()
         w = w.detach().cpu().double()
         top = w.abs().max().item()
         diff = (g - w).abs().max().item()
+        if name in zero:
+            noise = max(top, g.abs().max().item())
+            if noise > ZERO_GRAD_REL * largest:
+                bad.append(f"{name}: a zero gradient's noise {noise:.3e} > "
+                           f"{ZERO_GRAD_REL * largest:.3e}")
+            continue
         if quant == "none":
             bound = tol["none"] * top
         else:
@@ -3221,61 +3312,96 @@ def lm_train_phase(torch, registry, card: str, timed: set) -> tuple[dict, dict]:
     return counted, report
 
 
-def lm_families_phase(torch, registry, card: str, timed: set) -> tuple[dict, dict]:
-    """Phase 14: the moe, ssm and hybrid LM families through make_serve_fns and
-    make_train_step, the SC matmul at their shapes.
+class MoEPicks:
+    """The MoE router's top-k picks on each side, recorded while entered (the
+    moe module's `route` swapped for a recorder that calls it): `check` fails
+    unless the card's picks equal the CPU's."""
 
-    `timed` holds the call signatures already timed.  Returns the launch
-    counts of each counted run and the numbers to report.
-    """
-    import copy
+    def __init__(self, torch):
+        from repro_torch.models import moe as moe_mod
 
-    from repro_torch.configs import get_config
-    from repro_torch.core.policy import ExecutionPolicy
-    from repro_torch.data.tokens import token_stream
-    from repro_torch.models import moe as moe_mod
-    from repro_torch.models.families import get_family_api
-    from repro_torch.optim import adamw_init
-    from repro_torch.params import named_jax_params
-    from repro_torch.serve import make_serve_fns
-    from repro_torch.train import make_train_step
+        self.torch, self.mod, self.real = torch, moe_mod, moe_mod.route
+        self.picks = {"cuda": [], "cpu": []}
 
-    t_phase = time.perf_counter()
-    counted = {}
-    report = {"card": card, "serving": {}, "training": {}, "cpu": {}}
-    spec = registry.get("sc_matmul")
-    rows, timed = [], set(timed)
-    rng = np.random.default_rng(SEED + 14)
-    cuda = torch.device("cuda")
+    def _route(self, cfg, logits):
+        probs = self.torch.softmax(logits, dim=-1)
+        top = self.torch.sort(probs, dim=-1, descending=True, stable=True)[1][..., :cfg.top_k]
+        self.picks[logits.device.type].append(top.cpu())
+        return self.real(cfg, logits)
 
-    def sync():
-        torch.cuda.synchronize()
+    def __enter__(self):
+        for side in self.picks.values():
+            side.clear()
+        self.mod.route = self._route
+        return self
 
-    def free() -> None:
+    def __exit__(self, *exc):
+        self.mod.route = self.real
+
+    def check(self, what: str) -> tuple[dict, str]:
+        """(report entries, note) of the picks recorded last."""
+        got, want = self.picks["cuda"], self.picks["cpu"]
+        differing = sum(int((a != b).sum()) for a, b in zip(got, want))
+        n_picks = sum(a.numel() for a in want)
+        if len(got) != len(want) or differing:
+            fail(f"{what}: {differing} of {n_picks} MoE top-k picks differ between the card "
+                 "and the CPU")
+        return ({"moe_picks": n_picks, "moe_picks_differing": differing},
+                f"; MoE top-k picks differing: {differing} of {n_picks}")
+
+
+class LMRuns:
+    """The runs of the LM family phases (14, 15), each into `report`: serving
+    (`serve`), training (`train`) and the card against the CPU (`against_cpu`),
+    with the counted, held, timed and profiled calls they are made of.
+
+    `what` names the phase in failures; `timed` holds the call signatures
+    already timed (copied), `timed_kn` the (K, N) of the SC products a held
+    run may keep for timing.  `counted` gathers the launch counts of every
+    counted run by label, `rows` the timed calls."""
+
+    def __init__(self, torch, registry, what: str, card: str, timed: set, timed_kn: set):
+        self.torch, self.registry, self.what, self.card = torch, registry, what, card
+        self.spec = registry.get("sc_matmul")
+        self.timed, self.timed_kn = set(timed), timed_kn
+        self.counted, self.rows = {}, []
+        self.report = {"card": card, "serving": {}, "training": {}, "cpu": {}}
+
+    def sync(self) -> None:
+        """Wait for the card."""
+        self.torch.cuda.synchronize()
+
+    def synced(self, fn):
+        """fn, then a wait for the card."""
+        return lambda: (fn(), self.sync())
+
+    def free(self) -> None:
+        """Collect and return the card's cached blocks."""
         gc.collect()
-        torch.cuda.empty_cache()
+        self.torch.cuda.empty_cache()
 
-    def want_sc(n_sc: int) -> dict[str, int]:
-        return {**dict.fromkeys(KERNELS, 0), "sc_matmul": n_sc}
+    def check_launches(self, label: str, n_sc: int) -> None:
+        """Every kernel's launches since the last reset: n_sc SC matmuls, nothing else."""
+        got = {n: self.registry.launches()[n] for n in KERNELS}
+        self.counted[label] = got
+        want = {**dict.fromkeys(KERNELS, 0), "sc_matmul": n_sc}
+        if got != want:
+            fail(f"{self.what}, {label}: launches {got}, expected {want}")
 
-    def check_launches(label: str, n_sc: int) -> None:
-        got = {n: registry.launches()[n] for n in KERNELS}
-        counted[label] = got
-        if got != want_sc(n_sc):
-            fail(f"lm families, {label}: launches {got}, expected {want_sc(n_sc)}")
-
-    def counted_run(label: str, run, n_sc: int):
-        registry.reset_launches()
+    def counted_run(self, label: str, run, n_sc: int):
+        """run() with the counters at 0 before it and checked after it."""
+        self.registry.reset_launches()
         out = run()
-        sync()
-        check_launches(label, n_sc)
+        self.sync()
+        self.check_launches(label, n_sc)
         return out
 
-    def held_run(label: str, run, timing: bool) -> tuple:
+    def held_run(self, label: str, run, timing: bool) -> tuple:
         """run() with every SC call held against the plain version as it is made,
-        bitwise; with `timing`, the first call at each (K, N) of FAMILY_TIMED_KN and
-        row count not timed before is kept.  Returns (run()'s result, calls made,
+        bitwise; with `timing`, the first call at each (K, N) of `timed_kn` and row
+        count not timed before is kept.  Returns (run()'s result, calls made,
         kept calls)."""
+        torch, spec = self.torch, self.spec
         made, bad, kept = [0], [], []
 
         def hold(*args, **kw):
@@ -3286,48 +3412,311 @@ def lm_families_phase(torch, registry, card: str, timed: set) -> tuple[dict, dic
                 bad.append((made[0], [tuple(a.shape) for a in args if torch.is_tensor(a)],
                             (got.double() - want.double()).abs().max().item()))
             sig = call_signature(torch, "sc_matmul", args, kw)
-            if timing and (args[0].shape[1], args[1].shape[1]) in FAMILY_TIMED_KN and (
-                    sig not in timed):
-                timed.add(sig)
+            if timing and (args[0].shape[1], args[1].shape[1]) in self.timed_kn and (
+                    sig not in self.timed):
+                self.timed.add(sig)
                 kept.append(([a.clone() if torch.is_tensor(a) else a for a in args], dict(kw)))
             return got
 
-        registry.register("sc_matmul", plain=spec.plain, cuda=hold)
+        self.registry.register("sc_matmul", plain=spec.plain, cuda=hold)
         try:
             out = run()
-            sync()
+            self.sync()
         finally:
-            registry.register("sc_matmul", plain=spec.plain, cuda=spec.cuda)
+            self.registry.register("sc_matmul", plain=spec.plain, cuda=spec.cuda)
         if bad:
-            fail(f"lm families, {label}: SC calls (index, shapes, max |diff|) {bad[:5]} differ "
+            fail(f"{self.what}, {label}: SC calls (index, shapes, max |diff|) {bad[:5]} differ "
                  "from the plain version")
         return out, made[0], kept
 
-    def time_kept(label: str, kept: list) -> None:
+    def time_kept(self, label: str, kept: list) -> None:
+        """Time the kept calls as phase 3 times its calls, into `rows`."""
         for args, kw in kept:
             big = bound("sc_matmul", args, kw, None)[1] > LM_BIG_OPS
-            rows.append(time_call(torch, "sc_matmul", spec, args, kw, None, label,
-                                  reps=LM_BIG_REPS if big else (50, 5, 20)))
+            self.rows.append(time_call(self.torch, "sc_matmul", self.spec, args, kw, None, label,
+                                       reps=LM_BIG_REPS if big else (50, 5, 20)))
 
-    def peak_mib(run) -> float:
-        sync()
+    def peak_mib(self, run) -> float:
+        """MiB allocated at run()'s peak above what was allocated before it."""
+        torch = self.torch
+        self.sync()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         run()
-        sync()
+        self.sync()
         return (torch.cuda.max_memory_allocated() - base) / 2**20
 
-    def profiled(label: str, fn, wall: float, n_sc: int) -> dict:
-        prof = profile_run(torch, fn, wall, registry, f"lm families, {label}")
+    def profiled(self, label: str, fn, wall: float, n_sc: int) -> dict:
+        """One profiled call of fn: busy, idle share, kernels; n_sc SC matmuls seen."""
+        prof = profile_run(self.torch, fn, wall, self.registry, f"{self.what}, {label}")
         if prof["port_kernels_seen"]["sc_matmul"] != n_sc:
-            fail(f"lm families, {label}: the card ran {prof['port_kernels_seen']} of the "
+            fail(f"{self.what}, {label}: the card ran {prof['port_kernels_seen']} of the "
                  f"port's kernels, expected {n_sc} SC matmuls")
         return {k: prof[k] for k in ("busy_ms", "idle_share", "kernels_launched",
                                      "port_kernels_seen", "sessions", "top")}
 
-    def init(cfg):
+    def init(self, cfg):
+        """cfg's family module, drawn on the card from SEED."""
+        from repro_torch.models.families import get_family_api
+
+        torch = self.torch
         return get_family_api(cfg)["init"](
             cfg, generator=torch.Generator("cuda").manual_seed(SEED), device="cuda")
+
+    def serve(self, label: str, cfg, params, batch: dict, q: str, *, s_max: int, new: int,
+              n_sc: tuple[int, int], prompt: str, profile_prefill: bool, ahead: int = 0,
+              check_state=None) -> None:
+        """cfg under quant q through make_serve_fns, into report["serving"][label]:
+        `new` tokens generated (counted, its peak memory taken), then a counted
+        prefill and decode step whose greedy tokens must be generate's first
+        two; under SC every SC call of a prefill and a decode step held against
+        the plain version (new shapes timed under sc_w16a16); host-clock
+        prefill and decode times, and profiles of a decode step and, with
+        `profile_prefill`, of a prefill.
+
+        n_sc: the SC launches of a prefill and of a decode step under SC;
+        `prompt` describes a prompt in the printed line; `ahead`: positions
+        before the prompt (a vlm's patches); check_state(prefill's state)
+        checks the caches and returns (report entries, printed note)."""
+        from repro_torch.core.policy import ExecutionPolicy
+        from repro_torch.serve import make_serve_fns
+
+        torch, what = self.torch, f"{self.what}, {label}"
+        b, n_tok = batch["tokens"].shape
+        n_pre, n_dec = n_sc if q != "none" else (0, 0)
+        n_gen = n_pre + (new - 1) * n_dec
+        t_run = time.perf_counter()
+        fns = make_serve_fns(cfg, ExecutionPolicy(quant=q), device="cuda")
+        box = {}
+        peak = self.peak_mib(lambda: box.update(gen=self.counted_run(
+            f"{label} generate", lambda: fns["generate"](params, batch, steps=new, s_max=s_max),
+            n_gen)))
+        gen = box.pop("gen").cpu()
+        if gen.shape != (b, new) or not bool(((gen >= 0) & (gen < cfg.vocab_size)).all()):
+            fail(f"{what}: generated {tuple(gen.shape)} tokens, some out of range")
+        logits, state = self.counted_run(f"{label} prefill",
+                                         lambda: fns["prefill"](params, batch, s_max), n_pre)
+        if logits.shape != (b, 1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+            fail(f"{what}: prefill logits {tuple(logits.shape)}, not all finite")
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        if not torch.equal(tok.cpu(), gen[:, :1]):
+            fail(f"{what}: prefill's greedy token differs from generate's")
+        _, nxt, state1 = self.counted_run(
+            f"{label} decode", lambda: fns["decode"](params, state, {"token": tok}), n_dec)
+        if int(state1.cache_len) != ahead + n_tok + 1 or not torch.equal(nxt.cpu(), gen[:, 1:2]):
+            fail(f"{what}: decode's state or greedy token differs from generate's")
+        extra, note = check_state(state) if check_state else ({}, "")
+        if q != "none":
+            with torch.inference_mode():
+                _, made, kept = self.held_run(label, lambda: fns["decode"](
+                    params, fns["prefill"](params, batch, s_max)[1], {"token": tok}),
+                    timing=q == "sc_w16a16")
+            if made != n_pre + n_dec:
+                fail(f"{what}: a prefill and a decode step made {made} SC calls, expected "
+                     f"{n_pre + n_dec}")
+            self.time_kept(label, kept)
+        prefill = (lambda: fns["prefill"](params, batch, s_max))
+        decode = (lambda: fns["decode"](params, state, {"token": tok}))
+        t = {"prefill_ms": median_ms(self.synced(prefill), reps=FAMILY_TIMED),
+             "decode_ms_per_token": median_ms(self.synced(decode), reps=FAMILY_TIMED)}
+        t["decode"] = self.profiled(f"{label} decode", decode, t["decode_ms_per_token"], n_dec)
+        if profile_prefill:
+            t["prefill"] = self.profiled(f"{label} prefill", prefill, t["prefill_ms"], n_pre)
+        t.update(peak_generate_mib=peak,
+                 max_abs_err_kernel_vs_plain=None if q == "none" else 0.0,
+                 launches={"prefill": n_pre, "decode_step": n_dec, "generate": n_gen},
+                 prompts=b, prompt_tokens=n_tok, positions_ahead=ahead, new_tokens=new,
+                 parameters=sum(p.numel() for p in params.parameters()),
+                 tokens=gen[0].tolist(), **extra)
+        t["run_s"] = time.perf_counter() - t_run
+        self.report["serving"][label] = t
+        say(f"{what}: generate {b} x {prompt} + {new} tokens, launches {n_pre} SC a prefill, "
+            f"{n_dec} a decode step"
+            + (", every SC call of a prefill and a decode step == plain" if q != "none" else "")
+            + note + f"; (host clock, median of {FAMILY_TIMED}; {self.card}) prefill "
+            f"{t['prefill_ms']:.3f} ms"
+            + (f" (busy {t['prefill']['busy_ms']:.3f} ms, idle "
+               f"{t['prefill']['idle_share']:.3f})" if "prefill" in t else "")
+            + f", decode {t['decode_ms_per_token']:.3f} ms/token (busy "
+            f"{t['decode']['busy_ms']:.3f} ms, idle {t['decode']['idle_share']:.3f}, "
+            f"{t['decode']['kernels_launched']} kernels); peak allocated by generate "
+            f"{peak:.1f} MiB; this run {t['run_s']:.1f} s")
+
+    def train(self, cfg, q: str, batches: list, n_sc: int, *, stubs: dict | None = None,
+              note: str = "") -> None:
+        """len(batches) steps of make_train_step from a fresh init under quant q
+        (warmup over one step, then LM_TRAIN_LR), into report["training"]: each
+        step's launches counted (n_sc SC matmuls under SC), every SC call of
+        step 1 held bitwise (new shapes timed under sc_w16a16), the losses
+        finite, the float loss on step 1's batch lower after the steps;
+        host-clock step times, one profiled step (busy, idle, n_sc SC kernels
+        seen on the card), memory after init and at the peak.  batches: token
+        batches on the CPU; stubs: a frontend's outputs on the card, added to
+        each; `note` describes them in the printed line."""
+        from repro_torch.core.policy import ExecutionPolicy
+        from repro_torch.models.families import get_family_api
+        from repro_torch.optim import adamw_init
+        from repro_torch.train import make_train_step
+
+        torch, cuda = self.torch, self.torch.device("cuda")
+        pol = ExecutionPolicy(quant=q)
+        n_sc = n_sc if q != "none" else 0
+        label = f"{cfg.name} quant={q}"
+        what = f"{self.what}, {label}"
+        bsz, seq = batches[0]["tokens"].shape
+        t_run = t1 = time.perf_counter()
+        params = self.init(cfg)
+        state = adamw_init(params)
+        step_fn = make_train_step(cfg, peak_lr=LM_TRAIN_LR, warmup_steps=1,
+                                  total_steps=len(batches), policy=pol)
+        on_card = [{**{k: v.to(cuda) for k, v in bt.items()}, **(stubs or {})} for bt in batches]
+        self.sync()
+        init_s = time.perf_counter() - t1
+        state_mib = torch.cuda.memory_allocated() / 2**20
+        self.registry.reset_launches()
+        t1 = time.perf_counter()
+        out, made, kept = self.held_run(label, lambda: step_fn(params, state, on_card[0]),
+                                        timing=q == "sc_w16a16")
+        m = out[2]
+        del out
+        first_ms = (time.perf_counter() - t1) * 1e3
+        self.check_launches(f"{label} train step 1", n_sc)
+        if made != n_sc:
+            fail(f"{what}: train step 1 made {made} SC calls, expected {n_sc}")
+        self.time_kept(f"{label} train", kept)
+        self.sync()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [m["loss"]], []
+        for i, bt in enumerate(on_card[1:], start=2):
+            self.registry.reset_launches()
+            self.sync()
+            t1 = time.perf_counter()
+            m = step_fn(params, state, bt)[2]
+            self.sync()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            self.check_launches(f"{label} train step {i}", n_sc)
+            losses.append(m["loss"])
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        losses = [x.item() for x in losses]
+        if not all(np.isfinite(losses)) or not np.isfinite(m["grad_norm"].item()):
+            fail(f"{what}: losses {losses}, grad_norm {m['grad_norm'].item()}")
+        learned = None
+        if q == "none":  # the float loss on step 1's batch falls
+            with torch.no_grad():
+                learned = get_family_api(cfg)["train_loss"](params, cfg, on_card[0],
+                                                            policy=pol)[0].item()
+            if not learned < losses[0]:
+                fail(f"{what}: the loss on step 1's batch went {losses[0]:.4f} -> "
+                     f"{learned:.4f} in {len(batches)} steps")
+        step_med = float(np.median(step_ms))
+        prof = self.profiled(f"{label} train step", lambda: step_fn(params, state, on_card[1]),
+                             step_med, n_sc)
+        entry = self.report["training"][label] = {
+            "tokens_a_step": bsz * seq, "layers": cfg.n_layers, "init_s": init_s,
+            "losses": losses, "loss_after_on_batch_1": learned, "first_step_ms": first_ms,
+            "eager_step_ms": step_med, "step_ms": step_ms, **prof,
+            "state_mib": state_mib, "peak_allocated_mib": peak, "sc_launches_a_step": n_sc,
+            "run_s": time.perf_counter() - t_run}
+        say(f"{self.what}, train {label}: {len(batches)} steps of {bsz} x {seq} tokens{note}, "
+            f"losses {[f'{x:.4f}' for x in losses]}"
+            + (f" (step 1's batch after: {learned:.4f})" if learned is not None else "")
+            + f"; {n_sc} SC launches a step"
+            + (", every SC call of step 1 == plain" if n_sc else "")
+            + f"; (host clock, median of {len(step_ms)}; {self.card}) step {step_med:.3f} ms "
+            f"(first {first_ms:.1f}), busy {prof['busy_ms']:.3f} ms, idle "
+            f"{prof['idle_share']:.3f}, {prof['kernels_launched']} kernels; allocated "
+            f"{state_mib:.1f} MiB after init, peak {peak:.1f} MiB; this run {entry['run_s']:.1f} s")
+
+    def against_cpu(self, cfg, q: str, p_gpu, p_cpu, batch: dict, s_max: int, *, desc: str,
+                    zero: frozenset = frozenset(), watch: MoEPicks | None = None) -> None:
+        """The smoke config cfg under quant q on the card (p_gpu) against the
+        port's CPU run (p_cpu, the same values), into report["cpu"]: a prefill of
+        batch and LM_CPU_STEPS decode steps, teacher-forced with the card's
+        tokens, within LM_CPU_TOL; train_loss and every gradient on batch within
+        phase 13's bounds (`zero`: the leaves grads_agree holds to the tree's
+        largest gradient).  batch: numpy tokens and CPU tensors of a frontend's
+        output; `desc` describes it in the printed line; `watch` is entered
+        around the serving runs and checked after them."""
+        from repro_torch.core.policy import ExecutionPolicy
+        from repro_torch.models.families import get_family_api
+        from repro_torch.params import named_jax_params
+        from repro_torch.serve import make_serve_fns
+
+        torch, cuda = self.torch, self.torch.device("cuda")
+        api = get_family_api(cfg)
+        pol = ExecutionPolicy(quant=q)
+        layers = (f"{cfg.encoder_layers} + {cfg.n_layers}" if cfg.encoder_layers
+                  else f"{cfg.n_layers}")
+        label = f"{cfg.name}[smoke, {layers} layers] quant={q}"
+        what = f"{self.what}, {label}"
+        on_card = {k: v.to(cuda) if torch.is_tensor(v) else v for k, v in batch.items()}
+        fg, fc = make_serve_fns(cfg, pol, device="cuda"), make_serve_fns(cfg, pol, device="cpu")
+        with watch or contextlib.nullcontext():
+            lg, sg = fg["prefill"](p_gpu, on_card, s_max)
+            lc, sc = fc["prefill"](p_cpu, batch, s_max)
+            diffs = [(lg.cpu() - lc).abs().max().item()]
+            tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+            for _ in range(LM_CPU_STEPS):  # teacher-forced: the card's tokens into both
+                lg, nxt, sg = fg["decode"](p_gpu, sg, {"token": tok})
+                lc, _, sc = fc["decode"](p_cpu, sc, {"token": tok.cpu()})
+                diffs.append((lg.cpu() - lc).abs().max().item())
+                tok = nxt
+        picks, note = watch.check(what) if watch else ({}, "")
+        if not all(np.isfinite(diffs)) or max(diffs) > LM_CPU_TOL[q]:
+            fail(f"{what}: logits differ from the CPU run by {diffs} > {LM_CPU_TOL[q]}")
+        named_g, named_c = named_jax_params(p_gpu), named_jax_params(p_cpu)
+        toks = batch["tokens"]
+        tb = {**{k: v for k, v in batch.items() if torch.is_tensor(v)},
+              "tokens": torch.from_numpy(toks), "labels": torch.from_numpy(np.roll(toks, -1, 1))}
+        loss_g, _ = api["train_loss"](p_gpu, cfg, {k: v.to(cuda) for k, v in tb.items()},
+                                      policy=pol)
+        g_gpu = dict(zip(named_g, torch.autograd.grad(loss_g, list(named_g.values()))))
+        loss_c, _ = api["train_loss"](p_cpu, cfg, tb, policy=pol)
+        g_cpu = dict(zip(named_c, torch.autograd.grad(loss_c, list(named_c.values()))))
+        ldiff = abs(loss_g.item() - loss_c.item())
+        if not np.isfinite(ldiff) or ldiff > LM_TRAIN_LOSS_TOL[q]:
+            fail(f"{what}: loss {loss_g.item()} on the card, {loss_c.item()} on the CPU "
+                 f"(|diff| {ldiff} > {LM_TRAIN_LOSS_TOL[q]})")
+        gworst, gwhere = grads_agree(torch, g_gpu, g_cpu, q, tol=LM_TRAIN_GRAD_TOL, what=what,
+                                     pattern_rel=LM_TRAIN_PATTERN_REL, zero=zero)
+        self.report["cpu"][label] = {
+            "logit_max_abs_diff": diffs, "tolerance": LM_CPU_TOL[q], **picks,
+            "loss_card": loss_g.item(), "loss_cpu": loss_c.item(), "grad_worst_rel": gworst,
+            "grad_worst_leaf": gwhere, "zero_gradient_leaves": sorted(zero)}
+        say(f"{what}: card vs CPU, prefill of {desc} and {LM_CPU_STEPS} teacher-forced decode "
+            f"steps: max |logit diff| {[f'{d:.3e}' for d in diffs]} <= {LM_CPU_TOL[q]}" + note
+            + f"; train_loss {loss_g.item():.6f} / {loss_c.item():.6f}, gradients within "
+            f"{gworst:.3e} of each leaf's max (worst {gwhere})"
+            + (f", {len(zero)} key-bias leaves within {ZERO_GRAD_REL} of the largest"
+               if zero else ""))
+
+    def say_rows(self) -> None:
+        """The timed calls, into report["kernel_calls"] and printed."""
+        self.report["kernel_calls"] = self.rows
+        for r in self.rows:
+            say(f"{self.what}, sc_matmul {r['shapes']} n_planes={r['kw']['n_planes']} "
+                f"({r['path']}): kernel {r['ms']:.4f} ms (enqueue {r['enqueue_ms']:.4f}), plain "
+                f"{r['plain_ms']:.4f} ms, float64 torch.matmul {r['library_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+
+
+def lm_families_phase(torch, registry, card: str, timed: set) -> tuple[dict, dict]:
+    """Phase 14: the moe, ssm and hybrid LM families through make_serve_fns and
+    make_train_step, the SC matmul at their shapes.
+
+    `timed` holds the call signatures already timed.  Returns the launch
+    counts of each counted run and the numbers to report.
+    """
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import token_stream
+    from repro_torch.models.families import get_family_api
+
+    t_phase = time.perf_counter()
+    runs = LMRuns(torch, registry, "lm families", card, timed, FAMILY_TIMED_KN)
+    report = runs.report
+    rng = np.random.default_rng(SEED + 14)
 
     # -- serving at full width (dbrx cut to 2 layers) ----------------------------------
     t0 = time.perf_counter()
@@ -3341,8 +3730,8 @@ def lm_families_phase(torch, registry, card: str, timed: set) -> tuple[dict, dic
             base = dataclasses.replace(base, n_layers=layers)
         n_lin = lm_linears(base)
         t1 = time.perf_counter()
-        params = init(base)
-        sync()
+        params = runs.init(base)
+        runs.sync()
         n_params = sum(p.numel() for p in params.parameters())
         say(f"lm families: {base.name} ({base.family}, {base.n_layers} layers, d_model "
             f"{base.d_model}, {base.dtype}, {n_params:,} parameters) drawn on the card in "
@@ -3350,87 +3739,27 @@ def lm_families_phase(torch, registry, card: str, timed: set) -> tuple[dict, dic
             "allocated")
         batch = {"tokens": rng.integers(0, base.vocab_size, (b, prompt)).astype(np.int32)}
         s_max = prompt + new
-        runs = [(q, "none") for q in FAMILY_QUANTS]
+
+        def local_caches(state, base=base, s_max=s_max):
+            """The hybrid's local caches keep the window, rolled."""
+            n = state.group_caches[base.layer_pattern.index("local")].k.shape[2]
+            if n != min(s_max, base.window):
+                fail(f"lm families, {base.name}: local caches of {n}")
+            return {"local_cache": n}, f", local caches of {n} (rolled)"
+
+        cases = [(q, "none") for q in FAMILY_QUANTS]
         if base.family == "moe" and layers is None:
-            runs.insert(1, ("none", "int8"))
-        for q, kv in runs:
-            cfg = dataclasses.replace(base, kv_quant=kv)
-            pol = ExecutionPolicy(quant=q)
-            n_sc = n_lin if q != "none" else 0
+            cases.insert(1, ("none", "int8"))
+        for q, kv in cases:
             label = (f"{base.name}[{base.n_layers} layers] quant={q}"
                      + (f" kv={kv}" if kv != "none" else ""))
-            t_run = time.perf_counter()
-            fns = make_serve_fns(cfg, pol, device="cuda")
-            box = {}
-            peak = peak_mib(lambda: box.update(gen=counted_run(
-                f"{label} generate", lambda: fns["generate"](params, batch, steps=new,
-                                                             s_max=s_max), n_sc * new)))
-            gen = box.pop("gen").cpu()
-            if gen.shape != (b, new) or not bool(((gen >= 0) & (gen < base.vocab_size)).all()):
-                fail(f"lm families, {label}: generated {tuple(gen.shape)} tokens, some out "
-                     "of range")
-            logits, state = counted_run(f"{label} prefill",
-                                        lambda: fns["prefill"](params, batch, s_max), n_sc)
-            if logits.shape != (b, 1, base.vocab_size) or not bool(torch.isfinite(logits).all()):
-                fail(f"lm families, {label}: prefill logits {tuple(logits.shape)}, not all "
-                     "finite")
-            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-            if not torch.equal(tok.cpu(), gen[:, :1]):
-                fail(f"lm families, {label}: prefill's greedy token differs from generate's")
-            _, nxt, state1 = counted_run(
-                f"{label} decode", lambda: fns["decode"](params, state, {"token": tok}), n_sc)
-            if int(state1.cache_len) != prompt + 1 or not torch.equal(nxt.cpu(), gen[:, 1:2]):
-                fail(f"lm families, {label}: decode's state or greedy token differs from "
-                     "generate's")
-            extra = {}
-            if base.family == "hybrid":  # the local caches keep the window, rolled
-                local = base.layer_pattern.index("local")
-                extra["local_cache"] = state.group_caches[local].k.shape[2]
-                if extra["local_cache"] != min(s_max, base.window):
-                    fail(f"lm families, {label}: local caches of {extra['local_cache']}")
-            worst = None
-            if q != "none":
-                with torch.inference_mode():
-                    _, made, kept = held_run(label, lambda: fns["decode"](
-                        params, fns["prefill"](params, batch, s_max)[1], {"token": tok}),
-                        timing=q == "sc_w16a16")
-                if made != 2 * n_sc:
-                    fail(f"lm families, {label}: a prefill and a decode step made {made} SC "
-                         f"calls, expected {2 * n_sc}")
-                worst = 0.0
-                time_kept(label, kept)
-
-            def synced(fn):
-                return lambda: (fn(), sync())
-
-            prefill = (lambda: fns["prefill"](params, batch, s_max))
-            decode = (lambda: fns["decode"](params, state, {"token": tok}))
-            t = {"prefill_ms": median_ms(synced(prefill), reps=FAMILY_TIMED),
-                 "decode_ms_per_token": median_ms(synced(decode), reps=FAMILY_TIMED)}
-            t["decode"] = profiled(f"{label} decode", decode, t["decode_ms_per_token"], n_sc)
-            if kv == "none" and q == "none":  # recurrentgemma's prefill: ~40k kernels a session
-                t["prefill"] = profiled(f"{label} prefill", prefill, t["prefill_ms"], n_sc)
-            t.update(peak_generate_mib=peak, max_abs_err_kernel_vs_plain=worst,
-                     launches={"prefill": n_sc, "decode_step": n_sc, "generate": n_sc * new},
-                     prompts=b, prompt_tokens=prompt, new_tokens=new, parameters=n_params,
-                     tokens=gen[0].tolist(), **extra)
-            t["run_s"] = time.perf_counter() - t_run
-            report["serving"][label] = t
-            say(f"lm families, {label}: generate {b} x {prompt} + {new} tokens, launches "
-                f"{n_sc} SC a step"
-                + ("" if worst is None else ", every SC call of a prefill and a decode step "
-                   "== plain")
-                + (f", local caches of {extra['local_cache']} (rolled)" if extra else "")
-                + f"; (host clock, median of {FAMILY_TIMED}; {card}) prefill "
-                f"{t['prefill_ms']:.3f} ms"
-                + (f" (busy {t['prefill']['busy_ms']:.3f} ms, idle "
-                   f"{t['prefill']['idle_share']:.3f})" if "prefill" in t else "")
-                + f", decode {t['decode_ms_per_token']:.3f} ms/token (busy "
-                f"{t['decode']['busy_ms']:.3f} ms, idle {t['decode']['idle_share']:.3f}, "
-                f"{t['decode']['kernels_launched']} kernels); peak allocated by generate "
-                f"{peak:.1f} MiB; this run {t['run_s']:.1f} s")
-        del params, state, state1, logits
-        free()
+            # recurrentgemma's prefill: ~40k kernels a profiler session
+            runs.serve(label, dataclasses.replace(base, kv_quant=kv), params, batch, q,
+                       s_max=s_max, new=new, n_sc=(n_lin, n_lin), prompt=str(prompt),
+                       profile_prefill=kv == "none" and q == "none",
+                       check_state=local_caches if base.family == "hybrid" else None)
+        del params
+        runs.free()
     report["serving_s"] = time.perf_counter() - t0
 
     # -- training at full width, remat "full" -------------------------------------------
@@ -3440,163 +3769,176 @@ def lm_families_phase(torch, registry, card: str, timed: set) -> tuple[dict, dic
         stream = token_stream(SEED, *FAMILY_TRAIN_ROWS, base.vocab_size, device="cpu")
         train = [batch for _, (_, batch) in zip(range(FAMILY_TRAIN_STEPS), stream)]
         for q in ("none", "sc_w16a16"):
-            pol = ExecutionPolicy(quant=q)
-            n_sc = lm_linears(base, train=True) if q != "none" else 0
-            label = f"{base.name} quant={q}"
-            t_run = t1 = time.perf_counter()
-            params = init(base)
-            state = adamw_init(params)
-            step_fn = make_train_step(base, peak_lr=LM_TRAIN_LR, warmup_steps=1,
-                                      total_steps=FAMILY_TRAIN_STEPS, policy=pol)
-            on_card = [{k: v.to(cuda) for k, v in bt.items()} for bt in train]
-            sync()
-            init_s = time.perf_counter() - t1
-            state_mib = torch.cuda.memory_allocated() / 2**20
-            registry.reset_launches()
-            t1 = time.perf_counter()
-            out, made, kept = held_run(label, lambda: step_fn(params, state, on_card[0]),
-                                       timing=q != "none")
-            m = out[2]
-            del out
-            first_ms = (time.perf_counter() - t1) * 1e3
-            check_launches(f"{label} train step 1", n_sc)
-            if made != n_sc:
-                fail(f"lm families, {label}: train step 1 made {made} SC calls, expected {n_sc}")
-            time_kept(f"{label} train", kept)
-            sync()
-            torch.cuda.reset_peak_memory_stats()
-            losses, step_ms = [m["loss"]], []
-            for i, bt in enumerate(on_card[1:], start=2):
-                registry.reset_launches()
-                sync()
-                t1 = time.perf_counter()
-                m = step_fn(params, state, bt)[2]
-                sync()
-                step_ms.append((time.perf_counter() - t1) * 1e3)
-                check_launches(f"{label} train step {i}", n_sc)
-                losses.append(m["loss"])
-            peak = torch.cuda.max_memory_allocated() / 2**20
-            losses = [x.item() for x in losses]
-            if not all(np.isfinite(losses)) or not np.isfinite(m["grad_norm"].item()):
-                fail(f"lm families, {label}: losses {losses}, grad_norm {m['grad_norm'].item()}")
-            learned = None
-            if q == "none":  # the float loss on step 1's batch falls
-                with torch.no_grad():
-                    learned = get_family_api(base)["train_loss"](params, base, on_card[0],
-                                                                 policy=pol)[0].item()
-                if not learned < losses[0]:
-                    fail(f"lm families, {label}: the loss on step 1's batch went "
-                         f"{losses[0]:.4f} -> {learned:.4f} in {FAMILY_TRAIN_STEPS} steps")
-            step_med = float(np.median(step_ms))
-            prof = profiled(f"{label} train step", lambda: step_fn(params, state, on_card[1]),
-                            step_med, n_sc)
-            report["training"][label] = {
-                "tokens_a_step": FAMILY_TRAIN_ROWS[0] * FAMILY_TRAIN_ROWS[1], "init_s": init_s,
-                "losses": losses, "loss_after_on_batch_1": learned, "first_step_ms": first_ms,
-                "eager_step_ms": step_med, "step_ms": step_ms, **prof,
-                "state_mib": state_mib, "peak_allocated_mib": peak, "sc_launches_a_step": n_sc,
-                "run_s": time.perf_counter() - t_run}
-            say(f"lm families, train {label}: {FAMILY_TRAIN_STEPS} steps of "
-                f"{FAMILY_TRAIN_ROWS[0]} x {FAMILY_TRAIN_ROWS[1]} tokens, losses "
-                f"{[f'{x:.4f}' for x in losses]}"
-                + (f" (step 1's batch after: {learned:.4f})" if learned is not None else "")
-                + f"; {n_sc} SC launches a step"
-                + (", every SC call of step 1 == plain" if n_sc else "")
-                + f"; (host clock, median of {len(step_ms)}; {card}) step {step_med:.3f} ms "
-                f"(first {first_ms:.1f}), busy {prof['busy_ms']:.3f} ms, idle "
-                f"{prof['idle_share']:.3f}, {prof['kernels_launched']} kernels; allocated "
-                f"{state_mib:.1f} MiB after init, peak {peak:.1f} MiB; this run "
-                f"{report['training'][label]['run_s']:.1f} s")
-            del params, state, step_fn, on_card, m, kept
-            free()
+            runs.train(base, q, train, lm_linears(base, train=True))
+            runs.free()
     report["training_s"] = time.perf_counter() - t0
 
     # -- against the port's CPU run, at smoke width ---------------------------------------
     t0 = time.perf_counter()
-    picks = {"cuda": [], "cpu": []}
-    real_route = moe_mod.route
-
-    def recording_route(cfg, logits):
-        probs = torch.softmax(logits, dim=-1)
-        top = torch.sort(probs, dim=-1, descending=True, stable=True)[1][..., :cfg.top_k]
-        picks[logits.device.type].append(top.cpu())
-        return real_route(cfg, logits)
-
+    rows, cols = FAMILY_CPU_ROWS
     for name in FAMILY_TRAIN:
         cfg = get_config(name, smoke=True)
-        api = get_family_api(cfg)
-        p_cpu = api["init"](cfg, generator=torch.Generator().manual_seed(SEED), device="cpu")
-        p_gpu = copy.deepcopy(p_cpu).to(cuda)
-        batch = {"tokens": rng.integers(0, cfg.vocab_size, FAMILY_CPU_ROWS).astype(np.int32)}
-        s_max = FAMILY_CPU_ROWS[1] + LM_CPU_STEPS
+        p_cpu = get_family_api(cfg)["init"](cfg, generator=torch.Generator().manual_seed(SEED),
+                                            device="cpu")
+        p_gpu = copy.deepcopy(p_cpu).to("cuda")
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (rows, cols)).astype(np.int32)}
         for q in ("none", "sc_w16a16"):
-            pol = ExecutionPolicy(quant=q)
-            label = f"{cfg.name}[smoke, {cfg.n_layers} layers] quant={q}"
-            fg, fc = make_serve_fns(cfg, pol, device="cuda"), make_serve_fns(cfg, pol,
-                                                                             device="cpu")
-            for side in picks.values():
-                side.clear()
-            moe_mod.route = recording_route
-            try:
-                lg, sg = fg["prefill"](p_gpu, batch, s_max)
-                lc, sc = fc["prefill"](p_cpu, batch, s_max)
-                diffs = [(lg.cpu() - lc).abs().max().item()]
-                tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
-                for _ in range(LM_CPU_STEPS):  # teacher-forced: the card's tokens into both
-                    lg, nxt, sg = fg["decode"](p_gpu, sg, {"token": tok})
-                    lc, _, sc = fc["decode"](p_cpu, sc, {"token": tok.cpu()})
-                    diffs.append((lg.cpu() - lc).abs().max().item())
-                    tok = nxt
-            finally:
-                moe_mod.route = real_route
-            differing = sum(int((a != b).sum()) for a, b in zip(picks["cuda"], picks["cpu"]))
-            n_picks = sum(a.numel() for a in picks["cpu"])
-            if len(picks["cuda"]) != len(picks["cpu"]) or differing:
-                fail(f"lm families, {label}: {differing} of {n_picks} MoE top-k picks differ "
-                     "between the card and the CPU")
-            if not all(np.isfinite(diffs)) or max(diffs) > LM_CPU_TOL[q]:
-                fail(f"lm families, {label}: logits differ from the CPU run by {diffs} > "
-                     f"{LM_CPU_TOL[q]}")
-            named_g, named_c = named_jax_params(p_gpu), named_jax_params(p_cpu)
-            tb = {k: torch.from_numpy(v) for k, v in zip(
-                ("tokens", "labels"), (batch["tokens"], np.roll(batch["tokens"], -1, axis=1)))}
-            loss_g, _ = api["train_loss"](p_gpu, cfg, {k: v.to(cuda) for k, v in tb.items()},
-                                          policy=pol)
-            g_gpu = dict(zip(named_g, torch.autograd.grad(loss_g, list(named_g.values()))))
-            loss_c, _ = api["train_loss"](p_cpu, cfg, tb, policy=pol)
-            g_cpu = dict(zip(named_c, torch.autograd.grad(loss_c, list(named_c.values()))))
-            ldiff = abs(loss_g.item() - loss_c.item())
-            if not np.isfinite(ldiff) or ldiff > LM_TRAIN_LOSS_TOL[q]:
-                fail(f"lm families, {label}: loss {loss_g.item()} on the card, {loss_c.item()} "
-                     f"on the CPU (|diff| {ldiff} > {LM_TRAIN_LOSS_TOL[q]})")
-            gworst, gwhere = grads_agree(torch, g_gpu, g_cpu, q, tol=LM_TRAIN_GRAD_TOL,
-                                         what=f"lm families, {label}",
-                                         pattern_rel=LM_TRAIN_PATTERN_REL)
-            report["cpu"][label] = {"logit_max_abs_diff": diffs, "tolerance": LM_CPU_TOL[q],
-                                    "moe_picks": n_picks, "moe_picks_differing": differing,
-                                    "loss_card": loss_g.item(), "loss_cpu": loss_c.item(),
-                                    "grad_worst_rel": gworst, "grad_worst_leaf": gwhere}
-            say(f"lm families, {label}: card vs CPU, prefill of {FAMILY_CPU_ROWS[0]} x "
-                f"{FAMILY_CPU_ROWS[1]} and {LM_CPU_STEPS} teacher-forced decode steps: max "
-                f"|logit diff| {[f'{d:.3e}' for d in diffs]} <= {LM_CPU_TOL[q]}"
-                + (f"; MoE top-k picks differing: {differing} of {n_picks}"
-                   if cfg.family == "moe" else "")
-                + f"; train_loss {loss_g.item():.6f} / {loss_c.item():.6f}, gradients within "
-                f"{gworst:.3e} of each leaf's max (worst {gwhere})")
+            runs.against_cpu(cfg, q, p_gpu, p_cpu, batch, cols + LM_CPU_STEPS,
+                             desc=f"{rows} x {cols}",
+                             watch=MoEPicks(torch) if cfg.family == "moe" else None)
         del p_gpu, p_cpu
-        free()
+        runs.free()
     report["cpu_check_s"] = time.perf_counter() - t0
 
-    report["kernel_calls"] = rows
-    for r in rows:
-        say(f"lm families, sc_matmul {r['shapes']} n_planes={r['kw']['n_planes']} ({r['path']}): "
-            f"kernel {r['ms']:.4f} ms (enqueue {r['enqueue_ms']:.4f}), plain {r['plain_ms']:.4f} "
-            f"ms, float64 torch.matmul {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-            f"({r['bound_by']})")
+    runs.say_rows()
     report["phase_s"] = time.perf_counter() - t_phase
     say(f"lm families phase: {report['phase_s']:.1f} s (serving {report['serving_s']:.1f} s, "
         f"training {report['training_s']:.1f} s, against the CPU {report['cpu_check_s']:.1f} s)")
-    return counted, report
+    return runs.counted, report
+
+
+def encdec_vlm_linears(cfg) -> dict[str, int]:
+    """SC matmuls of one whisper or internvl2 step: {"prefill", "decode", "train"}.
+
+    encdec: an encoder layer's 6 (wq, wk, wv, wo, the MLP's 2) and a decoder
+    layer's 10 (self-attention 4, cross-attention 4, the MLP's 2) in prefill; 8
+    a decoder layer in decode, the cross K/V read from the cache.  vlm: 7 a
+    layer (attention 4, GLU 3) and patch_proj, in prefill and training only.
+    Training, remat "full": every layer's linears twice (the forward and the
+    backward's recompute of its remat unit), patch_proj once."""
+    if cfg.family == "encdec":
+        pre = 6 * cfg.encoder_layers + 10 * cfg.n_layers
+        return {"prefill": pre, "decode": 8 * cfg.n_layers, "train": 2 * pre}
+    per = 7 * cfg.n_layers
+    return {"prefill": per + 1, "decode": per, "train": 2 * per + 1}
+
+
+def frontend_stub(torch, cfg, b: int, n: int, *, zeros: bool = False, generator=None) -> dict:
+    """The stubbed frontend's output of cfg's family on the card in cfg.dtype:
+    enc_embeds (b, n frames, D) or patch_embeds (b, n patches, D); seeded
+    normal draws, or zeros (the reference's training stubs)."""
+    key = "enc_embeds" if cfg.family == "encdec" else "patch_embeds"
+    shape = (b, n, cfg.d_model)
+    if zeros:
+        x = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
+    else:
+        x = torch.randn(shape, generator=generator, device="cuda").to(cfg.dtype)
+    return {key: x}
+
+
+def lm_encdec_vlm_phase(torch, registry, card: str, timed: set) -> tuple[dict, dict]:
+    """Phase 15: the encdec (whisper-small) and vlm (internvl2-2b) LM families
+    through make_serve_fns and make_train_step, the SC matmul at their shapes.
+
+    `timed` holds the call signatures already timed.  Returns the launch
+    counts of each counted run and the numbers to report.
+    """
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import token_stream
+    from repro_torch.models.families import get_family_api
+    from repro_torch.params import named_jax_params
+
+    t_phase = time.perf_counter()
+    runs = LMRuns(torch, registry, "lm encdec/vlm", card, timed, ENCDEC_VLM_TIMED_KN)
+    report = runs.report
+    rng = np.random.default_rng(SEED + 15)
+    draw = torch.Generator("cuda").manual_seed(SEED + 15)
+
+    # -- serving at full width and depth ---------------------------------------------
+    t0 = time.perf_counter()
+    for name, b, prompt, new, s_max in ENCDEC_VLM_SERVE:
+        base = get_config(name)
+        n = encdec_vlm_linears(base)
+        t1 = time.perf_counter()
+        params = runs.init(base)
+        runs.sync()
+        n_params = sum(p.numel() for p in params.parameters())
+        encdec = base.family == "encdec"
+        frames = ENCDEC_FRAMES if encdec else base.n_patches
+        kind = "frames" if encdec else "patches"
+        batch = {"tokens": rng.integers(0, base.vocab_size, (b, prompt)).astype(np.int32),
+                 **frontend_stub(torch, base, b, frames, generator=draw)}
+        say(f"lm encdec/vlm: {base.name} ({base.family}, {base.encoder_layers or 0} encoder + "
+            f"{base.n_layers} layers, d_model {base.d_model}, {base.dtype}, {n_params:,} "
+            f"parameters) drawn on the card in {time.perf_counter() - t1:.1f} s; stub "
+            f"{'encoder frames' if encdec else 'patches'} {b} x {frames} x {base.d_model}")
+
+        def float_caches(state, base=base, b=b, s_max=s_max, frames=frames, encdec=encdec):
+            """Float caches of the reference's shapes: self of s_max, whisper's cross of
+            the frames."""
+            shape = (base.n_layers, b, s_max, base.n_kv_heads, base.head_dim)
+            if encdec:
+                caches = {"self": tuple(state.self_caches.k.shape),
+                          "cross": tuple(state.cross_caches.k.shape)}
+                dtypes = {state.self_caches.k.dtype, state.cross_caches.k.dtype}
+                want = {"self": shape, "cross": shape[:2] + (frames,) + shape[3:]}
+            else:
+                caches = {"self": tuple(state.caches[0].k.shape)}
+                dtypes = {c.k.dtype for c in state.caches}
+                want = {"self": shape}
+            if caches != want or dtypes != {base.dtype}:
+                fail(f"lm encdec/vlm, {base.name}: caches {caches} of {dtypes}, expected "
+                     f"{want} of {base.dtype}")
+            return ({"caches": caches, "frontend_positions": frames},
+                    f"; caches {caches} in {base.dtype}")
+
+        for q in FAMILY_QUANTS:
+            runs.serve(f"{base.name} quant={q}", base, params, batch, q, s_max=s_max, new=new,
+                       n_sc=(n["prefill"], n["decode"]), prompt=f"({frames} {kind} + {prompt})",
+                       profile_prefill=q == "none", ahead=0 if encdec else frames,
+                       check_state=float_caches)
+        del params, batch
+        runs.free()
+    report["serving_s"] = time.perf_counter() - t0
+
+    # -- training at full width, remat "full" --------------------------------------------
+    t0 = time.perf_counter()
+    bsz, seq = ENCDEC_VLM_TRAIN_ROWS
+    for name, _, _, _, _ in ENCDEC_VLM_SERVE:
+        base = get_config(name)
+        encdec = base.family == "encdec"
+        stubs = frontend_stub(torch, base, bsz, seq if encdec else base.n_patches,
+                              zeros=encdec, generator=draw)
+        note = (" (+ the reference's zero stub frames)" if encdec else
+                " (+ seeded normal stub patches: zeros overflow the gradient)")
+        stream = token_stream(SEED, bsz, seq, base.vocab_size, device="cpu")
+        train = [batch for _, (_, batch) in zip(range(ENCDEC_VLM_TRAIN_STEPS), stream)]
+        for q in FAMILY_QUANTS:
+            runs.train(base, q, train, encdec_vlm_linears(base)["train"], stubs=stubs, note=note)
+            runs.free()
+        del stubs
+    report["training_s"] = time.perf_counter() - t0
+
+    # -- against the port's CPU run, at smoke width ---------------------------------------
+    t0 = time.perf_counter()
+    rows, cols = FAMILY_CPU_ROWS
+    for name, _, _, _, _ in ENCDEC_VLM_SERVE:
+        cfg = get_config(name, smoke=True)
+        encdec = cfg.family == "encdec"
+        p_cpu = get_family_api(cfg)["init"](cfg, generator=torch.Generator().manual_seed(SEED),
+                                            device="cpu")
+        p_gpu = copy.deepcopy(p_cpu).to("cuda")
+        frames = ENCDEC_CPU_FRAMES if encdec else cfg.n_patches
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (rows, cols)).astype(np.int32),
+                 "enc_embeds" if encdec else "patch_embeds": torch.from_numpy(
+                     rng.standard_normal((rows, frames, cfg.d_model)).astype(np.float32))}
+        s_max = (0 if encdec else frames) + cols + LM_CPU_STEPS
+        zero = frozenset(k for k in named_jax_params(p_cpu) if k.endswith("wk.b"))
+        for q in ("none", "sc_w16a16"):
+            runs.against_cpu(cfg, q, p_gpu, p_cpu, batch, s_max, zero=zero,
+                             desc=f"{rows} x ({frames} {'frames' if encdec else 'patches'} "
+                                  f"+ {cols})")
+        del p_gpu, p_cpu
+        runs.free()
+    report["cpu_check_s"] = time.perf_counter() - t0
+
+    runs.say_rows()
+    report["phase_s"] = time.perf_counter() - t_phase
+    say(f"lm encdec/vlm phase: {report['phase_s']:.1f} s (serving {report['serving_s']:.1f} s, "
+        f"training {report['training_s']:.1f} s, against the CPU {report['cpu_check_s']:.1f} s)")
+    return runs.counted, report
 
 
 def main() -> None:
@@ -3934,6 +4276,16 @@ def main() -> None:
         "calls": len(fam_rows), **{k: sum(r[k] for r in fam_rows)
                                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
     say(json.dumps({"lm_families": fam_report, "lm_families_launches": fam_counted}))
+
+    # -- 15. the encdec and vlm LM families -----------------------------------------------
+    ev_counted, ev_report = lm_encdec_vlm_phase(torch, registry, card, timed)
+    for n in KERNELS:
+        launches[n] += sum(c[n] for c in ev_counted.values())
+    ev_rows = ev_report["kernel_calls"]
+    summary["sc_matmul"]["by_path"]["lm_encdec_vlm"] = {
+        "calls": len(ev_rows), **{k: sum(r[k] for r in ev_rows)
+                                  for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+    say(json.dumps({"lm_encdec_vlm": ev_report, "lm_encdec_vlm_launches": ev_counted}))
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -3,13 +3,16 @@
     PYTHONPATH=src python examples/torch_serve_lm.py --device cpu
     PYTHONPATH=src python examples/torch_serve_lm.py --device cpu --arch gemma3-12b --quant sc_w16a16
     PYTHONPATH=src python examples/torch_serve_lm.py --device cpu --arch mamba2-1.3b
+    PYTHONPATH=src python examples/torch_serve_lm.py --device cpu --arch whisper-small
     PYTHONPATH=src python examples/torch_serve_lm.py              # full stablelm-1.6b on the card
 
 The port's counterpart of examples/serve_lm.py, for every ported LM
 family: dense (stablelm-1.6b, starcoder2-3b, gemma3-12b,
 command-r-plus-104b), moe (granite-moe-3b-a800m, dbrx-132b, whose full
-config does not fit on one card), ssm (mamba2-1.3b) and hybrid
-(recurrentgemma-2b).  With
+config does not fit on one card), ssm (mamba2-1.3b), hybrid
+(recurrentgemma-2b), encdec (whisper-small) and vlm (internvl2-2b).  The
+last two take their stubbed frontends' outputs, drawn here from a seed:
+ENC_FRAMES encoder frames (whisper) or the config's patches (internvl2).  With
 --device cpu it serves the reduced (smoke) config on the CPU, with the
 kernels' plain versions; on the card it serves the full config, with
 seeded random weights drawn there.  --quant pins an ExecutionPolicy on the
@@ -28,6 +31,8 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.models.families import get_family_api
 from repro_torch.serve import make_serve_fns
+
+ENC_FRAMES = 64  # stub encoder frames a whisper prompt attends to
 
 
 def main():
@@ -54,6 +59,13 @@ def main():
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(
         np.int32)}
     s_max = args.prompt_len + args.tokens + 8
+    stub = {"encdec": ("enc_embeds", ENC_FRAMES), "vlm": ("patch_embeds", cfg.n_patches)}
+    if cfg.family in stub:  # the stubbed frontend's output, in the config's dtype
+        key, n = stub[cfg.family]
+        batch[key] = torch.randn((args.batch, n, cfg.d_model), generator=torch.Generator(
+            device).manual_seed(2), device=device).to(cfg.dtype)
+        s_max += cfg.n_patches if cfg.family == "vlm" else 0
+        print(f"stub {key}: {tuple(batch[key].shape)}")
 
     def sync():
         if device.type == "cuda":

@@ -1,11 +1,10 @@
 """Model configs of the port, by the reference's names ("pointnet2-cls", "stablelm-1.6b").
 
-The pointnet2 models and the LMs of four families are ported: dense
+The pointnet2 models and the LMs of all six families are ported: dense
 (stablelm-1.6b, starcoder2-3b, gemma3-12b, command-r-plus-104b), moe
-(granite-moe-3b-a800m, dbrx-132b), ssm (mamba2-1.3b) and hybrid
-(recurrentgemma-2b).  `get_config` raises KeyError for the encdec and vlm
-configs (whisper-small, internvl2-2b), which wait for ROADMAP.md queue A
-step 3e.
+(granite-moe-3b-a800m, dbrx-132b), ssm (mamba2-1.3b), hybrid
+(recurrentgemma-2b), encdec (whisper-small) and vlm (internvl2-2b).
+`get_config` raises KeyError for a name with no module here.
 """
 
 import importlib

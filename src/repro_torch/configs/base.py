@@ -2,8 +2,8 @@
 
 A copy, field for field, of the reference's `configs/base.py`: the same
 defaults, `head_dim`, `pattern_for_layers` and the analytic `param_count`.
-`dtype` gives a `torch.dtype`.  The port serves the configs whose module
-exists in this package (`configs.get_config`); the others raise `KeyError`.
+`dtype` gives a `torch.dtype`.  The port serves every config of the
+reference (`configs.get_config`); a name with no module raises `KeyError`.
 """
 
 from __future__ import annotations
@@ -116,9 +116,7 @@ class ModelConfig:
         return int(total)
 
 
-# Every architecture id of the JAX package; `configs.get_config` serves those
-# with a module here (the pointnet2 models and every LM but whisper-small and
-# internvl2-2b).
+# Every architecture id of the JAX package; `configs.get_config` serves each.
 ARCH_IDS = [
     "stablelm-1.6b",
     "gemma3-12b",

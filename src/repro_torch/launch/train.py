@@ -1,4 +1,4 @@
-"""Training driver of the port: pointnet2-cls, pointnet2-seg and the dense LMs.
+"""Training driver of the port: pointnet2-cls, pointnet2-seg and the LMs.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch pointnet2-cls --steps 200
     PYTHONPATH=src python -m repro_torch.launch.train --arch pointnet2-seg --smoke \\
@@ -21,14 +21,19 @@ matmul under a quant policy) and its backward is autograd's, since no
 kernel of the path carries a gradient (the SC kernel's output is integer
 work the reference's gradient flows around, through the two scales).
 
-LMs (`train_lm`, the dense family): `train.make_train_step` on batches of
+LMs (`train_lm`, every family): `train.make_train_step` on batches of
 `data.tokens.token_stream`, drawn on the CPU by a prefetch thread and
 moved to the card by the loop; the step runs eagerly (every linear on the
-SC kernel under an SC policy).  With --ckpt-dir, `run_with_restarts`
+SC kernel under an SC policy).  encdec (whisper) and vlm (internvl2) get
+the reference's zero stubs of their frontends' outputs, made on the
+device in cfg.dtype: enc_embeds (batch, seq, d_model) and patch_embeds
+(batch, n_patches, d_model).  Those zero patches overflow internvl2's
+gradient at its 24 layers, in the reference as here: a zero row stays
+zero, and each RMSNorm's backward scales its gradient by rsqrt(eps).
+With --ckpt-dir, `run_with_restarts`
 supervises the loop and the checkpoints hold the train state in the
-reference's layout (`LMCheckpoints`).  The encdec and vlm families raise
-the not-ported error of `models.families`.  With `--device cpu` either
-path runs on the plain versions.
+reference's layout (`LMCheckpoints`).  With `--device cpu` either path
+runs on the plain versions.
 """
 
 from __future__ import annotations
@@ -198,6 +203,14 @@ def train_lm(cfg, args):
                              device=dev)
         return {"params": params, "opt": adamw_init(params)}
 
+    stubs = {}  # the stubbed frontends' outputs, zeros as in the reference
+    if cfg.family == "encdec":
+        stubs["enc_embeds"] = torch.zeros((args.batch, args.seq, cfg.d_model), dtype=cfg.dtype,
+                                          device=dev)
+    if cfg.family == "vlm":
+        stubs["patch_embeds"] = torch.zeros((args.batch, cfg.n_patches, cfg.d_model),
+                                            dtype=cfg.dtype, device=dev)
+
     def loop(state, start_step):
         stream = Prefetcher(token_stream(args.seed, args.batch, args.seq, cfg.vocab_size,
                                          start_step=start_step, device="cpu"))
@@ -208,6 +221,7 @@ def train_lm(cfg, args):
                 if step >= args.steps:
                     break
                 batch = {k: v.to(dev) for k, v in batch.items()}
+                batch.update(stubs)
                 mon.step_start()
                 params, opt, metrics = step_fn(params, opt, batch)
                 dt = mon.step_end(step)

@@ -459,22 +459,40 @@ class Attention(nn.Module):
         to the cache as the reference's update is), attends over
         `attend_len` entries, and aux is the new cache: an int8 cache takes
         the quantized K/V.  Rolling local-window caches pass write_idx = pos %
-        window and attend_len = min(pos + 1, window).  `kv_override`
-        (cross-attention) belongs to the encdec family, which is not ported.
+        window and attend_len = min(pos + 1, window).
+
+        `kv_override` (cross-attention, the encdec decoder's): k and v come
+        from wk / wv of kv_override[0], (B, S_kv, D), or, where kv_override
+        is a KVCache, are its already projected (B, S_kv, Hkv, Dh) entries
+        (the decoder's cross cache); no RoPE on either side and no cache
+        write.  S == 1 attends over all S_kv entries as decode does, longer
+        queries run non-causal flash attention with no window.  aux is then
+        the projected (k, v) when `collect_kv`, else None.
         """
-        if kv_override is not None:
-            raise NotImplementedError(
-                "kv_override is the encdec family's cross-attention, which is not ported "
-                "(ROADMAP.md queue A step 3e)")
         cfg = self.cfg
         b, s, _ = x.shape
         h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         q = self.wq(x, policy=policy).reshape(b, s, h, dh)
-        k = self.wk(x, policy=policy).reshape(b, s, hk, dh)
-        v = self.wv(x, policy=policy).reshape(b, s, hk, dh)
-        if self.qnorm is not None:
-            q = self.qnorm(q)
-            k = self.knorm(k)
+        if isinstance(kv_override, KVCache):
+            k, v = kv_override
+            if self.qnorm is not None:
+                q = self.qnorm(q)
+        else:
+            src = x if kv_override is None else kv_override[0]
+            sk = src.shape[1]
+            k = self.wk(src, policy=policy).reshape(b, sk, hk, dh)
+            v = self.wv(src, policy=policy).reshape(b, sk, hk, dh)
+            if self.qnorm is not None:
+                q = self.qnorm(q)
+                k = self.knorm(k)
+        if kv_override is not None:
+            sk = k.shape[1]
+            if s == 1:
+                out = decode_attention(q, k, v, cache_len=sk)
+            else:
+                out = flash_attention(q, k, v, causal=False, window=None, block=attn_block)
+            aux = (k, v) if collect_kv else None
+            return self.wo(out.reshape(b, s, h * dh), policy=policy), aux
         if cfg.rope_theta > 0:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)

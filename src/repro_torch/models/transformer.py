@@ -4,7 +4,9 @@ its seeded init, and serving (prefill and decode with stacked KV caches).
 The JAX package's `models/transformer.py` for stablelm-1.6b, starcoder2-3b,
 gemma3-12b and command-r-plus-104b (dense), and granite-moe-3b-a800m and
 dbrx-132b (moe), whose blocks put a routed mixture of experts
-(`models/moe.py`) where the dense blocks have their MLP.  The reference
+(`models/moe.py`) where the dense blocks have their MLP.  The vlm family
+(internvl2-2b, `models.families.VLM`) is this dense stack behind a patch
+connector, and decodes through `decode_step`.  The reference
 scans over groups of `len(cfg.layer_pattern)` layers with each slot's
 parameters stacked (n_groups, ...); here the layers are one `ModuleList`
 in order, layer i being group i // g, slot i % g (`group_geometry`), which
@@ -59,25 +61,25 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import MoE
 from repro_torch.models.nn import LayerNorm
 
-NOT_PORTED_FAMILY = ("{name}: the {family!r} family is not ported yet (ROADMAP.md queue A "
-                     "step 3e); the port serves the dense, moe, ssm and hybrid LMs")
-TRANSFORMER_FAMILIES = ("dense", "moe")
+# The families whose layer stack is this module's Block: vlm is the dense
+# stack behind a patch connector (`models.families.VLM`).
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_transformer(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless `cfg` is of a family this module runs
-    (dense, moe); ssm and hybrid run in `models.families`, and a ValueError
-    names a family no package knows."""
+    """Raise ValueError unless `cfg` is of a family this module runs (dense, moe,
+    and vlm's backbone); ssm, hybrid and encdec run in `models.families`."""
     if cfg.family in TRANSFORMER_FAMILIES:
         return
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid", "encdec"):
         raise ValueError(f"{cfg.name}: the {cfg.family!r} family runs through "
                          "models.families.get_family_api, not the transformer")
-    raise NotImplementedError(NOT_PORTED_FAMILY.format(name=cfg.name, family=cfg.family))
+    raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
-def attn_cfg_for(cfg: ModelConfig, slot_type: str) -> AttnConfig:
-    """The causal attention config of one slot: local slots take the sliding window."""
+def attn_cfg_for(cfg: ModelConfig, slot_type: str, causal: bool = True) -> AttnConfig:
+    """The attention config of one slot: local slots take the sliding window;
+    causal=False for the encdec encoder's self-attention and cross-attention."""
     return AttnConfig(
         d_model=cfg.d_model,
         n_heads=cfg.n_heads,
@@ -85,6 +87,7 @@ def attn_cfg_for(cfg: ModelConfig, slot_type: str) -> AttnConfig:
         d_head=cfg.head_dim,
         rope_theta=cfg.rope_theta,
         window=cfg.window if slot_type == "local" else None,
+        causal=causal,
         use_bias=cfg.use_bias,
     )
 
@@ -97,7 +100,8 @@ def group_geometry(cfg: ModelConfig) -> tuple[int, int]:
     return cfg.n_layers // g, g
 
 
-def _norm(cfg: ModelConfig, device, dtype) -> nn.Module:
+def norm(cfg: ModelConfig, device, dtype) -> nn.Module:
+    """The config's norm over d_model: LayerNorm ("ln") or RMSNorm."""
     if cfg.norm_kind == "ln":
         return LayerNorm(cfg.d_model, device=device, dtype=dtype)
     return RMSNorm(cfg.d_model, device=device, dtype=dtype)
@@ -112,10 +116,10 @@ class Block(nn.Module):
         super().__init__()
         dtype = cfg.dtype
         self.slot_type = slot_type
-        self.ln1 = _norm(cfg, device, dtype)
+        self.ln1 = norm(cfg, device, dtype)
         self.attn = Attention(attn_cfg_for(cfg, slot_type), generator=generator, device=device,
                               dtype=dtype)
-        self.ln2 = _norm(cfg, device, dtype)
+        self.ln2 = norm(cfg, device, dtype)
         if cfg.family == "moe":
             self.mlp = MoE(cfg, generator=generator, device=device, dtype=dtype)
         else:
@@ -153,7 +157,7 @@ class DenseLM(nn.Module):
 
         self.embed = nn.Parameter((normal(cfg.vocab_size, cfg.d_model) * 0.02).to(
             device=device, dtype=dtype))
-        self.final_norm = _norm(cfg, device, dtype)
+        self.final_norm = norm(cfg, device, dtype)
         self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
             (normal(cfg.d_model, cfg.vocab_size) / math.sqrt(cfg.d_model)).to(
                 device=device, dtype=dtype))

@@ -1,7 +1,7 @@
 """Weight bridge: the JAX package's parameter trees <-> this package's modules.
 
-PointNet2 (`from_jax_params`, `to_jax_params`) and the LMs of the dense,
-moe, ssm and hybrid families (`lm_from_jax_params`, `lm_to_jax_params`,
+PointNet2 (`from_jax_params`, `to_jax_params`) and the LMs of every family
+(`lm_from_jax_params`, `lm_to_jax_params`,
 and their train state in the reference's layout, `lm_state_to_tree`,
 `lm_state_from_tree`, at the end of this file).
 
@@ -196,9 +196,15 @@ def to_jax_params(params: PointNet2Params) -> dict:
 #   ssm: {"embed", "blocks" {"norm", "mixer"} stacked over the L layers (one
 #     dict, not a list of slots), "final_norm"};
 #   hybrid: {"embed", "blocks": [one tree a slot, stacked over the groups],
-#     "rem": [one unstacked tree a remainder layer], "final_norm"}.
+#     "rem": [one unstacked tree a remainder layer], "final_norm"};
+#   encdec: {"embed", "enc_blocks" {"ln1", "attn", "ln2", "mlp"} stacked over
+#     the encoder's layers and "dec_blocks" {"ln1", "self_attn", "ln_x",
+#     "cross_attn", "ln2", "mlp"} over the decoder's (each one dict, as the
+#     ssm's blocks), "enc_norm", "final_norm"};
+#   vlm: the dense tree and "patch_proj" {w, b}.
 # The port's layer i of `blocks` is group i // g, slot i % g (the ssm: g = 1);
-# the hybrid's `rem` are its own modules.  bf16 leaves arrive as numpy arrays
+# the hybrid's `rem` are its own modules; encdec's layer i of `enc_blocks` or
+# `dec_blocks` is that stack's leaf i.  bf16 leaves arrive as numpy arrays
 # of ml_dtypes' bfloat16, the dtype `np.asarray` gives a JAX bf16 array; they
 # are carried over bit for bit.
 
@@ -241,13 +247,23 @@ def _flat_tree(tree, prefix: str = "") -> dict:
 
 def lm_layout(cfg) -> tuple[int, int, str]:
     """(n_groups, layers a group, family) of the reference's LM tree for `cfg`:
-    the ssm's blocks are its L layers stacked, g = 1."""
-    if cfg.family == "ssm":
-        return cfg.n_layers, 1, "ssm"
+    the ssm's blocks are its L layers stacked, g = 1; encdec's two stacks are
+    each one dict, g = 1, and count their own layers."""
+    if cfg.family in ("ssm", "encdec"):
+        return cfg.n_layers, 1, cfg.family
     if cfg.family == "hybrid":
         n_groups, g, _ = hybrid_geometry(cfg)
         return n_groups, g, "hybrid"
     return (*group_geometry(cfg), cfg.family)
+
+
+# The stacks of layers in each family's tree: {port ModuleList: stacked as one
+# dict (True) or as a list of one tree a slot (False)}.
+_STACKS = {"ssm": {"blocks": True}, "encdec": {"enc_blocks": True, "dec_blocks": True}}
+
+
+def _stacks(family: str) -> dict:
+    return _STACKS.get(family, {"blocks": False})
 
 
 def lm_from_jax_params(tree, cfg, device=None) -> torch.nn.Module:
@@ -305,17 +321,25 @@ def _lm_tree(named: dict, n_groups: int, g: int, family: str = "dense",
     def leaf(t: torch.Tensor) -> torch.Tensor:
         return t.detach() if device is None else t.detach().to(device)
 
-    tree = _nest((_parts(n), leaf(t)) for n, t in named.items() if not n.startswith("blocks."))
-    tree["blocks"] = []
-    for slot in range(g):
-        prefix = f"blocks.{slot}."
-        names = [n[len(prefix):] for n in named if n.startswith(prefix)]
-        tree["blocks"].append(_nest(
-            (_parts(n), torch.stack([leaf(named[f"blocks.{grp * g + slot}.{n}"])
-                                     for grp in range(n_groups)]))
-            for n in names))
-    if family == "ssm":
-        tree["blocks"] = tree["blocks"][0]
+    stacks = _stacks(family)
+    tree = _nest((_parts(n), leaf(t)) for n, t in named.items()
+                 if n.split(".", 1)[0] not in stacks)
+    for key, as_one in stacks.items():
+        if as_one:  # one dict stacked over every layer of the stack
+            layers = len({n.split(".")[1] for n in named if n.startswith(f"{key}.")})
+            n_stack, slots = layers, 1
+        else:
+            n_stack, slots = n_groups, g
+        tree[key] = []
+        for slot in range(slots):
+            prefix = f"{key}.{slot}."
+            names = [n[len(prefix):] for n in named if n.startswith(prefix)]
+            tree[key].append(_nest(
+                (_parts(n), torch.stack([leaf(named[f"{key}.{grp * slots + slot}.{n}"])
+                                         for grp in range(n_stack)]))
+                for n in names))
+        if as_one:
+            tree[key] = tree[key][0]
     if family == "hybrid":
         tree.setdefault("rem", [])
     return tree
@@ -324,12 +348,17 @@ def _lm_tree(named: dict, n_groups: int, g: int, family: str = "dense",
 def _lm_leaf(tree: dict, name: str, layout: tuple) -> torch.Tensor:
     """The leaf of `tree` (the reference's layout) that holds port parameter `name`."""
     _, g, family = layout
+    stacks = _stacks(family)
     parts = _parts(name)
     group = None
-    if parts[0] == "blocks":
+    if parts[0] in stacks:
         layer = parts[1]
-        node = tree["blocks"] if family == "ssm" else tree["blocks"][layer % g]
-        parts, group = parts[2:], layer // g
+        node = tree[parts[0]]
+        if stacks[parts[0]]:
+            group = layer
+        else:
+            node, group = node[layer % g], layer // g
+        parts = parts[2:]
     else:
         node = tree
     for part in parts:

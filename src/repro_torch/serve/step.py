@@ -6,6 +6,8 @@ path for every linear of the LM); policy=None takes the config's default.
 Policies are plain arguments, so servers holding different policies share
 nothing.  The steps run where `device` says (the card unless the caller
 names another): token arrays are moved there, and the params must be there.
+A prefill batch may carry the stubbed frontends' outputs, `enc_embeds`
+(encdec) and `patch_embeds` (vlm); they move there in their own dtype.
 """
 
 from __future__ import annotations
@@ -26,10 +28,21 @@ def _tokens_on(x, device: torch.device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.int32)
 
 
+# float inputs of a prefill batch, beside its tokens: the stubbed frontends' outputs
+EMBED_KEYS = ("enc_embeds", "patch_embeds")
+
+
+def _floats_on(x, device: torch.device) -> torch.Tensor:
+    """A numpy or torch float array as a tensor on `device`, in its own dtype."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.array(x))  # a writable copy
+    return x.to(device=device)
+
+
 def make_serve_fns(cfg: ModelConfig, policy: ExecutionPolicy | None = None, *, device=None):
     """Serving closures {"prefill", "decode", "generate"} for one LM config.
 
-    prefill(params, batch, s_max) -> (logits (B, 1, V) float32, DecodeState);
+    prefill(params, batch, s_max) -> (logits (B, 1, V) float32, decode state);
     decode(params, state, batch) -> (logits, next token (B, 1) int32, state);
     generate(params, batch, steps=, s_max=) -> (B, steps) int32 greedy tokens.
     Greedy tokens are the first index of the largest logit, as jnp.argmax
@@ -45,9 +58,10 @@ def make_serve_fns(cfg: ModelConfig, policy: ExecutionPolicy | None = None, *, d
 
     def prefill_step(params, batch, s_max: int):
         _check(params)
+        inputs = {"tokens": _tokens_on(batch["tokens"], dev)}
+        inputs.update((k, _floats_on(batch[k], dev)) for k in EMBED_KEYS if k in batch)
         with torch.no_grad():
-            return api["prefill"](params, cfg, {"tokens": _tokens_on(batch["tokens"], dev)},
-                                  s_max, policy=policy)
+            return api["prefill"](params, cfg, inputs, s_max, policy=policy)
 
     def decode_step(params, state, batch):
         """One token for the whole batch, with the greedy next token."""

@@ -2,8 +2,10 @@
 package and through the port on the same params and tokens, and the
 training, bridge and checkpoint checks every LM family shares.
 
-A case is a smoke config of any ported family (dense, moe, ssm, hybrid)
-with a quant policy, a KV-cache kind and a dtype.  The JAX side
+A case is a smoke config of any family (dense, moe, ssm, hybrid, encdec,
+vlm) with a quant policy, a KV-cache kind and a dtype; encdec and vlm
+prefills also take seeded stub frontend outputs (`frontend_inputs`), fed
+to both packages.  The JAX side
 initialises the reference's params through its family API, prefills a
 seeded prompt and takes `steps` greedy decode steps, both jitted once; the
 port gets the same params through `lm_from_jax_params` and is fed the
@@ -29,6 +31,7 @@ from repro_torch.params import lm_from_jax_params
 from repro_torch.serve import make_serve_fns
 
 BATCH, PROMPT, S_MAX, STEPS = 2, 16, 24, 3
+S_ENC = 24  # encdec: encoder frames of a case's stub frontend output
 
 
 def configs(name: str, *, kv: str = "none", dtype: str | None = None):
@@ -74,19 +77,39 @@ def state_arrays(state) -> list[list[np.ndarray]]:
     return out
 
 
+def frontend_inputs(cfg, b: int, seed: int, s_enc: int = S_ENC) -> dict:
+    """Seeded float32 stub frontend outputs of cfg's family: enc_embeds (b, s_enc,
+    D) for encdec, patch_embeds (b, n_patches, D) for vlm, none for the others."""
+    rng = np.random.default_rng(1000 + seed)
+    if cfg.family == "encdec":
+        return {"enc_embeds": rng.standard_normal((b, s_enc, cfg.d_model)).astype(np.float32)}
+    if cfg.family == "vlm":
+        return {"patch_embeds": rng.standard_normal((b, cfg.n_patches, cfg.d_model))
+                .astype(np.float32)}
+    return {}
+
+
 def jax_case(name: str, quant: str, *, kv: str = "none", dtype: str | None = None,
-             prompt: int = PROMPT, s_max: int = S_MAX, steps: int = STEPS, seed: int = 1) -> dict:
-    """The reference's run of one case (params, tokens, logits, states, greedy tokens)."""
+             prompt: int = PROMPT, s_max: int = S_MAX, steps: int = STEPS, seed: int = 1,
+             s_enc: int = S_ENC) -> dict:
+    """The reference's run of one case (params, tokens, logits, states, greedy tokens).
+
+    s_max counts the prompt and the generated tokens; a vlm's caches hold its
+    patches as well, so its s_max grows by n_patches."""
     jcfg, _ = configs(name, kv=kv, dtype=dtype)
     api = JF.get_family_api(jcfg)
     jp = api["init"](jax.random.PRNGKey(0), jcfg)
     tokens = np.random.default_rng(seed).integers(
         0, jcfg.vocab_size, (BATCH, prompt)).astype(np.int32)
+    inputs = frontend_inputs(jcfg, BATCH, seed, s_enc)
+    if jcfg.family == "vlm":
+        s_max += jcfg.n_patches
     pol = JPolicy(quant=quant)
-    pre = jax.jit(lambda p, t: api["prefill"](p, jcfg, {"tokens": t}, s_max, policy=pol))
+    pre = jax.jit(lambda p, b: api["prefill"](p, jcfg, b, s_max, policy=pol))
     dec = jax.jit(lambda p, st, t: api["decode_step"](p, jcfg, st, {"token": t}, policy=pol))
-    logits, st = pre(jp, jnp.asarray(tokens))
-    out = {"name": name, "quant": quant, "kv": kv, "dtype": dtype,
+    logits, st = pre(jp, {"tokens": jnp.asarray(tokens),
+                          **{k: jnp.asarray(v) for k, v in inputs.items()}})
+    out = {"name": name, "quant": quant, "kv": kv, "dtype": dtype, "inputs": inputs,
            "s_max": s_max, "tree": jax.tree.map(np.asarray, jp), "tokens": tokens,
            "prefill": _f32(logits), "state0": state_arrays(st), "steps": [], "states": []}
     tok = jnp.argmax(logits[:, -1], -1).astype(jnp.int32)[:, None]
@@ -107,14 +130,15 @@ def port_case(ref: dict) -> dict:
     params = lm_from_jax_params(ref["tree"], cfg, device="cpu")
     fns = make_serve_fns(cfg, ExecutionPolicy(quant=ref["quant"]), device="cpu")
     out = {"params": params, "cfg": cfg, "steps": [], "states": []}
+    batch = {"tokens": ref["tokens"], **ref["inputs"]}
     with torch.no_grad():
-        logits, st = fns["prefill"](params, {"tokens": ref["tokens"]}, ref["s_max"])
+        logits, st = fns["prefill"](params, batch, ref["s_max"])
         out["prefill"], out["state0"] = _f32(logits.numpy()), state_arrays(st)
         for tok in ref["fed"][:len(ref["steps"])]:
             logits, _, st = fns["decode"](params, st, {"token": tok})
             out["steps"].append(_f32(logits.numpy()))
             out["states"].append(state_arrays(st))
-        out["generate"] = fns["generate"](params, {"tokens": ref["tokens"]},
+        out["generate"] = fns["generate"](params, batch,
                                           steps=len(ref["steps"]) + 1,
                                           s_max=ref["s_max"]).numpy()
     return out
@@ -179,6 +203,12 @@ def token_batch(vocab: int, b: int, s: int, seed: int) -> dict:
     return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
 
 
+def family_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """`token_batch` and, for encdec and vlm, seeded stub frontend outputs (encdec's
+    of s frames, as the reference's train_lm stubs them)."""
+    return {**token_batch(cfg.vocab_size, b, s, seed), **frontend_inputs(cfg, b, seed, s)}
+
+
 def torch_batch(batch: dict) -> dict:
     return {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
 
@@ -215,13 +245,34 @@ def port_grads(name: str, quant: str, ref: dict) -> tuple[float, list]:
     return float(loss), [g.numpy() for g in tree_leaves(_lm_tree(grads, *lm_layout(cfg)))]
 
 
+# An attention key bias shifts every score of a query row by the same q . b,
+# which the softmax cancels: its gradient is zero in exact arithmetic, and
+# each package's is rounding noise (whisper smoke: |g| <= 1.1e-9 of a tree
+# whose largest gradient is 5.7e-2).  Such leaves are held to ZERO_GRAD_REL
+# of the tree's largest |g| on both sides, not to their own max.
+ZERO_GRAD_REL = 1e-6
+
+
+def zero_grad_leaves(tree) -> set:
+    """Indices, in `jax.tree.leaves` order, of the leaves whose exact gradient is
+    zero: the key biases of every attention (encdec's wk.b)."""
+    paths = [tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
+             for path, _ in jax.tree_util.tree_flatten_with_path(tree)[0]]
+    return {i for i, p in enumerate(paths) if p[-2:] == ("wk", "b")}
+
+
 def assert_grads_close(got: list, want: list, quant: str,
-                       float_rel: float = FLOAT_GRAD_REL) -> None:
+                       float_rel: float = FLOAT_GRAD_REL, zero: set = frozenset()) -> None:
     """Every leaf, in the reference's order, by the bounds above (`float_rel` of the
-    leaf's max in float)."""
+    leaf's max in float); the leaves of `zero` (`zero_grad_leaves`) by
+    ZERO_GRAD_REL of the largest gradient."""
     assert len(got) == len(want)
+    largest = max(float(np.abs(w).max()) for w in want)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.shape == w.shape, f"leaf {i}"
+        if i in zero:
+            assert max(float(np.abs(g).max()), float(np.abs(w).max())) <= ZERO_GRAD_REL * largest
+            continue
         top = float(np.abs(w).max())
         if quant == "none":
             assert np.abs(g - w).max() <= float_rel * top, f"leaf {i}"
@@ -249,7 +300,7 @@ def assert_train_steps_match(name: str, quant: str, steps: int = 2) -> None:
     params = lm_from_jax_params(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     state = adamw_init(params)
     for i in range(steps):
-        batch = token_batch(cfg.vocab_size, 2, 32, seed=10 + i)
+        batch = family_batch(cfg, 2, 32, seed=10 + i)
         jp, js, jm = j_step(jp, js, jax.tree.map(jnp.asarray, batch))
         out, state, m = step(params, state, torch_batch(batch))
         assert out is params and set(m) == {"loss", "grad_norm", "lr"}

@@ -239,13 +239,18 @@ def test_train_entry_point_leaves_a_checkpoint_jax_reads(tmp_path):
 
 
 def test_an_lm_arch_raises_not_ported():
-    """The dense LMs train (tests/test_torch_lm_launch.py); an LM of a family the
-    port lacks (encdec, vlm, ...) raises the not-ported error before any step."""
-    cfg = dataclasses.replace(get_config("stablelm-1.6b", smoke=True), family="encdec")
+    """The name predates the encdec family's port: an encdec LM (whisper smoke) now
+    trains a step through train_lm, fed the reference's zero encoder stubs, and an
+    LM of a family no package knows raises before any step."""
     args = argparse.Namespace(steps=1, batch=2, seq=16, lr=1e-3, seed=0, quant=None,
                               ckpt_dir=None, ckpt_every=50, log_every=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="'encdec' family is not ported"):
-        train_lm(cfg, args)
+    cfg = get_config("whisper-small", smoke=True)
+    state = train_lm(cfg, args)
+    assert state["params"].cfg is cfg and int(state["opt"].step) == 1
+    assert all(bool(torch.isfinite(p).all()) for p in state["params"].parameters())
+    bad = dataclasses.replace(get_config("stablelm-1.6b", smoke=True), family="rnn")
+    with pytest.raises(ValueError, match="unknown family"):
+        train_lm(bad, args)
 
 
 def test_adamw_state_saved_mid_training_resumes_bitwise(tmp_path):

@@ -17,9 +17,11 @@ two-card tests skip below two cards).  And the paper's comparison paths:
 the FPS kernel under L2 at baseline-1's global shapes, the SC kernel at
 standard aggregation's row counts, and the five comparison corners'
 replays against eager with their launches.  Then the LMs: the SC kernel
-at every dense, moe, ssm and hybrid LM shape, the smoke configs served and
-trained on the card against plain and against the CPU (`-k lm`,
-`-k lm_families`), and tied MoE routing alike on both.
+at every dense, moe, ssm, hybrid, encdec and vlm LM shape, the smoke
+configs served and trained on the card against plain and against the CPU
+(`-k lm`, `-k lm_families`, `-k lm_encdec_vlm`), tied MoE routing alike on
+both, and a whisper decode step (its cross-attention over the cached
+encoder K/V) replayed as a CUDA graph.
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test skips where
 torch.cuda.is_available() is false.  On the card:
@@ -1934,3 +1936,233 @@ def test_lm_families_moe_ties_route_alike_on_the_card(cuda, quant):
     assert (r_gpu[2].cpu() - r_cpu[2]).abs().max().item() <= 1e-6  # the softmax weights
     assert set(torch.where(r_cpu[3], r_cpu[0], -1).unique().tolist()) <= {-1, 1, 2}
     assert (out_gpu.cpu() - out_cpu).abs().max().item() <= LM_CPU_ATOL["float"]
+
+
+# -- the encdec and vlm LM families -------------------------------------------------------
+
+LM_ENCDEC_VLM = ["whisper-small", "internvl2-2b"]
+# Card against the CPU, train step gradients, of each leaf's max: float as
+# LM_TRAIN_GRAD_REL; SC 5e-2.  internvl2 smoke's block-0 MLP leaves (ln2.g,
+# wi, wg, wo) sit on a quantizer boundary for this batch: one-ulp nudges of
+# the CPU run's patch inputs alone move them by 1.29e-2 of their max, and the
+# card measured 1.556e-2 (H100); phase 9 measured 4.1e-2 in float32 for the
+# same scale-path reason.
+ENCDEC_VLM_TRAIN_GRAD_REL = {"none": 1e-4, "sc_w16a16": 5e-2}
+
+
+def _lm_encdec_vlm_shapes():
+    """(M, K, N) of the SC matmul at whisper-small's and internvl2-2b's full widths:
+    whisper's 768 -> 768 (attention, cross-attention), 768 -> 3072 and 3072 -> 768
+    (MLP) at decode rows (4), the decoder's prefill rows (4 x 64), the encoder's
+    (4 x 1536 frames) and training rows (8 x 256); internvl2's 2048 -> 2048 (wq, wo,
+    patch_proj), 2048 -> 1024 (wk, wv), 2048 <-> 8192 (GLU) at decode rows (4),
+    prefill rows (4 x (256 patches + 128 tokens)) and training rows (8 x 512)."""
+    shapes = set()
+    for m in (4, 256, 6144, 2048):
+        shapes |= {(m, 768, 768), (m, 768, 3072), (m, 3072, 768)}
+    for m in (4, 1536, 4096):
+        shapes |= {(m, 2048, 2048), (m, 2048, 1024), (m, 2048, 8192), (m, 8192, 2048)}
+    return sorted(shapes)
+
+
+def _encdec_vlm_sc_calls(cfg, step: str) -> int:
+    """SC matmuls of one whisper or internvl2 step ("prefill", "decode" or "train",
+    remat full): encoder layers 6 (attention 4, MLP 2), decoder layers 10 (self 4,
+    cross 4, MLP 2) or 8 in decode (the cross K/V cached); vlm layers 7 (attention
+    4, GLU 3) and patch_proj in prefill and training, outside the remat."""
+    if cfg.family == "encdec":
+        per = {"prefill": 6 * cfg.encoder_layers + 10 * cfg.n_layers, "decode": 8 * cfg.n_layers}
+        per["train"] = 2 * per["prefill"]
+    else:
+        per = {"prefill": 7 * cfg.n_layers + 1, "decode": 7 * cfg.n_layers,
+               "train": 14 * cfg.n_layers + 1}
+    return per[step]
+
+
+def _encdec_vlm_inputs(cfg, b: int, seed: int) -> dict:
+    """Seeded float32 stub frontend outputs: 20 encoder frames, or the patches."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        return {"enc_embeds": rng.standard_normal((b, 20, cfg.d_model)).astype(np.float32)}
+    return {"patch_embeds": rng.standard_normal((b, cfg.n_patches, cfg.d_model))
+            .astype(np.float32)}
+
+
+@pytest.mark.parametrize("shape", _lm_encdec_vlm_shapes())
+@pytest.mark.parametrize("bits", [16, 8])
+def test_sc_matmul_kernel_at_lm_encdec_vlm_shapes(cuda, shape, bits):
+    m, k, n = shape
+    x, w = _int_operands(m, k, n, bits, cuda, seed=m + 5 * k + n)
+    got = sc_matmul_cuda(x, w, n_planes=bits // 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc_matmul_plain(x, w, n_planes=bits // 4))
+
+
+@pytest.mark.parametrize("name", LM_ENCDEC_VLM)
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16", "sc_w8a8"])
+def test_lm_encdec_vlm_smoke_serving_on_the_card(cuda, name, quant):
+    """Smoke width: prefill of 2 x 12 tokens (with 20 encoder frames or 8 patches)
+    into caches of 20 text positions, then 3 decode steps fed the card's greedy
+    tokens, on the card and on the CPU from the same params: every SC call bitwise
+    equal to the plain version, the counted launches of a prefill and of a decode
+    step as the family's linears say, the logits within LM_CPU_ATOL of the CPU's."""
+    import copy
+
+    from repro_torch.models.families import get_family_api
+    from repro_torch.serve import make_serve_fns
+
+    cfg = get_config(name, smoke=True)
+    p_cpu = get_family_api(cfg)["init"](cfg, generator=torch.Generator().manual_seed(0),
+                                        device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(cuda)
+    pol = ExecutionPolicy(quant=quant)
+    fg, fc = make_serve_fns(cfg, pol, device=cuda), make_serve_fns(cfg, pol, device="cpu")
+    batch = {"tokens": np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 12)),
+             **_encdec_vlm_inputs(cfg, 2, 5)}
+    ahead = cfg.n_patches if cfg.family == "vlm" else 0
+    sc = quant != "none"
+    registry.reset_launches()
+    (lg, sg), calls = _record_sc(lambda: fg["prefill"](p_gpu, batch, 20 + ahead))
+    torch.cuda.synchronize()
+    assert registry.launches()["sc_matmul"] == len(calls) == (
+        _encdec_vlm_sc_calls(cfg, "prefill") if sc else 0)
+    lc, st_c = fc["prefill"](p_cpu, batch, 20 + ahead)
+    diffs = [(lg.cpu() - lc).abs().max().item()]
+    tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+    for _ in range(3):
+        registry.reset_launches()
+        (lg, nxt, sg), more = _record_sc(lambda: fg["decode"](p_gpu, sg, {"token": tok}))
+        torch.cuda.synchronize()
+        assert registry.launches()["sc_matmul"] == len(more) == (
+            _encdec_vlm_sc_calls(cfg, "decode") if sc else 0)
+        calls += more
+        lc, _, st_c = fc["decode"](p_cpu, st_c, {"token": tok.cpu()})
+        diffs.append((lg.cpu() - lc).abs().max().item())
+        tok = nxt
+    assert int(sg.cache_len) == ahead + 15
+    for args, kw in calls:
+        assert torch.equal(sc_matmul_cuda(*args, **kw), sc_matmul_plain(*args, **kw))
+    assert max(diffs) <= LM_CPU_ATOL["float" if quant == "none" else "quantized"], diffs
+
+
+@pytest.mark.parametrize("name", LM_ENCDEC_VLM)
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_lm_encdec_vlm_train_step_on_the_card_against_the_cpu(cuda, name, quant):
+    """Smoke width, float32, remat full, 2 x 48 tokens (48 encoder frames or 8
+    patches a sequence): train_loss and every gradient leaf on the card against the
+    CPU (ENCDEC_VLM_TRAIN_GRAD_REL; SC the nonzero pattern too), every SC call of
+    the step bitwise equal to the plain version and as many as the remat rule
+    gives; then one make_train_step step on each side.  whisper's attention key
+    biases, whose exact gradient is zero, are held within 1e-6 of the largest
+    gradient instead (tests/_lm.py's ZERO_GRAD_REL says why)."""
+    import copy
+
+    from repro_torch.models.families import get_family_api
+    from repro_torch.optim import adamw_init
+    from repro_torch.params import named_jax_params
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(name, smoke=True)
+    api = get_family_api(cfg)
+    p_cpu = api["init"](cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(cuda)
+    pol = ExecutionPolicy(quant=quant)
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48)).astype(np.int32))
+    extra = {"encdec": ("enc_embeds", 48), "vlm": ("patch_embeds", cfg.n_patches)}[cfg.family]
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1),
+             extra[0]: torch.from_numpy(rng.standard_normal((2, extra[1], cfg.d_model))
+                                        .astype(np.float32))}
+
+    def grads(params, b):
+        named = named_jax_params(params)
+        loss, _ = api["train_loss"](params, cfg, b, policy=pol)
+        return loss.detach(), dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    registry.reset_launches()
+    (loss_gpu, g_gpu), calls = _record_sc(lambda: grads(p_gpu, on_card))
+    torch.cuda.synchronize()
+    assert registry.launches()["sc_matmul"] == len(calls) == (
+        _encdec_vlm_sc_calls(cfg, "train") if quant != "none" else 0)
+    for args, kw in calls:
+        assert torch.equal(sc_matmul_cuda(*args, **kw), sc_matmul_plain(*args, **kw))
+    loss_cpu, g_cpu = grads(p_cpu, batch)
+    atol = LM_CPU_ATOL["float" if quant == "none" else "quantized"]
+    assert abs(loss_gpu.item() - loss_cpu.item()) <= atol
+    largest = max(g.abs().max().item() for g in g_cpu.values())
+    bad, worst = [], 0.0
+    for k, want in g_cpu.items():
+        got, want = g_gpu[k].cpu().double(), want.double()
+        top = want.abs().max().item()
+        if k.endswith("wk.b"):
+            if max(top, got.abs().max().item()) > 1e-6 * largest:
+                bad.append(f"{k}: key bias gradient above 1e-6 of the largest")
+            continue
+        if quant != "none" and not torch.equal(got.abs() > 1e-30, want.abs() > 1e-30):
+            bad.append(f"{k}: nonzero pattern")
+        rel = (got - want).abs().max().item() / max(top, 1e-30)
+        worst = max(worst, rel) if top > 1e-30 else worst
+        if top > 1e-30 and rel > ENCDEC_VLM_TRAIN_GRAD_REL[quant]:
+            bad.append(f"{k}: {rel:.3e} of its max")
+    print(f"{name} {quant}: worst gradient {worst:.3e} of its leaf's max")
+    assert not bad, bad
+    step_gpu = make_train_step(cfg, peak_lr=1e-3, warmup_steps=1, policy=pol)
+    step_cpu = make_train_step(cfg, peak_lr=1e-3, warmup_steps=1, policy=pol)
+    m_gpu = step_gpu(p_gpu, adamw_init(p_gpu), on_card)[2]
+    m_cpu = step_cpu(p_cpu, adamw_init(p_cpu), batch)[2]
+    assert m_gpu["loss"].is_cuda and abs(m_gpu["loss"].item() - m_cpu["loss"].item()) <= atol
+
+
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_lm_encdec_vlm_cross_attention_decode_step_replays(cuda, quant):
+    """whisper smoke's decode step (self-attention against its cache, the
+    cross-attention over the cached encoder K/V, the position row gathered at
+    cache_len) captured as one CUDA graph, which fails on any read back to the
+    host, then replayed on another token and state: bitwise equal to the eager
+    step on those inputs, and the SC launches of a step credited to the replay."""
+    from repro_torch.models.families import EncDecState, get_family_api
+    from repro_torch.models.layers import KVCache
+    from repro_torch.serve import make_serve_fns
+
+    cfg = get_config("whisper-small", smoke=True)
+    api = get_family_api(cfg)
+    params = api["init"](cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    pol = ExecutionPolicy(quant=quant)
+    fns = make_serve_fns(cfg, pol, device=cuda)
+    rng = np.random.default_rng(9)
+
+    def prefilled(seed):
+        batch = {"tokens": np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 12)),
+                 **_encdec_vlm_inputs(cfg, 2, seed)}
+        logits, st = fns["prefill"](params, batch, 20)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None], st
+
+    def step(tok, sk, sv, ck, cv, cl):
+        st = EncDecState(KVCache(sk, sv), KVCache(ck, cv), cl)
+        with torch.no_grad():
+            logits, new = api["decode_step"](params, cfg, st, {"token": tok}, policy=pol)
+        return logits, new.self_caches.k, new.self_caches.v, new.cache_len
+
+    def flat(tok, st):
+        return [tok, *st.self_caches, *st.cross_caches, st.cache_len]
+
+    tok0, st0 = prefilled(1)
+    static = [t.clone() for t in flat(tok0, st0)]
+    step(*static)  # the eager warm-up at these shapes, on this thread
+    torch.cuda.synchronize()
+    graph, outputs, launches = graphs.capture_graph(step, static, "whisper decode step")
+    assert launches.get("sc_matmul", 0) == (_encdec_vlm_sc_calls(cfg, "decode")
+                                             if quant != "none" else 0)
+    art = graphs.Artifact(graph, static, outputs, launches)
+    tok1, st1 = prefilled(2)
+    st1 = st1._replace(cache_len=st1.cache_len + int(rng.integers(1, 4)))
+    registry.reset_launches()
+    got = art.replay(flat(tok1, st1))
+    torch.cuda.synchronize()
+    assert registry.launches()["sc_matmul"] == launches.get("sc_matmul", 0)
+    with graphs.eager():
+        want = step(*flat(tok1, st1))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)

@@ -463,40 +463,57 @@ def test_lm_loss_and_its_backward_take_no_host_data(name, policy):
     assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
 
 
-FAMILIES = ["granite-moe-3b-a800m", "mamba2-1.3b", "recurrentgemma-2b"]
+FAMILIES = ["granite-moe-3b-a800m", "mamba2-1.3b", "recurrentgemma-2b", "whisper-small",
+            "internvl2-2b"]
+
+
+def _frontend(cfg, b: int) -> dict:
+    """Seeded stub frontend outputs, already in place: whisper's 10 encoder frames,
+    internvl2's patches; nothing for the other families."""
+    rng = np.random.default_rng(8)
+    n = {"encdec": 10, "vlm": cfg.n_patches}.get(cfg.family)
+    if n is None:
+        return {}
+    key = "enc_embeds" if cfg.family == "encdec" else "patch_embeds"
+    return {key: torch.from_numpy(rng.standard_normal((b, n, cfg.d_model)).astype(np.float32))}
 
 
 @pytest.mark.parametrize("name", FAMILIES)
 @pytest.mark.parametrize("policy", [ExecutionPolicy(), SC], ids=["none", "sc_w16a16"])
 def test_lm_family_prefill_and_decode_take_no_host_data(name, policy):
-    """The moe, ssm and hybrid families' prefill and decode_step, through the family
-    API on tokens and a state already in place, build no tensor from host data and
-    read nothing back: the MoE's routing (capacity from shapes, one-hot by
-    comparison), the SSM's and RG-LRU's states and the hybrid's rolling local
-    caches (a prompt of 7 and 3 steps pass its window of 8) stay on the device."""
+    """The moe, ssm, hybrid, encdec and vlm families' prefill and decode_step,
+    through the family API on inputs and a state already in place, build no tensor
+    from host data and read nothing back: the MoE's routing (capacity from shapes,
+    one-hot by comparison), the SSM's and RG-LRU's states, the hybrid's rolling
+    local caches (a prompt of 7 and 3 steps pass its window of 8), encdec's
+    position row gathered at cache_len and its cross-attention over the cached
+    encoder K/V, and vlm's patches ahead of the prompt stay on the device."""
     from repro_torch.models.families import get_family_api
 
     cfg = get_config(name, smoke=True)
     api = get_family_api(cfg)
     params = api["init"](cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 7)))
+    extra = _frontend(cfg, 2)
+    ahead = cfg.n_patches if cfg.family == "vlm" else 0
     check = _HostDataCheck()
     with torch.inference_mode(), check:
-        logits, state = api["prefill"](params, cfg, {"tokens": tokens}, 12, policy=policy)
+        logits, state = api["prefill"](params, cfg, {"tokens": tokens, **extra}, 12 + ahead,
+                                       policy=policy)
         tok = logits[:, -1].argmax(dim=-1, keepdim=True)
         for _ in range(3):
             logits, state = api["decode_step"](params, cfg, state, {"token": tok}, policy=policy)
             tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     assert check.seen == []
-    assert bool(torch.isfinite(logits).all()) and int(state.cache_len) == 10
+    assert bool(torch.isfinite(logits).all()) and int(state.cache_len) == 10 + ahead
 
 
 @pytest.mark.parametrize("name", FAMILIES)
 @pytest.mark.parametrize("policy", [ExecutionPolicy(), SC], ids=["none", "sc_w16a16"])
 def test_lm_family_loss_and_its_backward_take_no_host_data(name, policy):
-    """The moe, ssm and hybrid families' train_loss and its gradient (the remat
-    recompute of each layer or group included) build no tensor from host data and
-    read nothing back."""
+    """The moe, ssm, hybrid, encdec and vlm families' train_loss and its gradient
+    (the remat recompute of each layer or group included, encdec's encoder layers
+    too) build no tensor from host data and read nothing back."""
     from repro_torch.models.families import get_family_api
     from repro_torch.params import named_jax_params
 
@@ -505,7 +522,7 @@ def test_lm_family_loss_and_its_backward_take_no_host_data(name, policy):
     params = api["init"](cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     tokens = torch.from_numpy(
         np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 48)).astype(np.int32))
-    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1), **_frontend(cfg, 2)}
     named = named_jax_params(params)
     check = _HostDataCheck()
     with check:

@@ -182,28 +182,38 @@ def test_param_count_equal(name):
 
 
 # the other LM families of the port, each held by its own files
-# (tests/test_torch_lm_{moe,ssm,hybrid}*.py)
-PORTED = DENSE + ["granite-moe-3b-a800m", "dbrx-132b", "mamba2-1.3b", "recurrentgemma-2b"]
+# (tests/test_torch_lm_{moe,ssm,hybrid,encdec,vlm}*.py)
+PORTED = DENSE + ["granite-moe-3b-a800m", "dbrx-132b", "mamba2-1.3b", "recurrentgemma-2b",
+                  "whisper-small", "internvl2-2b"]
 
 
 def test_arch_ids_and_unported_configs():
+    """The name predates the last families: every id of the reference now resolves,
+    each to its own config, and a name no package knows raises KeyError."""
     assert ARCH_IDS == j_base.ARCH_IDS
+    assert set(ARCH_IDS) == set(PORTED) | {"pointnet2-cls", "pointnet2-seg"}
     for name in ARCH_IDS:
-        if name in PORTED or name.startswith("pointnet2"):
-            assert get_config(name).name == name
-        else:
-            with pytest.raises(KeyError):
-                get_config(name)
+        assert get_config(name).name == name
+    with pytest.raises(KeyError):
+        get_config("no-such-lm-1b")
 
 
-@pytest.mark.parametrize("family", ["encdec", "vlm"])
-def test_other_families_are_not_ported(family):
-    cfg = dataclasses.replace(get_config("stablelm-1.6b", smoke=True), family=family)
-    for call in (lambda: families.get_family_api(cfg),
-                 lambda: T.init_lm(cfg, device="cpu"),
-                 lambda: make_serve_fns(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="queue A step 3"):
-            call()
+@pytest.mark.parametrize("family,name", [("encdec", "whisper-small"), ("vlm", "internvl2-2b")])
+def test_other_families_are_not_ported(family, name):
+    """The name predates the encdec and vlm families' port: each family's API,
+    `init` and serve fns now build on the CPU, and its prefill answers."""
+    cfg = get_config(name, smoke=True)
+    assert cfg.family == family
+    api = families.get_family_api(cfg)
+    assert set(api) == {"init", "train_loss", "prefill", "decode_step", "init_decode_state"}
+    params = api["init"](cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    fns = make_serve_fns(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 5)).astype(np.int32)}
+    extra = {"encdec": ("enc_embeds", 7), "vlm": ("patch_embeds", cfg.n_patches)}[family]
+    batch[extra[0]] = rng.standard_normal((2, extra[1], cfg.d_model)).astype(np.float32)
+    tokens = fns["generate"](params, batch, steps=3, s_max=cfg.n_patches + 8)
+    assert tokens.shape == (2, 3) and tokens.dtype == torch.int32
 
 
 def test_family_api_is_the_dense_one():

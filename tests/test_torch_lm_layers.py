@@ -278,11 +278,40 @@ def test_attention_decode_writes_at_a_clamped_index(inputs, ref, kind, idx):
         assert torch.equal(t, old)
 
 
-def test_attention_refuses_kv_override(inputs):
+@pytest.mark.parametrize("query", ["attn_x", "attn_tok"], ids=["six", "one"])
+def test_attention_refuses_kv_override(inputs, query):
+    """The name predates the encdec family: `kv_override` (cross-attention) now
+    runs, against the reference's attn_apply.  A query of 6 positions over the 6
+    of attn_x (non-causal flash attention, no RoPE on either side) and a
+    one-token query (decode attention over all 6); aux is the projected (k, v)
+    only when collect_kv asks for it."""
     attn = _attention(inputs)
-    x = _t(inputs["attn_x"])
-    with pytest.raises(NotImplementedError, match="encdec"):
-        attn(x, positions=torch.arange(6)[None], kv_override=(x, x))
+    x, src = inputs[query], inputs["attn_x"]
+    pos = np.arange(x.shape[1])[None]
+    want, _ = JL.attn_apply(_attn_tree(inputs["attn_w"]), JL.AttnConfig(**ATTN), jnp.asarray(x),
+                            positions=jnp.asarray(pos), kv_override=(jnp.asarray(src),) * 2,
+                            attn_block=4)
+    with torch.no_grad():
+        got, aux = attn(_t(x), positions=_t(pos), kv_override=(_t(src),) * 2, attn_block=4)
+        _, (k, v) = attn(_t(x), positions=_t(pos), kv_override=(_t(src),) * 2,
+                         collect_kv=True, attn_block=4)
+    assert aux is None and k.shape == v.shape == (2, 6, ATTN["n_kv_heads"], ATTN["d_head"])
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=MLP_ATOL)
+
+
+@pytest.mark.parametrize("query", ["attn_x", "attn_tok"], ids=["six", "one"])
+def test_attention_kv_override_takes_the_projected_cache(inputs, query):
+    """A KVCache as `kv_override` (the decoder's cross cache) is taken as the
+    projected K/V: the same output, bitwise, as projecting the source again."""
+    attn = _attention(inputs)
+    x, src = _t(inputs[query]), _t(inputs["attn_x"])
+    pos = torch.arange(x.shape[1])[None]
+    with torch.no_grad():
+        want, (k, v) = attn(x, positions=pos, kv_override=(src, src), collect_kv=True,
+                            attn_block=4)
+        got, aux = attn(x, positions=pos, kv_override=TL.KVCache(k, v), attn_block=4)
+    assert aux is None
+    assert torch.equal(got, want)
 
 
 # -- MLPs ------------------------------------------------------------------------------
