@@ -25,7 +25,8 @@ SC kernel in the forward and in the remat recompute), the moe, ssm and
 hybrid LM families (granite-moe-3b-a800m, dbrx-132b, mamba2-1.3b,
 recurrentgemma-2b) and the encdec and vlm families (whisper-small with its
 cross-attention, internvl2-2b with its patch connector) through the same
-two entry points.  On
+two entry points, and the LM's device layout (the host mesh, the
+activation hints, the op counter and the dry run).  On
 the card the entry points replay captured CUDA graphs (core/graphs.py, the
 counterpart of the JAX package's jit artifacts) unless the caller enters
 graphs.eager(), which is the reference side of every graph check.
@@ -275,10 +276,30 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      the card against the port's CPU run: prefill and LM_CPU_STEPS
      teacher-forced decode steps within LM_CPU_TOL, step 1's loss and
      gradients within phase 13's bounds (whisper's key biases, whose exact
-     gradient is zero, within ZERO_GRAD_REL of the largest).
+     gradient is zero, within ZERO_GRAD_REL of the largest);
+ 16. the LM's device layout and dry run (lm_mesh_phase): stablelm-1.6b at
+     full width and LM_LAYERS layers (bf16, weights drawn on the card from
+     SEED) on the host mesh (launch.mesh.make_host_mesh, 1 x 1 on this
+     card).  Its parameters, AdamW state and an LM_TRAIN_BATCH x
+     LM_TRAIN_SEQ batch are placed (sharding.spec.place) by
+     to_shardings(param_pspecs(...)) under MESH_POLICIES; one sc_w16a16
+     train step under activation_sharding(mesh, mode) for each MESH_MODES
+     mode is bitwise equal to the same step outside any context (loss, grad
+     norm, every parameter), each counted (168 SC launches), every SC call
+     of the first held against the plain version; a float and an SC prefill
+     of LM_BATCH x LM_PROMPT and MESH_DECODE decode steps likewise, counted.
+     The op counter (launch/hlo_analysis) over the float and the SC prefill
+     on the card equals its count on meta tensors (ops, FLOPs, bytes), beside
+     model_flops.  Placing the state grows memory_allocated by the dry run's
+     per-device argument bytes of the same cell, within ALLOC_ROUND a
+     tensor.  Last, launch/dryrun's run_cell for MESH_CELLS on meta, each
+     timed, their roofline terms on this card (counted FLOPs of each type
+     over n_devices x that type's peak in MESH_PEAKS, summed; bytes over
+     n_devices x PEAK_BYTES_PER_S), and the skipped MESH_SKIPPED with the
+     reference's reason.
 
 Then it prints one JSON line with every kernel's launches (summed over the
-counted runs of phases 4 and 6-15; a replay's are the launches its
+counted runs of phases 4 and 6-16; a replay's are the launches its
 capture recorded, which the profiled replays of phases 4, 6, 7 and 9 show
 the card running), error and times (summed over the calls recorded in
 phase 3, with a breakdown by path), the card line again, and as its last
@@ -3941,6 +3962,309 @@ def lm_encdec_vlm_phase(torch, registry, card: str, timed: set) -> tuple[dict, d
     return runs.counted, report
 
 
+# LM layout phase (16): stablelm-1.6b at full width and LM_LAYERS layers (bf16,
+# weights drawn on the card from SEED) on the host mesh (make_host_mesh: 1 x 1
+# on this card).  Its parameters, AdamW state and a LM_TRAIN_BATCH x
+# LM_TRAIN_SEQ batch are placed by MESH_POLICIES' shardings; one sc_w16a16
+# train step under each MESH_MODES activation-hint mode must equal the same
+# step outside any context, bitwise; so must a float and an SC prefill of
+# LM_BATCH x LM_PROMPT and MESH_DECODE decode steps.
+MESH_POLICIES = ("fsdp_tp", "fsdp2d")
+MESH_MODES = ("sp", "fsdp2d")
+MESH_DECODE = 4
+# The CUDA caching allocator hands out blocks in multiples of 512 bytes: the
+# growth of memory_allocated from placing a tensor exceeds its bytes by less.
+ALLOC_ROUND = 512
+# dry-run cells run on meta tensors (launch/dryrun.py), each timed: (arch, shape, mesh)
+MESH_CELLS = (("stablelm-1.6b", "train_4k", "single"), ("stablelm-1.6b", "decode_32k", "single"),
+              ("mamba2-1.3b", "long_500k", "single"))
+MESH_SKIPPED = ("stablelm-1.6b", "long_500k", "single")
+# One H100's dense bf16 tensor-core peak (NVIDIA's data sheet, SXM, without
+# sparsity).
+PEAK_BF16_FLOPS = 989e12
+# The dry-run cells' compute term: each FLOP type of the op counter
+# (launch/hlo_analysis) over the peak of the unit that runs it.  The port's
+# float32 dots run outside the tensor cores (TF32 is off); an elementwise,
+# reduce, gather or write FLOP is one instruction on the FP32 pipes.
+MESH_PEAKS = {"bfloat16": PEAK_BF16_FLOPS, "float32": PEAK_F32_OPS, "sc_int8": PEAK_INT8_OPS,
+              "vector": PEAK_F32_INSTR}
+
+
+def lm_mesh_phase(torch, registry, card: str) -> tuple[dict, dict]:
+    """Phase 16: the LM's device layout on the host mesh, the op counter on the card
+    and on meta, the dry run's argument bytes against the card's allocator, and
+    dry-run cells with their roofline terms on this card.
+
+    Returns the launch counts of each counted run and the numbers to report.
+    """
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.data.tokens import token_stream
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch import shapes as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.families import get_family_api
+    from repro_torch.optim import adamw_init
+    from repro_torch.params import lm_param_tree, named_jax_params
+    from repro_torch.sharding import policy as POL
+    from repro_torch.sharding.hints import activation_sharding
+    from repro_torch.sharding.spec import NamedSharding, PartitionSpec, place
+    from repro_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    counted, report = {}, {"card": card, "train": {}, "serve": {}, "memory": {}, "counter": {},
+                           "dryrun": {}}
+    spec = registry.get("sc_matmul")
+    cfg = stablelm_cut("lm mesh")
+    api = get_family_api(cfg)
+    mesh = make_host_mesh()
+    say(f"lm mesh: host mesh {mesh}")
+    n_train, n_step = lm_linears(cfg, train=True), lm_linears(cfg)
+    pols = {"none": ExecutionPolicy(quant="none"), "sc_w16a16": ExecutionPolicy(quant="sc_w16a16")}
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def check_launches(label: str, n_sc: int) -> None:
+        got = {n: registry.launches()[n] for n in KERNELS}
+        counted[label] = got
+        want = {**dict.fromkeys(KERNELS, 0), "sc_matmul": n_sc}
+        if got != want:
+            fail(f"lm mesh, {label}: launches {got}, expected {want}")
+
+    params0 = T.init_lm(cfg, generator=torch.Generator("cuda").manual_seed(SEED), device="cuda")
+    opt0 = adamw_init(params0)
+    _, cpu_batch = next(token_stream(SEED, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab_size,
+                                     device="cpu"))
+    batch0 = {k: v.cuda() for k, v in cpu_batch.items()}
+    rng = np.random.default_rng(SEED)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+                               .astype(np.int32)).cuda()
+    s_max = LM_PROMPT + MESH_DECODE
+    step_fn = make_train_step(cfg, peak_lr=LM_TRAIN_LR, warmup_steps=1, total_steps=2,
+                              policy=pols["sc_w16a16"])
+
+    def shardings(p: str) -> tuple[dict, dict]:
+        """Per port parameter and per batch leaf, its NamedSharding under policy p."""
+        pol = POL.POLICIES[p]
+        tree = lm_param_tree(params0, device="meta")
+        psh = POL.module_pspecs(params0, POL.to_shardings(
+            POL.param_pspecs(tree, mesh, pol, cfg), mesh))
+        bsh = POL.to_shardings(POL.batch_pspecs(cfg, batch0, mesh, pol), mesh)
+        return psh, bsh
+
+    def placed_params(psh: dict):
+        module = T.init_lm(cfg, device="meta")
+        module.load_state_dict({n: place(t.detach(), psh[n])
+                                for n, t in named_jax_params(params0).items()}, assign=True)
+        return module
+
+    def placed_state(p: str):
+        """params, AdamW state and batch placed by policy p's shardings, and what
+        placing them allocated: (module, opt, batch, bytes grown, tensors placed)."""
+        psh, bsh = shardings(p)
+        sync()
+        before = torch.cuda.memory_allocated()
+        module = placed_params(psh)
+        moments = [None if d is None else {n: place(t, psh[n]) for n, t in d.items()}
+                   for d in (opt0.mu, opt0.nu, opt0.master)]
+        opt = type(opt0)(place(opt0.step, NamedSharding(mesh, PartitionSpec())), *moments)
+        batch = {k: place(v, bsh[k]) for k, v in batch0.items()}
+        sync()
+        n_tensors = 1 + len(batch) + len(psh) * (1 + sum(d is not None for d in moments))
+        return module, opt, batch, torch.cuda.memory_allocated() - before, n_tensors
+
+    def held_step(module, opt, batch):
+        """One train step with every SC call held against the plain version as it is
+        made, bitwise (phase 13's check); returns (metrics, calls made)."""
+        made, bad = [0], []
+
+        def hold(*args, **kw):
+            got = spec.cuda(*args, **kw)
+            want = spec.plain(*args, **kw)
+            made[0] += 1
+            if not torch.equal(got, want):
+                bad.append((made[0], [tuple(a.shape) for a in args if torch.is_tensor(a)]))
+            return got
+
+        registry.register("sc_matmul", plain=spec.plain, cuda=hold)
+        try:
+            m = step_fn(module, opt, batch)[2]
+            sync()
+        finally:
+            registry.register("sc_matmul", plain=spec.plain, cuda=spec.cuda)
+        if bad:
+            fail(f"lm mesh: SC calls (index, shapes) {bad[:5]} differ from the plain version")
+        return m, made[0]
+
+    # -- (a) one SC train step outside any context, then under each policy x mode ------
+    t0 = time.perf_counter()
+    module, opt, batch, _, _ = placed_state(MESH_POLICIES[0])
+    registry.reset_launches()
+    with deterministic(torch):
+        m = step_fn(module, opt, batch)[2]
+    sync()
+    check_launches("train, no context", n_train)
+    want_loss, want_gn = m["loss"].clone(), m["grad_norm"].clone()
+    want_params = {n: t.detach().clone() for n, t in named_jax_params(module).items()}
+    del module, opt, batch, m
+    free()
+    for p in MESH_POLICIES:
+        for i, mode in enumerate(MESH_MODES):
+            module, opt, batch, grown, n_tensors = placed_state(p)
+            if i == 0:  # (c) the dry run's argument bytes against the allocator
+                meta_batch = {k: torch.empty_like(v, device="meta") for k, v in batch0.items()}
+                args, shs = dryrun.cell_arguments(cfg, "train", meta_batch, mesh, p)
+                want_bytes = dryrun.argument_bytes(args, shs)
+                report["memory"][p] = {"argument_bytes": want_bytes, "allocated_growth": grown,
+                                       "tensors": n_tensors}
+                say(f"lm mesh, {p}: placing params, AdamW state and batch grew memory_allocated "
+                    f"by {grown} B; the dry run's per-device argument bytes {want_bytes} "
+                    f"({n_tensors} tensors, the allocator's {ALLOC_ROUND} B blocks)")
+                if not 0 <= grown - want_bytes <= ALLOC_ROUND * n_tensors:
+                    fail(f"lm mesh, {p}: placing grew memory by {grown} B against the dry run's "
+                         f"{want_bytes} B, beyond {ALLOC_ROUND} B a tensor")
+            label = f"train, policy={p} mode={mode}"
+            registry.reset_launches()
+            with activation_sharding(mesh, mode=mode), deterministic(torch):
+                if (p, mode) == (MESH_POLICIES[0], MESH_MODES[0]):
+                    m, made = held_step(module, opt, batch)
+                    if made != n_train:
+                        fail(f"lm mesh, {label}: {made} SC calls, expected {n_train}")
+                else:
+                    m = step_fn(module, opt, batch)[2]
+            sync()
+            check_launches(label, n_train)
+            if not (torch.equal(m["loss"], want_loss) and torch.equal(m["grad_norm"], want_gn)):
+                fail(f"lm mesh, {label}: loss {m['loss'].item()} / grad norm "
+                     f"{m['grad_norm'].item()} against {want_loss.item()} / {want_gn.item()} "
+                     "outside the context")
+            diff = [n for n, t in named_jax_params(module).items()
+                    if not torch.equal(t.detach(), want_params[n])]
+            if diff:
+                fail(f"lm mesh, {label}: parameters {diff[:5]} differ from the step outside "
+                     "the context")
+            report["train"][label] = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
+            del module, opt, batch, m
+            free()
+    del want_params
+    free()
+    say(f"lm mesh: one sc_w16a16 train step of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} under "
+        f"{len(MESH_POLICIES)} placements x {len(MESH_MODES)} hint modes is bitwise the step "
+        f"outside any context (loss {want_loss.item():.6f}, grad norm {want_gn.item():.6f}, "
+        f"every parameter); {n_train} SC launches each, held against plain in the first; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- (a) prefill and decode steps, float and SC ---------------------------------------
+    def serve(params, pol) -> list:
+        outs = []
+        with torch.no_grad():
+            logits, state = api["prefill"](params, cfg, {"tokens": prompts}, s_max, policy=pol)
+            outs += [logits, *[t for c in state.caches for t in c], state.cache_len]
+            for _ in range(MESH_DECODE):
+                tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+                logits, state = api["decode_step"](params, cfg, state, {"token": tok},
+                                                   policy=pol)
+                outs += [logits, *[t for c in state.caches for t in c]]
+        return outs
+
+    t0 = time.perf_counter()
+    want = {}
+    for q, pol in pols.items():
+        registry.reset_launches()
+        want[q] = serve(params0, pol)
+        sync()
+        check_launches(f"serve quant={q}, no context", n_step * (1 + MESH_DECODE) if q != "none"
+                       else 0)
+    for p in MESH_POLICIES:
+        module = placed_params(shardings(p)[0])
+        for mode in MESH_MODES:
+            for q, pol in pols.items():
+                label = f"serve quant={q}, policy={p} mode={mode}"
+                registry.reset_launches()
+                with activation_sharding(mesh, mode=mode):
+                    got = serve(module, pol)
+                sync()
+                check_launches(label, n_step * (1 + MESH_DECODE) if q != "none" else 0)
+                bad = [i for i, (a, b) in enumerate(zip(got, want[q], strict=True))
+                       if not torch.equal(a, b)]
+                if bad:
+                    fail(f"lm mesh, {label}: outputs {bad[:5]} differ from outside the context")
+        del module
+        free()
+    report["serve"] = {"prompts": [LM_BATCH, LM_PROMPT], "decode_steps": MESH_DECODE,
+                       "s": round(time.perf_counter() - t0, 3)}
+    say(f"lm mesh: float and SC prefill of {LM_BATCH} x {LM_PROMPT} + {MESH_DECODE} decode "
+        f"steps under every placement x mode bitwise equal outside the context "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- (b) the op counter: the prefill on the card and on meta --------------------------
+    meta_params = SH.abstract_module(cfg)
+    meta_prompts = torch.empty_like(prompts, device="meta")
+    model = SH.model_flops_at(cfg, "prefill", LM_BATCH, LM_PROMPT)
+    for q, pol in pols.items():
+        counts = {}
+        for where, params, toks in (("card", params0, prompts), ("meta", meta_params,
+                                                                 meta_prompts)):
+            with torch.no_grad():
+                counts[where] = hlo_analysis.analyze(
+                    lambda: api["prefill"](params, cfg, {"tokens": toks}, s_max, policy=pol))
+        keys = ("ops", "flops", "bytes", "dot_flops", "ops_by_kind")
+        if any(counts["card"][k] != counts["meta"][k] for k in keys):
+            fail(f"lm mesh, counter, prefill quant={q}: card "
+                 f"{ {k: counts['card'][k] for k in keys} } against meta "
+                 f"{ {k: counts['meta'][k] for k in keys} }")
+        c = counts["card"]
+        report["counter"][q] = {k: c[k] for k in keys} | {"model_flops": model}
+        say(f"lm mesh, counter, prefill {LM_BATCH} x {LM_PROMPT} quant={q}: card == meta: "
+            f"{c['ops']} ops ({c['ops_by_kind'].get('sc_matmul', 0)} SC kernels), "
+            f"{c['flops']:.6e} FLOPs (dots {c['dot_flops']:.6e}), {c['bytes']:.6e} bytes; "
+            f"model_flops {model:.6e}")
+    del meta_params
+    free()
+
+    # -- (d), (e) dry-run cells on meta, their roofline terms on this card -----------------
+    for arch, shape, mk in MESH_CELLS:
+        r = dryrun.run_cell(arch, shape, mk)
+        if r["status"] != "ok":
+            fail(f"lm mesh, dry run {arch} x {shape} x {mk}: {r['status']} "
+                 f"{r.get('error', r.get('reason'))}")
+        h = r["hlo_analysis"]
+        roof = hlo_analysis.roofline_ms(h, r["n_devices"], MESH_PEAKS, PEAK_BYTES_PER_S)
+        report["dryrun"][f"{arch} x {shape} x {mk}"] = {
+            "lower_s": r["lower_s"], "n_devices": r["n_devices"], "flops": h["flops"],
+            "flops_by_type": h["flops_by_type"], "bytes": h["bytes"],
+            "dot_flops": h["dot_flops"], "model_flops": r["model_flops"],
+            "argument_bytes": r["memory_analysis"]["argument_size_in_bytes"], **roof}
+        by_type = ", ".join(f"{t} {f:.6e} FLOPs / {MESH_PEAKS[t]:.4g} FLOP/s = "
+                            f"{roof['compute_ms_by_type'][t]:.4f} ms"
+                            for t, f in h["flops_by_type"].items())
+        say(f"lm mesh, dry run {arch} x {shape} x {mk} (policy fsdp_tp, {r['n_devices']} "
+            f"devices): counted in {r['lower_s']} s; {h['flops']:.6e} FLOPs "
+            f"(model_flops {r['model_flops']:.6e}), {h['bytes']:.6e} bytes, "
+            f"{r['memory_analysis']['argument_size_in_bytes']} argument bytes a device; "
+            f"roofline on this card ({card}): compute {roof['compute_ms']:.4f} ms "
+            f"(over {r['n_devices']} devices: {by_type}), memory "
+            f"{roof['memory_ms']:.4f} ms (bytes / ({r['n_devices']} x "
+            f"{PEAK_BYTES_PER_S:.3g} B/s)), bound by {roof['bound_by']}")
+    arch, shape, mk = MESH_SKIPPED
+    r = dryrun.run_cell(arch, shape, mk)
+    if r["status"] != "skipped" or r["reason"] != SH.skip_reason(arch, shape):
+        fail(f"lm mesh, dry run {arch} x {shape} x {mk}: {r}")
+    say(f"lm mesh, dry run {arch} x {shape} x {mk}: skipped, {r['reason']}")
+    report["dryrun"][f"{arch} x {shape} x {mk}"] = {"status": "skipped", "reason": r["reason"]}
+
+    del params0, opt0, batch0
+    free()
+    report["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    say(f"lm mesh phase: {report['phase_s']} s")
+    return counted, report
+
+
 def main() -> None:
     """Run every phase; any failure exits non-zero before the last line."""
     import torch
@@ -4286,6 +4610,12 @@ def main() -> None:
         "calls": len(ev_rows), **{k: sum(r[k] for r in ev_rows)
                                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
     say(json.dumps({"lm_encdec_vlm": ev_report, "lm_encdec_vlm_launches": ev_counted}))
+
+    # -- 16. the LM's device layout, the op counter and the dry run ------------------------
+    mesh_counted, mesh_report = lm_mesh_phase(torch, registry, card)
+    for n in KERNELS:
+        launches[n] += sum(c[n] for c in mesh_counted.values())
+    say(json.dumps({"lm_mesh": mesh_report, "lm_mesh_launches": mesh_counted}))
 
     kernels = []
     for name, meta in KERNELS.items():

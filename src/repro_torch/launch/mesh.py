@@ -28,8 +28,16 @@ runs a group's shards side by side, the counterpart of the forced host
 devices (`xla_force_host_platform_device_count`) the reference's tests
 use.  A one-device group is valid and runs the unsharded math.
 
-The LM's `make_production_mesh` and `make_host_mesh` come with the LM
-substrate.
+The LM's meshes are of another kind: `Mesh` names axes and their sizes
+for the sharding rules (`sharding.policy`) and the activation hints
+(`sharding.hints`).  `make_production_mesh` describes the reference's
+deployments, 16 x 16 ("data", "model") and 2 x 16 x 16 ("pod", "data",
+"model"), with no devices behind them: the dry run (`launch/dryrun.py`)
+lays a model out on them and counts its work, and nothing runs there.
+`make_host_mesh` is the 1 x 1 mesh on the local card, where the layout is
+applied (`sharding.spec.place`) and a step runs under the hints.  Mapping
+the 16-wide model axis onto 8-GPU NVLink nodes, and running one program
+over several cards, are not part of the port (ROADMAP.md queue B).
 """
 
 from __future__ import annotations
@@ -258,3 +266,57 @@ def make_replica_mesh(devices) -> ReplicaMesh:
     group size.
     """
     return ReplicaMesh(devices)
+
+
+class Mesh:
+    """Named mesh axes and their sizes, with the devices behind them or none.
+
+    shape: ordered {axis name: size}; axis_names: the names in order;
+    devices: a tuple of torch.devices, one a mesh position in row-major
+    order, or None for an abstract mesh (a deployment described, not run).
+    """
+
+    def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...], devices=None):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"{len(shape)} sizes for {len(axis_names)} axes")
+        self.shape = dict(zip(axis_names, shape))
+        self.axis_names = tuple(axis_names)
+        if devices is not None:
+            devices = tuple(torch.device(d) for d in devices)
+            if len(devices) != self.size:
+                raise ValueError(f"{len(devices)} devices for a mesh of {self.size}")
+        self.devices = devices
+
+    @property
+    def size(self) -> int:
+        """Number of mesh positions (devices, for a concrete mesh)."""
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+    def __repr__(self) -> str:
+        where = "abstract" if self.devices is None else list(map(str, self.devices))
+        return f"Mesh({self.shape}, {where})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's deployments as abstract meshes: 16 x 16 ("data", "model"),
+    or 2 x 16 x 16 ("pod", "data", "model") with multi_pod.
+
+    "pod" is data parallelism across pods, "data" FSDP and the batch,
+    "model" tensor and expert parallelism.  No devices: the dry run lays a
+    model out on it and counts its work.
+    """
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes)
+
+
+def make_host_mesh(device=None) -> Mesh:
+    """The 1 x 1 ("data", "model") mesh on the local card (the reference's host mesh).
+
+    On the card unless `device` names another ("cpu" for the tests); raises
+    without a card otherwise, as every entry point of the port does.
+    """
+    return Mesh((1, 1), ("data", "model"), devices=(resolve_device(device),))

@@ -31,7 +31,11 @@ and decoder layer as `cfg.remat` says, never the hybrid's remainder layers,
 as the reference does.  Decode keeps each slot's caches stacked over the
 groups; `cache_len` is a 0-d int32 tensor on the model's device, and
 nothing reads a value back to the host.  The hybrid's, encdec's and vlm's
-caches are float in any `kv_quant`, as the reference's are.
+caches are float in any `kv_quant`, as the reference's are.  The residual
+stream passes `sharding.hints.hint_residual` where the reference's does:
+after each ssm layer in training, after each hybrid group's layers (not
+the remainder layers), and after each encoder layer and, in training,
+each decoder layer.
 """
 
 from __future__ import annotations
@@ -56,13 +60,13 @@ from repro_torch.models.layers import (
     RMSNorm,
 )
 from repro_torch.models.mamba2 import Mamba2, SSMCache, mamba2_dims
-from repro_torch.models.nn import Linear
+from repro_torch.models.nn import Linear, draw_normal
 from repro_torch.models.rglru import CONV_WIDTH, RGLRU, LRUCache
+from repro_torch.sharding.hints import hint_residual
 
 
 def _embedding(cfg: ModelConfig, generator, device) -> nn.Parameter:
-    draw_on = None if generator is None else generator.device
-    e = torch.randn(cfg.vocab_size, cfg.d_model, generator=generator, device=draw_on) * 0.02
+    e = draw_normal(cfg.vocab_size, cfg.d_model, generator=generator, device=device) * 0.02
     return nn.Parameter(e.to(device=device, dtype=cfg.dtype))
 
 
@@ -114,7 +118,7 @@ def ssm_init(cfg: ModelConfig, *, generator: torch.Generator | None = None,
 
 def _ssm_layer(block: SSMBlock, cfg, policy, h: torch.Tensor) -> torch.Tensor:
     out, _, _ = block.mixer(block.norm(h), policy=policy)
-    return h + out
+    return hint_residual(h + out)
 
 
 def ssm_train_loss(params: SSMLM, cfg: ModelConfig, batch: dict,
@@ -315,6 +319,7 @@ def _hybrid_run(params: HybridLM, cfg: ModelConfig, h: torch.Tensor, positions: 
                 stacked = state.group_caches[slot]
                 cache = type(stacked)(*(t[start // g] for t in stacked))
             hh, new_cache = params.blocks[start + slot](hh, cache=cache, cache_len=cl, **kw)
+            hh = hint_residual(hh)
             if keep:
                 group_out[slot].append(new_cache)
         return hh
@@ -516,7 +521,7 @@ def encdec_init(cfg: ModelConfig, *, generator: torch.Generator | None = None,
 
 
 def _enc_layer(block: EncBlock, positions, attn_block: int, policy, h: torch.Tensor):
-    return block(h, positions=positions, attn_block=attn_block, policy=policy)
+    return hint_residual(block(h, positions=positions, attn_block=attn_block, policy=policy))
 
 
 def encode(params: EncDecLM, cfg: ModelConfig, enc_embeds: torch.Tensor,
@@ -540,7 +545,8 @@ def _dec_embed(params: EncDecLM, cfg: ModelConfig, tokens: torch.Tensor) -> torc
 
 
 def _dec_layer(block: DecBlock, enc_out, positions, attn_block: int, policy, h: torch.Tensor):
-    return block(h, enc_out, positions=positions, attn_block=attn_block, policy=policy)[0]
+    return hint_residual(block(h, enc_out, positions=positions, attn_block=attn_block,
+                               policy=policy)[0])
 
 
 def encdec_train_loss(params: EncDecLM, cfg: ModelConfig, batch: dict,

@@ -33,12 +33,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from fractions import Fraction
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import accounting
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.models.nn import Linear
 
@@ -155,14 +157,18 @@ def _flash_forward(q, k, v, causal: bool, window, blk: int, pairs, scale: float)
     by_row: dict[int, list[int]] = {}
     for i, j in pairs:
         by_row.setdefault(i, []).append(j)
-    for i, cols in by_row.items():
+    # every row, and every pair, dispatches the same ops: on meta (shapes alone)
+    # the first of each stands for all (`core.accounting.loop`)
+    short = q.is_meta
+    inner = Fraction(len(pairs), len(by_row)) if short else None
+    for i, cols in accounting.loop(by_row.items(), short):
         rows = slice(i * blk, (i + 1) * blk)
         # q * scale in q's dtype, then the product in float32
         qi = (q[:, :, rows] * scale).reshape(b, hkv, g, blk, dh).to(torch.float32)
         m = torch.full((b, hq, blk, 1), _NEG_INF, dtype=torch.float32, device=q.device)
         den = torch.zeros((b, hq, blk, 1), dtype=torch.float32, device=q.device)
         acc = torch.zeros((b, hq, blk, dh), dtype=torch.float32, device=q.device)
-        for j in cols:
+        for j in accounting.loop(cols, short, inner):
             keys = slice(j * blk, (j + 1) * blk)
             scores = torch.matmul(qi, kf[:, :, None, keys].transpose(-1, -2))
             mask = _pair_mask(i, j, blk, causal, window, q.device)
@@ -202,7 +208,7 @@ def _flash_backward(dout, q, k, v, out, lse, causal: bool, window, blk: int, pai
     dq = torch.zeros((b, hq, s, dh), dtype=torch.float32, device=q.device)
     dk = torch.zeros((b, hkv, k.shape[2], dh), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
-    for i, j in pairs:
+    for i, j in accounting.loop(pairs, q.is_meta):  # on meta one pair stands for all
         rows, keys = slice(i * blk, (i + 1) * blk), slice(j * blk, (j + 1) * blk)
         qi = q[:, :, rows]
         qi_g = (qi * scale).reshape(b, hkv, g, blk, dh).to(torch.float32)

@@ -31,7 +31,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.models.layers import RMSNorm
-from repro_torch.models.nn import Linear
+from repro_torch.models.nn import Linear, draw_normal
 
 
 class SSMCache(NamedTuple):
@@ -67,10 +67,9 @@ class Mamba2(nn.Module):
         d = cfg.d_model
         d_inner, n_heads, conv_dim = mamba2_dims(cfg)
         dtype = dtype or torch.float32
-        draw_on = None if generator is None else generator.device
         kw = dict(bias=False, generator=generator, device=device, dtype=dtype)
         self.in_proj = Linear(d, 2 * d_inner + 2 * cfg.ssm_state + n_heads, **kw)
-        conv = torch.randn(cfg.ssm_conv, conv_dim, generator=generator, device=draw_on) * 0.1
+        conv = draw_normal(cfg.ssm_conv, conv_dim, generator=generator, device=device) * 0.1
         self.conv_w = nn.Parameter(conv.to(device=device, dtype=dtype))
         self.conv_b = nn.Parameter(torch.zeros(conv_dim, device=device, dtype=dtype))
         f32 = dict(device=device, dtype=torch.float32)

@@ -38,7 +38,7 @@ from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.core.quant import quantize_symmetric
 from repro_torch.kernels.sc_matmul.ops import sc_matmul_op
 from repro_torch.models.layers import ACTS
-from repro_torch.models.nn import Linear
+from repro_torch.models.nn import Linear, draw_normal
 
 
 class MoE(nn.Module):
@@ -51,10 +51,8 @@ class MoE(nn.Module):
         self.cfg = cfg
         e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
         dtype = dtype or torch.float32
-        draw_on = None if generator is None else generator.device
-
         def normal(*shape, fan_in: int):
-            t = torch.randn(*shape, generator=generator, device=draw_on) * (1.0 / math.sqrt(fan_in))
+            t = draw_normal(*shape, generator=generator, device=device) * (1.0 / math.sqrt(fan_in))
             return nn.Parameter(t.to(device=device, dtype=dtype))
 
         self.router = Linear(d, e, bias=False, generator=generator, device=device,

@@ -43,13 +43,27 @@ def _shard_mode(policy: ExecutionPolicy | None) -> str | None:
     return mode if replica_axis_active() else None
 
 
+def draw_normal(*shape: int, generator: torch.Generator | None = None,
+                device=None) -> torch.Tensor:
+    """Standard normal float32 draws of `shape`, for a parameter bound for `device`.
+
+    Drawn on the generator's device (the CPU without one), and the caller
+    moves them to `device`: a CPU generator gives the same weights on every
+    device, a CUDA one draws a large model in place.  For the meta device
+    nothing is drawn: a meta tensor of the shape comes back, so that a model
+    of any size builds on meta at once (`launch.shapes.abstract_params`).
+    """
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    draw_on = None if generator is None else generator.device
+    return torch.randn(*shape, generator=generator, device=draw_on)
+
+
 class Linear(nn.Module):
     """Dense layer y = x @ w + b with w (d_in, d_out), float or SC-quantized.
 
     Initialised like the reference: w ~ N(0, 1/d_in), b = 0, in `dtype`
-    (float32 by default).  The draw is made on the generator's device (the
-    CPU without one) and then moved to `device`: a CPU generator gives the
-    same weights on every device, a CUDA one draws a large model in place.
+    (float32 by default), drawn as `draw_normal` says.
     """
 
     def __init__(
@@ -58,8 +72,7 @@ class Linear(nn.Module):
     ):
         super().__init__()
         dtype = dtype or torch.float32
-        draw_on = None if generator is None else generator.device
-        w = torch.randn(d_in, d_out, generator=generator, device=draw_on) * (1.0 / math.sqrt(d_in))
+        w = draw_normal(d_in, d_out, generator=generator, device=device) * (1.0 / math.sqrt(d_in))
         self.w = nn.Parameter(w.to(device=device, dtype=dtype))
         self.b = nn.Parameter(torch.zeros(d_out, device=device, dtype=dtype)) if bias else None
 

@@ -29,7 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.models.layers import ACTS
 from repro_torch.models.mamba2 import causal_conv, conv_tail
-from repro_torch.models.nn import Linear
+from repro_torch.models.nn import Linear, draw_normal
 
 _C = 8.0
 CONV_WIDTH = 4
@@ -55,11 +55,10 @@ class RGLRU(nn.Module):
         d = cfg.d_model
         w = cfg.lru_width or d
         dtype = dtype or torch.float32
-        draw_on = None if generator is None else generator.device
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.in_x = Linear(d, w, bias=False, **kw)
         self.in_y = Linear(d, w, bias=False, **kw)
-        conv = torch.randn(CONV_WIDTH, w, generator=generator, device=draw_on) * 0.1
+        conv = draw_normal(CONV_WIDTH, w, generator=generator, device=device) * 0.1
         self.conv_w = nn.Parameter(conv.to(device=device, dtype=dtype))
         self.conv_b = nn.Parameter(torch.zeros(w, device=device, dtype=dtype))
         self.gate_a = Linear(w, w, bias=True, **kw)

@@ -26,8 +26,10 @@ Training: `lm_loss` embeds the tokens, runs `backbone` (the layer stack
 without caches, one activation checkpoint a group of layers as
 `cfg.remat` says) and takes `chunked_cross_entropy` against the LM head,
 never building the (B, S, V) logits.  Nothing there reads a value back to
-the host.  The reference's `hint_residual` is a no-op without a device
-mesh, so it is left out (ROADMAP.md queue A step 3g).
+the host.  The residual stream passes `sharding.hints.hint_residual` where
+the reference's does: the block's two residual adds, and after each layer
+of `backbone` and `prefill`.  A hint returns its input itself, so values
+and the autograd graph do not change under `activation_sharding`.
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ from repro_torch.models.layers import (
     quantize_kv,
 )
 from repro_torch.models.moe import MoE
-from repro_torch.models.nn import LayerNorm
+from repro_torch.models.nn import LayerNorm, draw_normal
+from repro_torch.sharding.hints import hint_residual
 
 # The families whose layer stack is this module's Block: vlm is the dense
 # stack behind a patch connector (`models.families.VLM`).
@@ -133,8 +136,8 @@ class Block(nn.Module):
         attend_len, decode_window, collect_kv), and aux is what it returns."""
         a, aux = self.attn(self.ln1(h), positions=positions, attn_block=attn_block,
                            policy=policy, **attn_kw)
-        h = h + a
-        h = h + self.mlp(self.ln2(h), policy=policy)
+        h = h + hint_residual(a)
+        h = h + hint_residual(self.mlp(self.ln2(h), policy=policy))
         return h, aux
 
 
@@ -150,10 +153,8 @@ class DenseLM(nn.Module):
         group_geometry(cfg)
         self.cfg = cfg
         dtype = cfg.dtype
-        draw_on = None if generator is None else generator.device
-
         def normal(*shape):
-            return torch.randn(*shape, generator=generator, device=draw_on)
+            return draw_normal(*shape, generator=generator, device=device)
 
         self.embed = nn.Parameter((normal(cfg.vocab_size, cfg.d_model) * 0.02).to(
             device=device, dtype=dtype))
@@ -225,6 +226,7 @@ def backbone(params: DenseLM, cfg: ModelConfig, h: torch.Tensor, positions: torc
     def group(start: int, hh: torch.Tensor) -> torch.Tensor:
         for block in params.blocks[start:start + g]:
             hh, _ = block(hh, positions=positions, attn_block=cfg.attn_block, policy=policy)
+            hh = hint_residual(hh)
         return hh
 
     for start in range(0, len(params.blocks), g):
@@ -359,6 +361,7 @@ def prefill(params: DenseLM, cfg: ModelConfig, tokens: torch.Tensor, s_max: int 
     for i, block in enumerate(params.blocks):
         h, kv = block(h, positions=positions, collect_kv=True, attn_block=cfg.attn_block,
                       policy=policy)
+        h = hint_residual(h)
         kvs[i % g].append(kv)
     h = params.final_norm(h)
     logits = (h[:, -1:] @ lm_head_weights(params, cfg)).to(torch.float32)

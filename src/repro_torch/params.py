@@ -345,25 +345,35 @@ def _lm_tree(named: dict, n_groups: int, g: int, family: str = "dense",
     return tree
 
 
-def _lm_leaf(tree: dict, name: str, layout: tuple) -> torch.Tensor:
-    """The leaf of `tree` (the reference's layout) that holds port parameter `name`."""
+def lm_leaf_key(name: str, layout: tuple) -> tuple[tuple, int | None]:
+    """Where port parameter `name` sits in the reference's tree (`lm_layout`): (the
+    path of its leaf, the group it takes along the leaf's stacked first dim, or
+    None where the leaf is not stacked)."""
     _, g, family = layout
     stacks = _stacks(family)
     parts = _parts(name)
-    group = None
-    if parts[0] in stacks:
-        layer = parts[1]
-        node = tree[parts[0]]
-        if stacks[parts[0]]:
-            group = layer
-        else:
-            node, group = node[layer % g], layer // g
-        parts = parts[2:]
-    else:
-        node = tree
-    for part in parts:
+    if parts[0] not in stacks:
+        return parts, None
+    layer = parts[1]
+    if stacks[parts[0]]:
+        return (parts[0], *parts[2:]), layer
+    return (parts[0], layer % g, *parts[2:]), layer // g
+
+
+def _lm_leaf(tree: dict, name: str, layout: tuple) -> torch.Tensor:
+    """The leaf of `tree` (the reference's layout) that holds port parameter `name`."""
+    path, group = lm_leaf_key(name, layout)
+    node = tree
+    for part in path:
         node = node[part]
     return node if group is None else node[group]
+
+
+def lm_param_tree(module: torch.nn.Module, device=None) -> dict:
+    """An LM module's parameters as the reference's tree (`lm_layout`): new tensors,
+    the layers stacked, on `device` (None: the module's; "meta" gives the shapes
+    and dtypes alone)."""
+    return _lm_tree(named_jax_params(module), *lm_layout(module.cfg), device=device)
 
 
 def lm_state_to_tree(state: dict, device=None) -> dict:
@@ -383,7 +393,7 @@ def lm_state_to_tree(state: dict, device=None) -> dict:
         return None if named is None else _lm_tree(named, *layout, device=device)
 
     step = opt.step if device is None else opt.step.to(device)
-    return {"params": tree(named_jax_params(module)),
+    return {"params": lm_param_tree(module, device=device),
             "opt": type(opt)(step, tree(opt.mu), tree(opt.nu), tree(opt.master))}
 
 

@@ -11,8 +11,20 @@ the reference calls `jax.lax.axis_index`, `pmax` and `all_gather`.
 Outside a bound axis (the single-device entry points, any other thread)
 `replica_axis_active()` is False and every sharded code path is off, so one
 policy object runs the same single-device math everywhere else, as in the
-reference.  The LM's activation hints (`activation_sharding`,
-`hint_residual`, `hint_batch_only`) come with the LM substrate.
+reference.
+
+The LM's activation hints (Megatron-style sequence parallelism) come
+below.  Models call `hint_residual(h)` at block boundaries, where the
+reference constrains the residual stream (B, S, D) to a layout on the
+mesh that `activation_sharding(mesh, mode=...)` made current: "sp" puts
+the batch over the data axes and the sequence over "model", "fsdp2d" the
+batch over every axis where it divides, "off" nothing.  The reference's
+constraint changes no value, only where GSPMD places the activation; the
+port runs one program on one device, so a hint returns its input itself
+(the same tensor: the autograd graph is untouched), and `residual_spec` /
+`batch_only_spec` give the spec the reference would impose, which the
+dry run and the tests read.  Without an active context every hint is a
+no-op.
 """
 
 from __future__ import annotations
@@ -21,6 +33,8 @@ import contextlib
 import contextvars
 
 import torch
+
+from repro_torch.sharding.spec import PartitionSpec
 
 # The one axis a serving replica's device group is laid out over.  Model
 # code never names a group: `nn.Linear` and `quantize_symmetric` take the
@@ -91,3 +105,83 @@ def all_gather(x: torch.Tensor, dim: int, axis_name: str = REPLICA_AXIS) -> torc
     """
     group, index = axis_frame(axis_name)
     return group.all_gather(index, x, dim)
+
+
+# -- the LM's activation hints ----------------------------------------------
+
+# {"mesh", "daxes", "mode"} of the innermost `activation_sharding`, None outside one.
+_HINTS: contextvars.ContextVar = contextvars.ContextVar("repro_torch_activation_sharding",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh, *, mode: str = "sp"):
+    """Make `mesh` and `mode` the hints' layout inside the block.
+
+    mode: "sp" (sequence parallel: batch over the data axes, sequence over
+    "model"), "fsdp2d" (batch over every axis; falls back to "sp" where the
+    batch does not divide) or "off".  The data axes are ("pod", "data") on
+    a mesh with a "pod" axis, else ("data",).  Nests; the previous layout
+    comes back on exit.
+    """
+    daxes = ("pod", "data") if "pod" in tuple(mesh.axis_names) else ("data",)
+    token = _HINTS.set({"mesh": mesh, "daxes": daxes, "mode": mode})
+    try:
+        yield
+    finally:
+        _HINTS.reset(token)
+
+
+def _data_ways(mesh, daxes) -> int:
+    n = 1
+    for a in daxes:
+        n *= mesh.shape[a]
+    return n
+
+
+def residual_spec(shape, mesh, daxes: tuple, mode: str) -> PartitionSpec | None:
+    """The spec the reference's `hint_residual` imposes on a tensor of `shape`
+    (None: no constraint): the reference's rules, dim by dim."""
+    if mode == "off" or len(shape) != 3:
+        return None
+    b, s, _ = shape
+    dtotal = _data_ways(mesh, daxes)
+    msize = mesh.shape["model"]
+    if mode == "fsdp2d" and b % (dtotal * msize) == 0:
+        return PartitionSpec(daxes + ("model",), None, None)
+    # fsdp2d with a batch too small for both axes falls through to sp
+    bspec = daxes if b % dtotal == 0 else None
+    sspec = "model" if (s % msize == 0 and s >= msize) else None
+    return PartitionSpec(bspec, sspec, None)
+
+
+def batch_only_spec(shape, mesh, daxes: tuple) -> PartitionSpec | None:
+    """The spec of the reference's `hint_batch_only` (None: no constraint): the
+    leading dim over the data axes where they divide it."""
+    if len(shape) < 1 or shape[0] % _data_ways(mesh, daxes):
+        return None
+    return PartitionSpec(daxes, *([None] * (len(shape) - 1)))
+
+
+def _constrain(x: torch.Tensor, mesh, spec: PartitionSpec) -> torch.Tensor:
+    """Where the reference calls `jax.lax.with_sharding_constraint(x,
+    NamedSharding(mesh, spec))`: x itself.  The tests record (mesh, spec) here."""
+    return x
+
+
+def hint_residual(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) residual-stream hint under the active layout; returns x itself."""
+    c = _HINTS.get()
+    if c is None:
+        return x
+    spec = residual_spec(tuple(x.shape), c["mesh"], c["daxes"], c["mode"])
+    return x if spec is None else _constrain(x, c["mesh"], spec)
+
+
+def hint_batch_only(x: torch.Tensor) -> torch.Tensor:
+    """Hint only the leading batch dim (decode-path activations); returns x itself."""
+    c = _HINTS.get()
+    if c is None:
+        return x
+    spec = batch_only_spec(tuple(x.shape), c["mesh"], c["daxes"])
+    return x if spec is None else _constrain(x, c["mesh"], spec)

@@ -21,7 +21,10 @@ at every dense, moe, ssm, hybrid, encdec and vlm LM shape, the smoke
 configs served and trained on the card against plain and against the CPU
 (`-k lm`, `-k lm_families`, `-k lm_encdec_vlm`), tied MoE routing alike on
 both, and a whisper decode step (its cross-attention over the cached
-encoder K/V) replayed as a CUDA graph.
+encoder K/V) replayed as a CUDA graph.  Last, the LM's device layout (`-k
+lm_mesh`): the dense smoke configs under the host mesh's activation hints,
+bitwise equal to the same calls without them, and the op counter's counts
+on the card equal to those on meta tensors.
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test skips where
 torch.cuda.is_available() is false.  On the card:
@@ -2166,3 +2169,89 @@ def test_lm_encdec_vlm_cross_attention_decode_step_replays(cuda, quant):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+# -- the LM's device layout: the host mesh and the op counter ---------------------------------
+
+
+def _lm_mesh_run(cfg, params, pol, tokens, batch):
+    """A prefill of `tokens` into caches of 24, 3 greedy decode steps, and the loss
+    and every gradient of `batch`: every tensor it gives, in order."""
+    from repro_torch.models import transformer as T
+
+    outs = []
+    with torch.no_grad():
+        logits, state = T.prefill(params, cfg, tokens, 24, policy=pol)
+        outs += [logits, *[t for c in state.caches for t in c], state.cache_len]
+        for _ in range(3):
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            logits, state = T.decode_step(params, cfg, state, tok, policy=pol)
+            outs += [logits, *[t for c in state.caches for t in c]]
+    loss, grads = _lm_grads(cfg, params, batch, pol)
+    return outs + [loss, *grads.values()]
+
+
+@pytest.mark.parametrize("name", LM_DENSE)
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_lm_mesh_hints_change_nothing_on_the_card(cuda, name, quant):
+    """Smoke width on the card: a prefill, 3 decode steps and a loss with every
+    gradient under activation_sharding(make_host_mesh(), mode) for sp and fsdp2d,
+    bitwise equal to the same calls outside any context; the SC launches equal."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.hints import activation_sharding
+
+    cfg = get_config(name, smoke=True)
+    params = T.init_lm(cfg, generator=torch.Generator().manual_seed(0), device="cpu").to(cuda)
+    pol = ExecutionPolicy(quant=quant)
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)).to(cuda)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    registry.reset_launches()
+    want = _lm_mesh_run(cfg, params, pol, tokens, batch)
+    torch.cuda.synchronize()
+    n_sc = registry.launches()["sc_matmul"]
+    assert (n_sc > 0) == (quant != "none")
+    mesh = make_host_mesh()
+    assert mesh.devices == (torch.device("cuda", torch.cuda.current_device()),)
+    for mode in ("sp", "fsdp2d"):
+        registry.reset_launches()
+        with activation_sharding(mesh, mode=mode):
+            got = _lm_mesh_run(cfg, params, pol, tokens, batch)
+        torch.cuda.synchronize()
+        assert registry.launches()["sc_matmul"] == n_sc
+        assert len(got) == len(want)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), (mode, i)
+
+
+@pytest.mark.parametrize("name", LM_DENSE)
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_lm_mesh_counts_on_the_card_equal_meta(cuda, name, quant):
+    """The op counter (launch/hlo_analysis) over a smoke prefill and a train step on
+    the card and on meta tensors: ops, FLOPs, bytes and dot FLOPs equal; under SC
+    each linear is one kernel call either way."""
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(name, smoke=True)
+    pol = ExecutionPolicy(quant=quant)
+    counts = {}
+    for dev in (cuda, torch.device("meta")):
+        gen = None if dev.type == "meta" else torch.Generator().manual_seed(0)
+        params = T.init_lm(cfg, generator=gen, device="cpu" if gen else dev).to(dev)
+        toks = torch.zeros((2, 32), dtype=torch.int32, device=dev)
+        pre = analyze(lambda: T.prefill(params, cfg, toks, 32, policy=pol))
+        step = make_train_step(cfg, policy=pol)
+        opt = adamw_init(params)
+        train = analyze(lambda: step(params, opt, {"tokens": toks, "labels": toks}))
+        counts[dev.type] = [(r["ops"], r["flops"], r["bytes"], r["dot_flops"],
+                             r["ops_by_kind"].get("sc_matmul", 0)) for r in (pre, train)]
+    assert counts["cuda"] == counts["meta"], counts
+    n_lin = (4 + (3 if cfg.mlp_kind == "glu" else 2)) * cfg.n_layers
+    assert counts["cuda"][0][4] == (n_lin if quant != "none" else 0)
+    assert counts["cuda"][1][4] == (2 * n_lin if quant != "none" else 0)
+

@@ -44,7 +44,11 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.data.tokens", "repro_torch.models.moe", "repro_torch.models.mamba2",
             "repro_torch.models.rglru", "repro_torch.configs.granite_moe_3b_a800m",
             "repro_torch.configs.dbrx_132b", "repro_torch.configs.mamba2_1_3b",
-            "repro_torch.configs.recurrentgemma_2b"} <= set(mods)
+            "repro_torch.configs.recurrentgemma_2b", "repro_torch.launch.dryrun",
+            "repro_torch.launch.hlo_analysis", "repro_torch.launch.shapes",
+            "repro_torch.launch.mesh", "repro_torch.sharding.policy",
+            "repro_torch.sharding.hints", "repro_torch.sharding.spec",
+            "repro_torch.core.accounting"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
