@@ -122,8 +122,8 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
   9. training (launch/train.py): for pointnet2-cls (8 x 1024) and
      pointnet2-seg (8 x 4096), each in float and sc_w16a16, from seeded
      params and the same data.pointclouds batches: step 1's loss and
-     gradients on the card against the port's CPU run (TRAIN_GRAD_TOL);
-     5 eager steps against 5 steps of TrainStep, whose first call runs
+     gradients on the card (deterministic kernels) against the port's CPU
+     run (TRAIN_GRAD_TOL); 5 eager steps against 5 steps of TrainStep, whose first call runs
      eagerly and captures the whole step (forward, torch.autograd.grad,
      AdamW in place) as one CUDA graph and whose later calls replay it,
      bitwise in every loss, parameter, moment and the step count under
@@ -296,10 +296,36 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      timed, their roofline terms on this card (counted FLOPs of each type
      over n_devices x that type's peak in MESH_PEAKS, summed; bytes over
      n_devices x PEAK_BYTES_PER_S), and the skipped MESH_SKIPPED with the
-     reference's reason.
+     reference's reason;
+ 17. the comparison corners through the runtime, and the examples
+     (corner_runtime_phase, examples_phase), by the checks phases 7, 9 and
+     10 share (counted_serve, step1_against_cpu and replay_against_eager,
+     sharded_forward).  For cls (8 x 1024) and seg (8 x 4096) in each corner
+     of RUNTIME_CORNERS (baseline1/standard and baseline2/delayed, float and
+     sc_w16a16; pc2im/standard under SC, for standard aggregation's SC scale
+     path), with params drawn from SEED: every kernel call of one eager
+     forward, of the card's step-1 gradient and of the SC sharded forwards
+     held against its plain version bitwise, a call at a shape phase 3 did
+     not time timed by CUDA events (kernel and plain version, back-to-back
+     calls); a ServingRuntime (bucket n_points, max_batch 8) serving phase
+     7's SERVE_TRAFFIC, queued before it starts, once in float and under SC
+     twice through the preprocess cache (the second round all hits), then
+     clouds[0] alone (an all-hit batch with 7 filler rows), each round
+     counted as in phase 7, memory_allocated read after the warmup, each
+     round's median batch time on the replica and its latency p50 and max
+     (the first round's latencies are mostly a request's place in the queue
+     filled before the start); training: step 1's loss and gradients on the
+     card against the port's CPU run on CORNER_CPU_ROWS clouds
+     (TRAIN_GRAD_TOL), CORNER_TRAIN_STEPS steps replayed and eager as in
+     phase 9, eager and replayed step ms, busy and idle of a profiled
+     replay; sharding: mesh_artifacts over two shards of cuda:0 in both
+     modes as in phase 10.  Then each point-cloud example (EXAMPLE_RUNS:
+     examples/torch_*.py) through its main() at its full config, counted,
+     its own check required, its wall time printed.  One JSON line carries
+     phase 17's numbers.
 
 Then it prints one JSON line with every kernel's launches (summed over the
-counted runs of phases 4 and 6-16; a replay's are the launches its
+counted runs of phases 4 and 6-17; a replay's are the launches its
 capture recorded, which the profiled replays of phases 4, 6, 7 and 9 show
 the card running), error and times (summed over the calls recorded in
 phase 3, with a breakdown by path), the card line again, and as its last
@@ -433,6 +459,33 @@ COMPARISON_CORNERS = (("baseline1", "standard"), ("baseline2", "standard"),
                       ("pc2im", "standard"), ("baseline1", "delayed"), ("baseline2", "delayed"))
 # fig12a's sampling quality: clouds, points a cloud, samples, query radius.
 QUALITY_CLOUDS, QUALITY_POINTS, QUALITY_K, QUALITY_RADIUS = 8, 512, 128, 0.3
+
+# Phase 17: comparison corners through serving, training and sharding, each
+# model at full width; the policies run in each corner.  pc2im/standard runs
+# under SC alone: it is there for standard aggregation's SC scale path.
+RUNTIME_CORNERS = {("baseline1", "standard"): ("none", "sc_w16a16"),
+                   ("baseline2", "delayed"): ("none", "sc_w16a16"),
+                   ("pc2im", "standard"): ("sc_w16a16",)}
+# Each corner serves phase 7's SERVE_TRAFFIC; its SC runs go through the
+# preprocess cache twice (the second round all hits), then send clouds[0]
+# alone with the scheduler's max_wait_s cut to LONE_WAIT_S: an all-hit batch
+# with filler rows.
+LONE_WAIT_S = 0.005
+CORNER_TRAIN_STEPS = 3
+# Clouds of step 1's CPU reference: the CPU's plain baseline-1 FPS and ball
+# query over 8 x 4096 points, with the backward, are the slow part, so seg
+# holds step 1 on 2 clouds (the card runs the same 2).
+CORNER_CPU_ROWS = {"cls": BATCH, "seg": 2}
+# Phase 17 (b): each point-cloud example's main() at its full config, with
+# the counts cut as the arguments say.
+EXAMPLE_RUNS = (
+    ("quickstart", []),
+    ("train_pointcloud", ["--steps", "20", "--log-every", "10"]),
+    ("preprocess_pipeline", []),
+    ("serve_runtime", ["--requests", "48", "--mix-quant"]),
+    ("serve_slo", ["--requests", "120"]),
+    ("serve_trace", ["--requests", "48"]),
+)
 
 # LM phase (12): stablelm-1.6b at full width in its config dtype (bf16), cut
 # to LM_LAYERS of its 24 layers, weights drawn from SEED on the card;
@@ -1096,16 +1149,6 @@ def layer_ms(rt, reduce=np.median, strict: bool = True) -> dict[str, float]:
     return out
 
 
-def served_batches(rt) -> list[tuple[list[int], int]]:
-    """Which submitted clouds (by submit order) rode in each real micro-batch, and
-    its bucket, read from the runtime's trace: `batch.assembled` lists its members'
-    trace ids."""
-    events = rt.tracer.events()
-    order = {e.trace_id: k for k, e in enumerate(e for e in events if e.name == "request.submit")}
-    return [([order[t] for t in e.args["members"]], e.args["bucket"])
-            for e in events if e.name == "batch.assembled"]
-
-
 def graph_phase(torch, accels: dict, cfgs: dict, params: dict, batches: dict, flat_sets: list,
                 registry, card: str) -> tuple[dict, dict]:
     """Phase 6: every entry point's graph replayed against graphs.eager(), bitwise.
@@ -1222,6 +1265,132 @@ def graph_phase(torch, accels: dict, cfgs: dict, params: dict, batches: dict, fl
     return counted, report
 
 
+def settled_records(rt, start: int, n_requests: int, since: float) -> list:
+    """The batch records since `start` once they hold n_requests requests and as many
+    latencies have been recorded since monotonic instant `since`.  A request's
+    future is set before its batch is recorded, so the records of the last
+    batch may land a moment after its responses."""
+    deadline = time.monotonic() + SERVE_WAIT_S
+    while True:
+        records = rt.metrics.batch_records[start:]
+        if (sum(r.n_real for r in records) >= n_requests
+                and len(rt.metrics.latencies_since(since)) >= n_requests):
+            return list(records)
+        if time.monotonic() > deadline:
+            fail(f"batch records of {n_requests} requests never landed")
+        time.sleep(0.001)
+
+
+def counted_serve(torch, registry, counted: dict, label: str, cfg, params, policy, clouds,
+                  rounds: int = 1, lone: bool = False, **cfg_kw) -> tuple:
+    """Warm a traced one-replica ServingRuntime on the card (max_batch BATCH, one
+    bucket of n_points, the other RuntimeConfig fields from cfg_kw), then serve
+    `clouds` `rounds` times, each round queued whole and waited for.  The first
+    round is queued before the scheduler starts, so it drains as full batches
+    in submit order; later rounds need a max_wait_s long enough for that, and
+    with a preprocess cache they start once the first round's fills have
+    landed and must be all hits.  With `lone`, clouds[0] then goes alone, the
+    scheduler's max_wait_s cut to LONE_WAIT_S: an all-hit batch of one real row
+    and BATCH - 1 filler rows (ROADMAP queue C, fault 1).
+
+    Each round is counted under its own tag (the first with the warmup):
+    launches equal to expected_launches' a batch recorded (an all-hit batch
+    launches no FPS or lattice kernel), no graph captured after the warmup,
+    every response bitwise equal to an eager infer of the padded batch it rode
+    in (`padded_batch_responses`).  No retry, eviction or failure.  Returns
+    the runtime, each round's responses, the last full round's batch members,
+    and the numbers: memory_allocated after the warmup and, each round, its
+    requests, batches, all-hit batches, median batch duration on the replica,
+    and p50 and largest latency (submit to response: the first round waits
+    behind a queue filled before the start, so its latencies are mostly a
+    request's place in that queue)."""
+    from repro_torch.core import graphs
+    from repro_torch.serve import (
+        RuntimeConfig, ServingRuntime, TraceConfig, padded_batch_responses, served_batches,
+    )
+
+    rt = ServingRuntime(cfg, params, RuntimeConfig(max_batch=BATCH, buckets=(cfg.n_points,),
+                                                   trace=TraceConfig(), **cfg_kw),
+                        policy=policy, device="cuda")
+    per_batch = expected_launches(cfg.task, policy.quant, cfg)
+    outs, members, numbers, start = [], [], {"rounds": []}, 0
+    try:
+        registry.reset_launches()
+        rt.warmup()
+        torch.cuda.synchronize()
+        numbers["memory_after_warmup_mib"] = torch.cuda.memory_allocated() / 2**20
+        warm = graphs.captures()
+        for r in range(rounds + lone):
+            alone = r == rounds
+            sent = clouds[:1] if alone else clouds
+            tag = (f"{label}, clouds[0] alone" if alone
+                   else f"{label}, round {r + 1}" if rounds + lone > 1 else label)
+            if r:
+                if rt.cache is not None:  # the all-miss round's fills land on their own thread
+                    deadline = time.monotonic() + SERVE_WAIT_S
+                    while rt.cache.stats().insertions < len(clouds):
+                        if time.monotonic() > deadline:
+                            fail(f"{tag}: cache fills never landed: {rt.cache.stats()}")
+                        time.sleep(0.01)
+                registry.reset_launches()
+            if alone:
+                rt.scheduler.apply_config(dataclasses.replace(rt.scheduler.config,
+                                                              max_wait_s=LONE_WAIT_S))
+            t0 = time.monotonic()
+            futs = [rt.submit(c) for c in sent]
+            if not r:
+                rt.start()
+            outs.append([f.result(timeout=SERVE_WAIT_S) for f in futs])
+            if graphs.captures() != warm:
+                fail(f"{tag}: {graphs.captures() - warm} graphs captured after the warmup")
+            records = settled_records(rt, start, len(sent), t0)
+            start += len(records)
+            got = {n: registry.launches()[n] for n in KERNELS}
+            want = dict.fromkeys(KERNELS, 0)
+            for rec in records:
+                for n, v in per_batch.items():
+                    skip = rec.preprocess_skipped and n in ("fps_tiles", "lattice_tiles")
+                    want[n] += 0 if skip else v
+            counted[tag] = got
+            if got != want:
+                fail(f"{tag}: launches {got}, expected {want} for {len(records)} batches "
+                     f"({sum(not r.n_real for r in records)} warmup, "
+                     f"{sum(r.preprocess_skipped for r in records)} all-hit)")
+            real = [rec for rec in records if rec.n_real]
+            if r and rt.cache is not None and not all(rec.preprocess_skipped for rec in real):
+                fail(f"{tag}: a batch after the cold round was not all hits")
+            if alone and [(rec.n_real, rec.batch_size) for rec in real] != [(1, BATCH)]:
+                fail(f"{tag}: batches {[(rec.n_real, rec.batch_size) for rec in real]}, "
+                     f"expected one of 1 real row in {BATCH}")
+            # each round submits the same clouds: index them within the round
+            batches = [([i % len(clouds) for i in idx], bucket)
+                       for idx, bucket in served_batches(rt.tracer.events())[-len(real):]]
+            want_out = padded_batch_responses(cfg, params, clouds, [policy] * len(clouds),
+                                              batches, BATCH)
+            for i, o in enumerate(outs[-1]):
+                if not np.array_equal(o, want_out[i]):
+                    fail(f"{tag}: response {i} differs from eager infer of its padded batch")
+            if not alone:
+                members = [idx for idx, _ in batches]
+            lat = rt.metrics.latencies_since(t0) * 1e3
+            numbers["rounds"].append({
+                "tag": tag, "requests": len(sent), "batches": len(real),
+                "all_hit_batches": sum(rec.preprocess_skipped for rec in real),
+                "batch_ms_median": float(np.median([rec.duration_s * 1e3 for rec in real])),
+                "p50_ms": float(np.median(lat)), "max_ms": float(lat.max())})
+            say(f"{tag}: {len(sent)} responses over {len(real)} batches "
+                f"({numbers['rounds'][-1]['all_hit_batches']} all-hit) bitwise equal to eager "
+                f"infer of their padded batches; 0 captures after the warmup; launches {got}")
+    finally:
+        rt.stop()
+    snap = rt.metrics.snapshot()
+    n_sent = rounds * len(clouds) + lone
+    if snap.retries or snap.evictions or snap.failed or snap.completed != n_sent:
+        fail(f"{label}: retries={snap.retries} evictions={snap.evictions} "
+             f"failed={snap.failed} completed={snap.completed} of {n_sent}")
+    return rt, outs, members, numbers
+
+
 def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple[dict, dict]:
     """Phase 7: ServingRuntime on the card, counted, and held against eager direct infer.
 
@@ -1238,90 +1407,15 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
     traffic = {m: ragged_clouds(rng, *SERVE_TRAFFIC[m]) for m in SERVE_TRAFFIC}
     counted, report = {}, {"card": card}
 
-    def per_batch_launches(m, q, skipped: bool) -> dict:
-        want = expected_launches(m, q, cfgs[m])
-        if skipped:  # feature_from_cached: no preprocessing kernel
-            want["fps_tiles"] = want["lattice_tiles"] = 0
-        return want
-
-    def settle(rt, start: int, n_requests: int) -> list:
-        """The batch records since `start` once they hold n_requests requests.
-
-        A request's future is set before its batch is recorded, so the
-        records of the last batch may land a moment after its responses.
-        """
-        deadline = time.monotonic() + SERVE_WAIT_S
-        while True:
-            records = rt.metrics.batch_records[start:]
-            if sum(r.n_real for r in records) >= n_requests:
-                return list(records)
-            if time.monotonic() > deadline:
-                fail(f"batch records of {n_requests} requests never landed")
-            time.sleep(0.001)
-
     def serve(label, m, q, pipeline, clouds, rounds=1, **cfg_kw):
-        """Warm, then serve `clouds` `rounds` times (each queued whole, then
-        waited for), each round counted on its own (the first with the
-        warmup); check counts, health and responses.  The first round is
-        queued before the scheduler starts, so it drains as full batches in
-        submit order; later rounds need a max_wait_s long enough for that.
-        No graph may be captured after the warmup.  Returns the runtime,
-        each round's responses and the last round's batch members."""
-        policy = ExecutionPolicy(quant=q, pipeline=pipeline)
-        rt = ServingRuntime(cfgs[m], params[m],
-                            RuntimeConfig(max_batch=BATCH, buckets=(cfgs[m].n_points,),
-                                          trace=TraceConfig(), **cfg_kw),
-                            policy=policy, device="cuda")
-        outs, members, start = [], [], 0
-        try:
-            registry.reset_launches()
-            rt.warmup()
-            warm = graphs.captures()
-            for r in range(rounds):
-                tag = f"{label}, round {r + 1}" if rounds > 1 else label
-                if r:  # the all-miss cache fills land on their own thread
-                    deadline = time.monotonic() + SERVE_WAIT_S
-                    while rt.cache.stats().insertions < len(clouds):
-                        if time.monotonic() > deadline:
-                            fail(f"{tag}: cache fills never landed: {rt.cache.stats()}")
-                        time.sleep(0.01)
-                    registry.reset_launches()
-                futs = [rt.submit(c) for c in clouds]
-                if not r:  # queued before the scheduler starts: full batches in order
-                    rt.start()
-                outs.append([f.result(timeout=SERVE_WAIT_S) for f in futs])
-                if graphs.captures() != warm:
-                    fail(f"{tag}: {graphs.captures() - warm} graphs captured after the warmup")
-                records = settle(rt, start, len(clouds))
-                start += len(records)
-                got = {n: registry.launches()[n] for n in KERNELS}
-                want = dict.fromkeys(KERNELS, 0)
-                for rec in records:
-                    for n, v in per_batch_launches(m, q, rec.preprocess_skipped).items():
-                        want[n] += v
-                counted[tag] = got
-                if got != want:
-                    fail(f"{tag}: launches {got}, expected {want} for {len(records)} batches "
-                         f"({sum(not r.n_real for r in records)} warmup, "
-                         f"{sum(r.preprocess_skipped for r in records)} all-hit)")
-                real = sum(1 for rec in records if rec.n_real)
-                # each round submits the same clouds: index them within the round
-                members = [[i % len(clouds) for i in idx]
-                           for idx, _ in served_batches(rt)[-real:]]
-                want_out = eager_responses(torch, cfgs[m], params[m], clouds,
-                                           [q] * len(clouds),
-                                           [(idx, cfgs[m].n_points) for idx in members])
-                for i, o in enumerate(outs[-1]):
-                    if not np.array_equal(o, want_out[i]):
-                        fail(f"{tag}: response {i} differs from direct infer of its padded batch")
-                say(f"{tag}: {len(clouds)} responses over {real} batches bitwise equal to "
-                    f"eager direct infer; 0 captures after the warmup; launches {got}")
-        finally:
-            rt.stop()
+        """counted_serve under ExecutionPolicy(quant=q, pipeline=pipeline), then the
+        run's throughput, latency, batch durations and slowest spans reported.
+        Returns the runtime, each round's responses and the last round's batch
+        members."""
+        rt, outs, members, _ = counted_serve(
+            torch, registry, counted, label, cfgs[m], params[m],
+            ExecutionPolicy(quant=q, pipeline=pipeline), clouds, rounds, **cfg_kw)
         snap = rt.metrics.snapshot()
-        if snap.retries or snap.evictions or snap.failed or snap.completed != rounds * len(clouds):
-            fail(f"{label}: retries={snap.retries} evictions={snap.evictions} "
-                 f"failed={snap.failed} completed={snap.completed}")
         # where a slow run lost its time: each span's slowest instance, and
         # the real batches' durations on the replica
         slowest = layer_ms(rt, reduce=np.max, strict=False)
@@ -1460,38 +1554,6 @@ def serving_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple
     return counted, report
 
 
-def eager_responses(torch, cfg, params, clouds, quants, batches) -> dict[int, np.ndarray]:
-    """Each cloud's response from an eager default-stream infer of the padded batch
-    it rode in, at its own bucket and under its own policy (quants[i]); `batches`
-    holds (members by submit order, bucket).  Seg responses keep a row a point."""
-    from repro_torch.core import graphs
-    from repro_torch.core.accelerator import get_accelerator
-    from repro_torch.core.policy import ExecutionPolicy
-    from repro_torch.serve import Request, assemble_batch, inverse_subsample_indices
-
-    out = {}
-    for idx, bucket in batches:
-        qs = {quants[i] for i in idx}
-        if len(qs) != 1:
-            fail(f"a served batch mixed policies {sorted(qs)}")
-        accel = get_accelerator(cfg, ExecutionPolicy(quant=qs.pop()), device="cuda")
-        reqs = [Request(id=i, cloud=clouds[i], n_orig=clouds[i].shape[0], bucket=bucket,
-                        policy=accel.policy, deadline_t=None, submit_t=0.0, future=None)
-                for i in idx]
-        with graphs.eager():
-            logits = accel.infer(params, assemble_batch(reqs, bucket, 3 + cfg.in_features,
-                                                        BATCH)).cpu().numpy()
-        for j, i in enumerate(idx):
-            n = clouds[i].shape[0]
-            if cfg.task != "seg":
-                out[i] = logits[j]
-            elif n <= bucket:
-                out[i] = logits[j, :n]
-            else:
-                out[i] = logits[j, inverse_subsample_indices(n, bucket)]
-    return out
-
-
 def control_plane_phase(torch, cfgs: dict, params: dict, registry, card: str) -> tuple[dict, dict]:
     """Phase 8: the serving control plane on the card (chaos, autoscaler, adaptive
     controller, observability), every response held against eager direct infer.
@@ -1507,8 +1569,8 @@ def control_plane_phase(torch, cfgs: dict, params: dict, registry, card: str) ->
     from repro_torch.core.policy import ExecutionPolicy
     from repro_torch.serve import (
         AdaptiveConfig, AutoscalerConfig, ChaosInjector, Fault, RuntimeConfig, ServingRuntime,
-        TERMINAL_EVENTS, TraceConfig, batch_crosscheck, request_timelines, trace_problems,
-        write_chrome_trace,
+        TERMINAL_EVENTS, TraceConfig, batch_crosscheck, padded_batch_responses,
+        request_timelines, served_batches, trace_problems, write_chrome_trace,
     )
 
     cfg, cls_params = cfgs["cls"], params["cls"]
@@ -1638,8 +1700,9 @@ def control_plane_phase(torch, cfgs: dict, params: dict, registry, card: str) ->
         return {"events": len(events), "chrome_events": n_events, "crosscheck_worst": worst}
 
     def check_responses(rt, label, clouds, quants, outs):
-        batches = served_batches(rt)
-        want = eager_responses(torch, cfg, cls_params, clouds, quants, batches)
+        batches = served_batches(rt.tracer.events())
+        want = padded_batch_responses(cfg, cls_params, clouds,
+                                      [ExecutionPolicy(quant=q) for q in quants], batches, BATCH)
         if sorted(want) != list(range(len(clouds))):
             fail(f"{label}: the trace's batches hold {len(want)} of {len(clouds)} requests")
         for i, o in enumerate(outs):
@@ -2002,6 +2065,102 @@ def grads_agree(torch, got: dict, want: dict, quant: str, tol: dict = TRAIN_GRAD
     return worst, where
 
 
+def sync_ms(torch, fn):
+    """fn()'s result and its wall time in ms, the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def fresh_state(torch, accel) -> tuple:
+    """Params drawn from SEED on the accelerator's device, and their AdamW state."""
+    from repro_torch.optim import adamw_init
+
+    p = accel.init(torch.Generator().manual_seed(SEED))
+    return p, adamw_init(p)
+
+
+def step1_against_cpu(torch, accel, pts, labels, label: str) -> dict:
+    """Training step 1 on the card against the port's CPU run: the loss and every
+    gradient of `value_and_grad` at params drawn from SEED on each side, on the
+    same batch, the card's under deterministic kernels (the same gradient every
+    run).  Fails the phase unless the loss is within TRAIN_LOSS_ATOL and every
+    leaf within grads_agree's bounds.  Returns both losses, the worst relative
+    leaf difference and its leaf, and the CPU run's seconds."""
+    from repro_torch.core.accelerator import get_accelerator
+    from repro_torch.launch.train import value_and_grad
+
+    q = accel.policy.quant
+    p, _ = fresh_state(torch, accel)
+    with deterministic(torch):
+        (loss_gpu, _), g_gpu = value_and_grad(accel, p, pts, labels)
+    accel_cpu = get_accelerator(accel.config, accel.policy, device="cpu")
+    p_cpu, _ = fresh_state(torch, accel_cpu)
+    t_cpu = time.perf_counter()
+    (loss_cpu, _), g_cpu = value_and_grad(accel_cpu, p_cpu, pts.cpu(), labels.cpu())
+    t_cpu = time.perf_counter() - t_cpu
+    loss_diff = abs(loss_gpu.item() - loss_cpu.item())
+    if loss_diff > TRAIN_LOSS_ATOL[q]:
+        fail(f"{label}: step-1 loss {loss_gpu.item()} on the card, {loss_cpu.item()} on "
+             f"the CPU (|diff| {loss_diff} > {TRAIN_LOSS_ATOL[q]})")
+    worst, where = grads_agree(torch, g_gpu, g_cpu, q, what=label)
+    return {"step1_loss_card": loss_gpu.item(), "step1_loss_cpu": loss_cpu.item(),
+            "step1_clouds": int(pts.shape[0]), "step1_cpu_s": t_cpu,
+            "grad_worst_rel": worst, "grad_worst_leaf": where}
+
+
+def replay_against_eager(torch, registry, accel, batches, tag: str, counted: dict) -> dict:
+    """One TrainStep step a batch from fresh SEED state, eager (`graphs.eager()`)
+    and graphed (the first step eager, then one capture, then replays), under
+    deterministic kernels.  The replays' launches are counted under `tag` and
+    must be expected_launches' a step; there must be one capture, and every
+    step's loss and the final state must be bitwise equal.  Returns the graphed
+    run's TrainStep, params and state, each run's step ms and losses, the
+    launches, and the ops that warned for want of a deterministic kernel."""
+    from repro_torch.core import graphs
+    from repro_torch.launch.train import TrainStep
+
+    cfg, q, n = accel.config, accel.policy.quant, len(batches)
+    with deterministic(torch) as caught:
+        pe, se = fresh_state(torch, accel)
+        eager_step = TrainStep(accel, pe, se, lr=TRAIN_LR)
+        with graphs.eager():
+            eager = [sync_ms(torch, lambda b=b: eager_step(*b)["loss"]) for b in batches]
+        pg, sg = fresh_state(torch, accel)
+        graph_step = TrainStep(accel, pg, sg, lr=TRAIN_LR)
+        first = graphs.captures()
+        # the first step runs eagerly, then the capture
+        replayed = [sync_ms(torch, lambda: graph_step(*batches[0])["loss"])]
+        registry.reset_launches()
+        replayed += [sync_ms(torch, lambda b=b: graph_step(*b)["loss"]) for b in batches[1:]]
+        got = {k: registry.launches()[k] for k in KERNELS}
+    captured = graphs.captures() - first
+    want = {k: (n - 1) * v for k, v in expected_launches(cfg.task, q, cfg).items()}
+    counted[tag] = got
+    if got != want:
+        fail(f"{tag}: {n - 1} replayed steps launched {got}, expected {want}")
+    if captured != 1:
+        fail(f"{tag}: {captured} captures over {n} steps, expected 1")
+    for i, ((a, _), (b, _)) in enumerate(zip(replayed, eager)):
+        if not torch.equal(a, b):
+            fail(f"{tag}: step {i} loss replayed {a.item()}, eager {b.item()}")
+    for i, (a, b) in enumerate(zip(graph_step._tensors(), eager_step._tensors())):
+        if not torch.equal(a, b):
+            fail(f"{tag}: after {n} steps, state tensor {i} of the replayed run differs from "
+                 f"the eager run (max |diff| {(a.double() - b.double()).abs().max().item()})")
+    if int(sg.step) != n:
+        fail(f"{tag}: the step count reads {int(sg.step)} after {n} steps")
+    return {"step": graph_step, "params": pg, "state": sg, "captures": captured,
+            "launches": got, "eager_ms": [ms for _, ms in eager],
+            "replay_ms": [ms for _, ms in replayed],
+            "losses": [loss.item() for loss, _ in replayed],
+            "no_deterministic_kernel": sorted({str(w.message).split(".")[0][:120]
+                                               for w in caught
+                                               if "determinis" in str(w.message)})}
+
+
 def training_phase(torch, cfgs: dict, registry, card: str) -> tuple[dict, dict]:
     """Phase 9: pointnet2 training on the card, the step replayed as one CUDA graph.
 
@@ -2015,20 +2174,12 @@ def training_phase(torch, cfgs: dict, registry, card: str) -> tuple[dict, dict]:
     from repro_torch.core.accelerator import get_accelerator
     from repro_torch.core.policy import ExecutionPolicy
     from repro_torch.data.pointclouds import fold_in, sample_batch
-    from repro_torch.launch.train import TrainStep, train_pointcloud, value_and_grad
-    from repro_torch.optim import adamw_init
+    from repro_torch.launch.train import TrainStep, train_pointcloud
     from repro_torch.params import tree_leaves
 
     counted, report = {}, {"card": card}
     t_phase = time.perf_counter()
     cuda = torch.device("cuda")
-
-    def sync_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
 
     for m, cfg in cfgs.items():
         batches = []
@@ -2038,60 +2189,10 @@ def training_phase(torch, cfgs: dict, registry, card: str) -> tuple[dict, dict]:
             batches.append((pts, cls if cfg.task == "cls" else seg))
         for q in ("none", "sc_w16a16"):
             label = f"training {m} quant={q}"
-            pol = ExecutionPolicy(quant=q)
-            accel = get_accelerator(cfg, pol, device=cuda)
-
-            def fresh(device=cuda):
-                a = accel if device == cuda else get_accelerator(cfg, pol, device=device)
-                p = a.init(torch.Generator().manual_seed(SEED))
-                return p, adamw_init(p)
-
-            # step-1 loss and gradients: the card against the port's CPU run
-            p, _ = fresh()
-            (loss_gpu, _), g_gpu = value_and_grad(accel, p, *batches[0])
-            p_cpu, _ = fresh(torch.device("cpu"))
-            (loss_cpu, _), g_cpu = value_and_grad(get_accelerator(cfg, pol, device="cpu"), p_cpu,
-                                                  batches[0][0].cpu(), batches[0][1].cpu())
-            loss_diff = abs(loss_gpu.item() - loss_cpu.item())
-            if loss_diff > TRAIN_LOSS_ATOL[q]:
-                fail(f"{label}: step-1 loss {loss_gpu.item()} on the card, {loss_cpu.item()} on "
-                     f"the CPU (|diff| {loss_diff} > {TRAIN_LOSS_ATOL[q]})")
-            worst, where = grads_agree(torch, g_gpu, g_cpu, q)
-            del p, g_gpu, p_cpu, g_cpu
-
-            # the replayed step against eager steps, bitwise, under deterministic kernels
-            with deterministic(torch) as caught:
-                pe, se = fresh()
-                eager_step = TrainStep(accel, pe, se, lr=TRAIN_LR)
-                with graphs.eager():
-                    eager_losses = [eager_step(*b)["loss"] for b in batches]
-                pg, sg = fresh()
-                graph_step = TrainStep(accel, pg, sg, lr=TRAIN_LR)
-                first = graphs.captures()
-                graph_losses = [graph_step(*batches[0])["loss"]]  # eager, then the capture
-                registry.reset_launches()
-                graph_losses += [graph_step(*b)["loss"] for b in batches[1:]]
-                torch.cuda.synchronize()
-                got = {n: registry.launches()[n] for n in KERNELS}
-            captured = graphs.captures() - first
-            want = {n: (TRAIN_STEPS - 1) * v for n, v in expected_launches(m, q, cfg).items()}
-            counted[label] = got
-            if got != want:
-                fail(f"{label}: {TRAIN_STEPS - 1} replayed steps launched {got}, expected {want}")
-            if captured != 1:
-                fail(f"{label}: {captured} captures over {TRAIN_STEPS} steps, expected 1")
-            for i, (a, b) in enumerate(zip(graph_losses, eager_losses)):
-                if not torch.equal(a, b):
-                    fail(f"{label}: step {i} loss replayed {a.item()}, eager {b.item()}")
-            for i, (a, b) in enumerate(zip(graph_step._tensors(), eager_step._tensors())):
-                if not torch.equal(a, b):
-                    fail(f"{label}: after {TRAIN_STEPS} steps, state tensor {i} of the replayed "
-                         f"run differs from the eager run (max |diff| "
-                         f"{(a.double() - b.double()).abs().max().item()})")
-            if int(sg.step) != TRAIN_STEPS:
-                fail(f"{label}: the step count reads {int(sg.step)} after {TRAIN_STEPS} steps")
-            no_det = sorted({str(w.message).split(".")[0][:120] for w in caught
-                             if "determinis" in str(w.message)})
+            accel = get_accelerator(cfg, ExecutionPolicy(quant=q), device=cuda)
+            step1 = step1_against_cpu(torch, accel, *batches[0], label)
+            run = replay_against_eager(torch, registry, accel, batches, label, counted)
+            pg, sg = run["params"], run["state"]
 
             # a checkpoint written from the card and read back, bitwise
             with tempfile.TemporaryDirectory() as tmp:
@@ -2110,7 +2211,8 @@ def training_phase(torch, cfgs: dict, registry, card: str) -> tuple[dict, dict]:
             if not (torch.equal(got_loss[0], want_loss[0])
                     and torch.equal(got_loss[1]["accuracy"], want_loss[1]["accuracy"])):
                 fail(f"{label}: the loss graph's replay differs from eager")
-            del eager_step, graph_step, pe, se, back
+            got, no_det = run["launches"], run["no_deterministic_kernel"]
+            del run, back
 
             # timings, default (racing) kernels: 5 eager steps twice (their spread), 5 replays;
             # peak memory_allocated above what the earlier phases left allocated
@@ -2118,10 +2220,10 @@ def training_phase(torch, cfgs: dict, registry, card: str) -> tuple[dict, dict]:
             torch.cuda.reset_peak_memory_stats()
             eager_runs = []
             for _ in range(2):
-                pa, sa = fresh()
+                pa, sa = fresh_state(torch, accel)
                 step_a = TrainStep(accel, pa, sa, lr=TRAIN_LR)
                 with graphs.eager():
-                    timed = [sync_ms(lambda b=b: step_a(*b)["loss"]) for b in batches]
+                    timed = [sync_ms(torch, lambda b=b: step_a(*b)["loss"]) for b in batches]
                 eager_runs.append((step_a, [loss for loss, _ in timed], [ms for _, ms in timed]))
             eager_peak = torch.cuda.max_memory_allocated() - base
             (run_a, losses_a, ms_a), (run_b, losses_b, ms_b) = eager_runs
@@ -2132,10 +2234,11 @@ def training_phase(torch, cfgs: dict, registry, card: str) -> tuple[dict, dict]:
             del eager_runs, run_a, run_b, step_a, pa, sa
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            pr, sr = fresh()
+            pr, sr = fresh_state(torch, accel)
             step_r = TrainStep(accel, pr, sr, lr=TRAIN_LR)
-            _, capture_ms = sync_ms(lambda: step_r(*batches[0]))
-            replay_ms = float(np.median([sync_ms(lambda b=b: step_r(*b))[1] for b in batches]))
+            _, capture_ms = sync_ms(torch, lambda: step_r(*batches[0]))
+            replay_ms = float(np.median([sync_ms(torch, lambda b=b: step_r(*b))[1]
+                                         for b in batches]))
             replay_peak = torch.cuda.max_memory_allocated() - base
             prof = profile_run(torch, lambda: step_r(*batches[1]), replay_ms, registry,
                                f"{label} replayed step")
@@ -2143,9 +2246,7 @@ def training_phase(torch, cfgs: dict, registry, card: str) -> tuple[dict, dict]:
             gc.collect()
             torch.cuda.empty_cache()
             report[f"{m} quant={q}"] = {
-                "step1_loss_card": loss_gpu.item(), "step1_loss_cpu": loss_cpu.item(),
-                "grad_worst_rel": worst, "grad_worst_leaf": where,
-                "replay_equals_eager": "bitwise (deterministic kernels)",
+                **step1, "replay_equals_eager": "bitwise (deterministic kernels)",
                 "ops_without_deterministic_kernel": no_det,
                 "eager_vs_eager_state_spread": spread, "eager_vs_eager_loss_spread": loss_spread,
                 "eager_step_ms": eager_ms, "first_step_and_capture_ms": capture_ms,
@@ -2155,10 +2256,11 @@ def training_phase(torch, cfgs: dict, registry, card: str) -> tuple[dict, dict]:
                 "peak_allocated_replay_mib": replay_peak / 2**20,
                 "launches_per_step": {n: v // (TRAIN_STEPS - 1) for n, v in got.items()},
             }
-            say(f"{label}: step-1 loss card {loss_gpu.item():.6f} / CPU {loss_cpu.item():.6f}, "
-                f"gradients within {worst:.2e} of each leaf's max (worst {where}); "
-                f"{TRAIN_STEPS} steps replayed bitwise equal to eager under deterministic "
-                f"kernels ({captured} capture), launches a replayed step "
+            say(f"{label}: step-1 loss card {step1['step1_loss_card']:.6f} / CPU "
+                f"{step1['step1_loss_cpu']:.6f}, gradients within {step1['grad_worst_rel']:.2e} "
+                f"of each leaf's max (worst {step1['grad_worst_leaf']}); {TRAIN_STEPS} steps "
+                f"replayed bitwise equal to eager under deterministic kernels "
+                f"(one capture), launches a replayed step "
                 f"{report[f'{m} quant={q}']['launches_per_step']}; checkpoint read back bitwise; "
                 f"with the default kernels two eager runs differ by {spread:.3e} in state, "
                 f"{loss_spread:.3e} in loss.  step (host clock, median; {card}): eager "
@@ -2179,7 +2281,7 @@ def training_phase(torch, cfgs: dict, registry, card: str) -> tuple[dict, dict]:
     args = argparse.Namespace(steps=LEARN_STEPS, batch=BATCH, lr=LEARN_LR, seed=SEED,
                               quant="none", ckpt_dir=None, ckpt_every=50, log_every=10,
                               device="cuda")
-    trained, learn_s = sync_ms(lambda: train_pointcloud(cfg, args))
+    trained, learn_s = sync_ms(torch, lambda: train_pointcloud(cfg, args))
     after = float(np.mean([accel.loss(trained, *b)[0].item() for b in held]))
     if not after < before:
         fail(f"training cls: the mean loss over the {LEARN_STEPS} training batches went "
@@ -2266,6 +2368,50 @@ def _split_diffs(torch, layer: int, x, w, g: int, out: dict) -> None:
             out[mode].append({"layer": layer, "mkn": shape, "max_abs_diff": err})
 
 
+def sync_all(torch) -> None:
+    """Wait for every card's queued work."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def sharded_forward(torch, registry, counted: dict, label: str, cfg, params, policy, group,
+                    batch, want, explain=None) -> tuple:
+    """`mesh_artifacts(group).infer` of `batch` under `policy` (its sharding mode)
+    against the single-device eager logits `want`: warmed once (the shards'
+    threads, streams and handles), then one forward counted under `label`,
+    whose launches must be len(group) times expected_launches'.  Its logits
+    must be finite and of want's shape, bitwise equal under SC and within
+    LOGIT_ATOL["none"] in float; where float is not bitwise, `explain()`
+    (if given) names the split matmuls that differ.  Returns the artifacts and
+    {"bitwise", "max_abs_diff"[, "matmuls_that_differ"]}."""
+    from repro_torch.core.accelerator import get_accelerator
+
+    arts = get_accelerator(cfg, policy, device=group[0]).mesh_artifacts(group)
+    arts.infer(params, batch)
+    registry.reset_launches()
+    got = arts.infer(params, batch)
+    sync_all(torch)
+    counted[label] = {n: registry.launches()[n] for n in KERNELS}
+    per = expected_launches(cfg.task, policy.quant, cfg)
+    if counted[label] != {n: len(group) * v for n, v in per.items()}:
+        fail(f"{label}: launches {counted[label]}, expected {len(group)} x {per}")
+    got = got.to(want.device)
+    if tuple(got.shape) != tuple(want.shape) or not torch.isfinite(got).all():
+        fail(f"{label}: logits of shape {tuple(got.shape)}")
+    err = (got - want).abs().max().item()
+    entry = {"bitwise": bool(torch.equal(got, want)), "max_abs_diff": err}
+    if not entry["bitwise"]:
+        if policy.quant != "none":
+            fail(f"{label}: SC logits differ from single-device eager infer (max |diff| {err})")
+        if explain is not None:
+            entry["matmuls_that_differ"] = explain()
+        if err > LOGIT_ATOL["none"]:
+            fail(f"{label}: float logits differ from single-device eager infer by {err} > "
+                 f"{LOGIT_ATOL['none']}; split matmuls that differ: "
+                 f"{entry.get('matmuls_that_differ', 'not looked for')}")
+    return arts, entry
+
+
 def sharding_phase(torch, cfgs: dict, params: dict, batches: dict, registry,
                    card: str) -> tuple[dict, dict]:
     """Phase 10: the sharded artifacts, a sharded ServingRuntime and pipeline_forward.
@@ -2279,7 +2425,7 @@ def sharding_phase(torch, cfgs: dict, params: dict, batches: dict, registry,
     from repro_torch.parallel import pipeline_forward
     from repro_torch.serve import (
         AutoscalerConfig, ChaosInjector, Fault, RuntimeConfig, ServingRuntime, TraceConfig,
-        trace_problems,
+        padded_batch_responses, served_batches, trace_problems,
     )
 
     t_phase = time.perf_counter()
@@ -2289,23 +2435,6 @@ def sharding_phase(torch, cfgs: dict, params: dict, batches: dict, registry,
     counted, report = {}, {"card": card, "layout": layout,
                            "groups": [[str(d) for d in grp] for grp in groups], "group_size": g}
     policies = {q: ExecutionPolicy(quant=q) for q in ("none", "sc_w16a16")}
-
-    def sync_all():
-        for i in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(i)
-
-    def counted_run(label, run, want):
-        registry.reset_launches()
-        out = run()
-        sync_all()
-        got = {n: registry.launches()[n] for n in KERNELS}
-        counted[label] = got
-        if got != want:
-            fail(f"{label}: launches {got}, expected {want}")
-        return out
-
-    def times(want, k):
-        return {n: c * k for n, c in want.items()}
 
     # -- the kernels at the sharded shapes, against their plain versions -------
     specs = {name: registry.get(name) for name in KERNELS}
@@ -2327,13 +2456,13 @@ def sharding_phase(torch, cfgs: dict, params: dict, batches: dict, registry,
                 for name, spec in specs.items():
                     registry.register(name, plain=spec.plain, cuda=recorder(name, spec))
                 arts.infer(params[m], batches[m][0])
-                sync_all()
+                sync_all(torch)
             finally:
                 for name, spec in specs.items():
                     registry.register(name, plain=spec.plain, cuda=spec.cuda)
             for name, args, kw in calls:
                 got, want = specs[name].cuda(*args, **kw), specs[name].plain(*args, **kw)
-                sync_all()
+                sync_all(torch)
                 for a, b in zip(got if isinstance(got, tuple) else (got,),
                                 want if isinstance(want, tuple) else (want,)):
                     if not torch.equal(a, b):
@@ -2352,33 +2481,22 @@ def sharding_phase(torch, cfgs: dict, params: dict, batches: dict, registry,
             single = get_accelerator(cfg, pol, device="cuda")
             with graphs.eager():
                 want = single.infer(params[m], batch)
-            per_forward = expected_launches(m, q, cfg)
-            splits = None
+            splits = {}
+
+            def explain(mode):
+                if not splits:
+                    splits.update(matmul_splits(torch, single, params[m], batch, g))
+                return splits[mode]
+
             for mode in ("batch", "tensor"):
                 for gi, group in enumerate(groups):
-                    arts = get_accelerator(cfg, ExecutionPolicy(quant=q, sharding=mode),
-                                           device=group[0]).mesh_artifacts(group)
-                    arts.infer(params[m], batch)  # warm: the shards' threads, streams and handles
                     label = f"{m} quant={q} {mode}-sharded, group {gi}"
-                    got = counted_run(label, functools.partial(arts.infer, params[m], batch),
-                                      times(per_forward, len(group)))
-                    got = got.to(want.device)
-                    if tuple(got.shape) != tuple(want.shape) or not torch.isfinite(got).all():
-                        fail(f"{label}: logits of shape {tuple(got.shape)}")
-                    err = (got - want).abs().max().item()
-                    entry = {"bitwise": bool(torch.equal(got, want)), "max_abs_diff": err}
-                    if not entry["bitwise"]:
-                        if q != "none":
-                            fail(f"{label}: SC logits differ from single-device eager infer "
-                                 f"(max |diff| {err})")
-                        if splits is None:
-                            splits = matmul_splits(torch, single, params[m], batch, g)
-                        entry["matmuls_that_differ"] = splits[mode]
-                        if err > LOGIT_ATOL["none"]:
-                            fail(f"{label}: float logits differ from single-device eager infer "
-                                 f"by {err} > {LOGIT_ATOL['none']}; split matmuls that differ: "
-                                 f"{splits[mode]}")
+                    _, entry = sharded_forward(
+                        torch, registry, counted, label, cfg, params[m],
+                        ExecutionPolicy(quant=q, sharding=mode), group, batch, want,
+                        explain=functools.partial(explain, mode))
                     parity[label] = entry
+                    err = entry["max_abs_diff"]
                     say(f"{label}: {'bitwise' if entry['bitwise'] else 'max |diff| %.3e' % err}"
                         f" against single-device eager infer; launches {counted[label]}"
                         + (f"; split matmuls that differ: {entry['matmuls_that_differ']}"
@@ -2389,18 +2507,18 @@ def sharding_phase(torch, cfgs: dict, params: dict, batches: dict, registry,
                 interval = sys.getswitchinterval()
                 sys.setswitchinterval(SHARD_SWITCH_S)
                 try:
-                    short_switch_ms = median_ms(lambda: (fn(), sync_all()))
+                    short_switch_ms = median_ms(lambda: (fn(), sync_all(torch)))
                 finally:
                     sys.setswitchinterval(interval)
                 timing[f"{m} quant={q} {mode}"] = {
-                    "sharded_eager_ms": median_ms(lambda: (fn(), sync_all())),
+                    "sharded_eager_ms": median_ms(lambda: (fn(), sync_all(torch))),
                     "sharded_eager_ms_short_switch": short_switch_ms,
                     "busy_ms_by_device": busy_by_device(torch, fn),
                 }
             with graphs.eager():
-                eager_ms = median_ms(lambda: (single.infer(params[m], batch), sync_all()))
+                eager_ms = median_ms(lambda: (single.infer(params[m], batch), sync_all(torch)))
             single.infer(params[m], batch)
-            replay_ms = median_ms(lambda: (single.infer(params[m], batch), sync_all()))
+            replay_ms = median_ms(lambda: (single.infer(params[m], batch), sync_all(torch)))
             for mode in ("batch", "tensor"):
                 timing[f"{m} quant={q} {mode}"].update(single_eager_ms=eager_ms,
                                                        single_replay_ms=replay_ms)
@@ -2465,7 +2583,7 @@ def sharding_phase(torch, cfgs: dict, params: dict, batches: dict, registry,
             if time.monotonic() > deadline:
                 fail("sharded serving: batch records never landed")
             time.sleep(0.001)
-        sync_all()
+        sync_all(torch)
         got = {n: registry.launches()[n] for n in KERNELS}
     finally:
         rt.stop()
@@ -2494,7 +2612,9 @@ def sharding_phase(torch, cfgs: dict, params: dict, batches: dict, registry,
     all_outs = outs + outs2 + outs3
     quants = [q for _, q in mix] + ["sc_w16a16"] * (2 * len(wave2))
     sharded = [p is not None for p, _ in mix] + [True] * (2 * len(wave2))
-    eager = eager_responses(torch, cfg, params["cls"], all_clouds, quants, served_batches(rt))
+    eager = padded_batch_responses(cfg, params["cls"], all_clouds,
+                                   [ExecutionPolicy(quant=q) for q in quants],
+                                   served_batches(rt.tracer.events()), BATCH)
     worst = 0.0
     for i, out in enumerate(all_outs):
         if np.array_equal(out, eager[i]):
@@ -2542,15 +2662,15 @@ def sharding_phase(torch, cfgs: dict, params: dict, batches: dict, registry,
             return pipeline_forward(stage_devs, stage_fn, w, x)
 
         got, ref = piped(), sequential()
-        sync_all()
+        sync_all(torch)
         err = (got - ref).abs().max().item()
         if tuple(got.shape) != tuple(x.shape) or not torch.allclose(got, ref, rtol=PIPE_TOL,
                                                                     atol=PIPE_TOL):
             fail(f"pipeline_forward at mb={mb}, d={d}: differs from the sequential "
                  f"composition by {err} > {PIPE_TOL}")
         pipe[f"mb={mb} d={d}"] = {
-            "max_abs_diff": err, "pipeline_ms": median_ms(lambda: (piped(), sync_all())),
-            "sequential_ms": median_ms(lambda: (sequential(), sync_all()))}
+            "max_abs_diff": err, "pipeline_ms": median_ms(lambda: (piped(), sync_all(torch))),
+            "sequential_ms": median_ms(lambda: (sequential(), sync_all(torch)))}
         say(f"pipeline_forward, {PIPE_STAGES} stages on {[str(s) for s in stage_devs]}, "
             f"{PIPE_MICRO} microbatches of {mb} x {d}: max |diff| {err:.3e} <= {PIPE_TOL} "
             f"against the sequential composition; {pipe[f'mb={mb} d={d}']['pipeline_ms']:.3f} "
@@ -4265,6 +4385,194 @@ def lm_mesh_phase(torch, registry, card: str) -> tuple[dict, dict]:
     return counted, report
 
 
+def corner_runtime_phase(torch, cfgs: dict, registry, card: str,
+                         timed: set) -> tuple[dict, dict]:
+    """Phase 17 (a): the comparison corners of RUNTIME_CORNERS through serving,
+    training and sharding, each model at full width, by the checks of phases
+    7, 9 and 10 (counted_serve, step1_against_cpu and replay_against_eager,
+    sharded_forward).
+
+    `timed` holds the call signatures earlier phases timed; the calls at other
+    shapes are timed here.  Returns the launch counts of each counted run and
+    the numbers to report.
+    """
+    from repro_torch.core import graphs
+    from repro_torch.core.accelerator import get_accelerator
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.data.pointclouds import fold_in, sample_batch
+    from repro_torch.launch.train import value_and_grad
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    counted, report = {}, {"card": card, "corners": {}}
+    specs = {name: registry.get(name) for name in KERNELS}
+    rows, timed, held = [], set(timed), dict.fromkeys(KERNELS, 0)
+    rng = np.random.default_rng(SEED + 17)
+
+    def hold(label, run):
+        """Every kernel call run() makes, against its plain version, bitwise.  A call at
+        a shape no earlier timing saw is timed here by CUDA events around
+        back-to-back calls of the kernel and of its plain version (the host's
+        enqueue time where that exceeds the card's): profiling its ~100 new
+        shapes as phase 3 does took phase 17 past its 90 s."""
+        calls = record_calls(torch, registry, run)
+        for name, cl in calls.items():
+            for args, kw in cl:
+                _, want = hold_call(torch, name, specs[name], args, kw, label)
+                held[name] += 1
+                sig = call_signature(torch, name, args, kw)
+                if sig in timed:
+                    continue
+                timed.add(sig)
+                nbytes, ops, peak = bound(name, args, kw, want)
+                bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak * 1e3
+                rows.append({
+                    "kernel": name, "path": label,
+                    "shapes": [list(a.shape) for a in args if torch.is_tensor(a)], "kw": kw,
+                    "enqueue_ms": cuda_ms(torch, functools.partial(specs[name].cuda, *args, **kw),
+                                          reps=20),
+                    "plain_enqueue_ms": cuda_ms(torch, functools.partial(
+                        specs[name].plain, *args, **kw), reps=3, warmup=1),
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+        return {n: len(c) for n, c in calls.items()}
+
+    def serve(label, cfg, params, q, clouds):
+        """counted_serve of `clouds` as full batches (max_wait_s 1 s): once in float;
+        under SC through the preprocess cache cold, then all hits, then clouds[0]
+        alone (one real row and BATCH - 1 filler rows)."""
+        cached = q != "none"
+        return counted_serve(torch, registry, counted, f"{label} serve", cfg, params,
+                             ExecutionPolicy(quant=q), clouds, rounds=2 if cached else 1,
+                             lone=cached, max_wait_s=1.0,
+                             cache_max_bytes=(1 << 28) if cached else 0)[3]
+
+    def train(label, cfg, q, batches):
+        """Step 1 against the CPU on CORNER_CPU_ROWS clouds, its kernel calls held;
+        the replayed steps against eager ones; step times, busy and idle."""
+        accel = get_accelerator(cfg, ExecutionPolicy(quant=q), device=cuda)
+        k = CORNER_CPU_ROWS[cfg.task]
+        pts, labels = batches[0][0][:k], batches[0][1][:k]
+        p, _ = fresh_state(torch, accel)
+        hold(f"{label} train step 1 ({k} clouds)", lambda: value_and_grad(accel, p, pts, labels))
+        del p
+        out = step1_against_cpu(torch, accel, pts, labels, label)
+        run = replay_against_eager(torch, registry, accel, batches, f"{label} replayed steps",
+                                   counted)
+        replay_ms = float(np.median(run["replay_ms"][1:]))
+        prof = profile_run(torch, lambda: run["step"](*batches[1]), replay_ms, registry,
+                           f"{label} replayed step")
+        return {**out, "eager_step_ms": float(np.median(run["eager_ms"][1:])),
+                "replay_step_ms": replay_ms, "busy_ms": prof["busy_ms"],
+                "idle_share": prof["idle_share"], "losses": run["losses"]}
+
+    def shard(label, cfg, params, q, batch):
+        """sharded_forward in both modes over two shards of cuda:0, the SC forwards'
+        kernel calls held; each mode's forward timed."""
+        with graphs.eager():
+            want = get_accelerator(cfg, ExecutionPolicy(quant=q), device=cuda).infer(
+                params, batch)
+        out = {}
+        for mode in ("batch", "tensor"):
+            tag = f"{label} {mode}-sharded"
+            arts, entry = sharded_forward(torch, registry, counted, tag, cfg, params,
+                                          ExecutionPolicy(quant=q, sharding=mode), (cuda, cuda),
+                                          batch, want)
+            if q != "none":
+                hold(tag, lambda: arts.infer(params, batch))
+            entry["sharded_eager_ms"] = median_ms(lambda: (arts.infer(params, batch),
+                                                           torch.cuda.synchronize()))
+            out[mode] = entry
+        return out
+
+    for m, base_cfg in cfgs.items():
+        params = get_accelerator(base_cfg, device=cuda).init(torch.Generator().manual_seed(SEED))
+        clouds = ragged_clouds(rng, *SERVE_TRAFFIC[m])
+        batch = make_clouds(rng, BATCH, base_cfg.n_points)
+        train_batches = []
+        for i in range(CORNER_TRAIN_STEPS):
+            pts, cls, seg = sample_batch(fold_in(SEED, 17_000 + i), BATCH, base_cfg.n_points,
+                                         device=cuda)
+            train_batches.append((pts, cls if m == "cls" else seg))
+        for (pre, agg), quants in RUNTIME_CORNERS.items():
+            cfg = dataclasses.replace(base_cfg, preproc=pre, aggregation=agg)
+            for q in quants:
+                label = f"{m} {pre}/{agg} quant={q}"
+                t0 = time.perf_counter()
+                with graphs.eager():
+                    made = hold(f"{label} forward",
+                                lambda: get_accelerator(cfg, ExecutionPolicy(quant=q),
+                                                        device=cuda).infer(params, batch))
+                if made != expected_launches(m, q, cfg):
+                    fail(f"{label}: kernel calls {made}, expected {expected_launches(m, q, cfg)}")
+                entry = {"serve": serve(label, cfg, params, q, clouds),
+                         "train": train(label, cfg, q, train_batches),
+                         "shard": shard(label, cfg, params, q, batch)}
+                entry["seconds"] = time.perf_counter() - t0
+                report["corners"][label] = entry
+                s, t = entry["serve"], entry["train"]
+                say(f"corners through the runtime, {label} ({entry['seconds']:.1f} s; {card}): "
+                    f"served bitwise equal to eager infer, 0 captures after the warmup, "
+                    f"{s['memory_after_warmup_mib']:.1f} MiB after the warmup; "
+                    + "; ".join(
+                        f"{r['tag']}: {r['requests']} requests in {r['batches']} batches "
+                        f"({r['all_hit_batches']} all-hit), batch on the replica median "
+                        f"{r['batch_ms_median']:.3f} ms, latency behind the queue filled "
+                        f"before it p50 {r['p50_ms']:.2f} ms, max {r['max_ms']:.2f} ms"
+                        for r in s["rounds"])
+                    + f"; step 1 vs the CPU ({t['step1_clouds']} clouds, CPU "
+                    f"{t['step1_cpu_s']:.1f} s): loss {t['step1_loss_card']:.6f} / "
+                    f"{t['step1_loss_cpu']:.6f}, gradients within {t['grad_worst_rel']:.2e} of "
+                    f"each leaf's max; {CORNER_TRAIN_STEPS} replayed steps bitwise equal to "
+                    f"eager, step eager {t['eager_step_ms']:.3f} ms, replay "
+                    f"{t['replay_step_ms']:.3f} ms, busy {t['busy_ms']:.3f} ms, idle "
+                    f"{t['idle_share']:.3f}; sharded "
+                    + ", ".join(f"{mode} "
+                                + ("bitwise" if v["bitwise"] else "%.2e" % v["max_abs_diff"])
+                                for mode, v in entry["shard"].items()))
+        del params, train_batches
+    report["kernel_calls_held"] = held
+    report["kernel_calls"] = rows
+    for name in KERNELS:
+        mine = [r for r in rows if r["kernel"] == name]
+        if mine:
+            say(f"corners through the runtime, {name}: {len(mine)} new shape(s) timed by CUDA "
+                f"events, kernel {sum(r['enqueue_ms'] for r in mine):.4f} ms, plain "
+                f"{sum(r['plain_enqueue_ms'] for r in mine):.4f} ms, bound "
+                f"{sum(r['bound_ms'] for r in mine):.6f} ms")
+    say(f"corners through the runtime: kernel calls held against their plain versions, "
+        f"bitwise: {held}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    return counted, report
+
+
+def examples_phase(torch, registry, card: str) -> tuple[dict, dict]:
+    """Phase 17 (b): each point-cloud example's main() at its full config on the card
+    (EXAMPLE_RUNS), counted: its own check must pass (a failed check exits the
+    run with code 1).  Returns each example's launches and its wall time."""
+    import importlib.util
+
+    counted, report = {}, {"card": card}
+    for name, args in EXAMPLE_RUNS:
+        path = os.path.join(ROOT, "examples", f"torch_{name}.py")
+        spec = importlib.util.spec_from_file_location(f"torch_{name}_example", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        registry.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted[f"example {name}"] = got = {n: registry.launches()[n] for n in KERNELS}
+        if not any(got.values()):
+            fail(f"example {name} launched none of the port's kernels")
+        report[name] = {"args": args, "wall_s": wall, "launches": got}
+        say(f"example torch_{name}.py {' '.join(args)}: its check passed in {wall:.2f} s "
+            f"({card}); launches {got}")
+    return counted, report
+
+
 def main() -> None:
     """Run every phase; any failure exits non-zero before the last line."""
     import torch
@@ -4616,6 +4924,19 @@ def main() -> None:
     for n in KERNELS:
         launches[n] += sum(c[n] for c in mesh_counted.values())
     say(json.dumps({"lm_mesh": mesh_report, "lm_mesh_launches": mesh_counted}))
+
+    # -- 17. the comparison corners through the runtime, and the examples ---------------
+    t17 = time.perf_counter()
+    corner_counted, corner_report = corner_runtime_phase(torch, configs, registry, card, timed)
+    example_counted, example_report = examples_phase(torch, registry, card)
+    for n in KERNELS:
+        launches[n] += sum(c[n] for c in corner_counted.values())
+        launches[n] += sum(c[n] for c in example_counted.values())
+    phase17_s = time.perf_counter() - t17
+    say(f"phase 17: {phase17_s:.1f} s ({card})")
+    say(json.dumps({"phase17": {"seconds": phase17_s, "corners": corner_report,
+                                "examples": example_report},
+                    "phase17_launches": {**corner_counted, **example_counted}}))
 
     kernels = []
     for name, meta in KERNELS.items():

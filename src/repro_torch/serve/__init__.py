@@ -77,8 +77,10 @@ from repro_torch.serve.obs import (  # noqa: F401
     RequestTimeline,
     StageBreakdown,
     batch_crosscheck,
+    padded_batch_responses,
     prometheus_text,
     request_timelines,
+    served_batches,
     stage_breakdown,
     to_chrome_trace,
     trace_problems,

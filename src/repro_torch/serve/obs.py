@@ -13,6 +13,10 @@ periodic :class:`Reporter` without touching the hot path:
   approaches the measured e2e latency; the gap is reported as ``residual_s``.
 * :func:`trace_problems` — structural lint: every trace must carry exactly
   one terminal event and per-trace timestamps must be monotonic.
+* :func:`served_batches` / :func:`padded_batch_responses` — which requests
+  rode in each micro-batch, and the response each gets from an eager
+  ``infer`` of that padded batch: the runtime's contract, which a served
+  response is held to bitwise.
 * :func:`stage_breakdown` — per-SLO-class p50/p95 of each stage over the
   completed timelines (the operator-facing "where does my latency go").
 * :func:`batch_crosscheck` — reconcile batch spans against the
@@ -40,7 +44,12 @@ import threading
 
 import numpy as np
 
+from repro_torch.core import graphs
+from repro_torch.core.accelerator import get_accelerator, params_device
+from repro_torch.core.policy import ExecutionPolicy, resolve_policy
 from repro_torch.serve.metrics import BatchRecord, MetricsSnapshot
+from repro_torch.serve.queue import Request
+from repro_torch.serve.scheduler import MicroBatch, assemble_batch, scatter_results
 from repro_torch.serve.trace import TERMINAL_EVENTS, TraceEvent
 
 #: Stage names of the per-request attribution, in pipeline order.  Edge
@@ -218,6 +227,51 @@ def trace_problems(events: list[TraceEvent]) -> list[str]:
                 )
                 break
     return problems
+
+
+def served_batches(events: list[TraceEvent]) -> list[tuple[list[int], int]]:
+    """(members, bucket) of every real micro-batch in a trace snapshot.
+
+    In assembly order.  ``batch.assembled`` lists its members' trace ids,
+    which come back as indices in ``request.submit`` order: the order the
+    caller submitted in, where it submitted from one thread.
+    """
+    order = {e.trace_id: k
+             for k, e in enumerate(e for e in events if e.name == "request.submit")}
+    return [([order[t] for t in e.args["members"]], e.args["bucket"])
+            for e in events if e.name == "batch.assembled"]
+
+
+def padded_batch_responses(cfg, params, clouds, policies, batches,
+                           max_batch: int) -> dict[int, np.ndarray]:
+    """Each served cloud's response from an eager ``infer`` of its padded batch.
+
+    `batches` is :func:`served_batches`' (members, bucket) list, and
+    `policies` gives each cloud's policy (an ExecutionPolicy, or None for
+    the config's default).  The batch is `assemble_batch`'s at its bucket
+    and `max_batch` rows, run under ``graphs.eager()`` on the device
+    `params` lie on, single-device under its members' quant (a sharded or
+    pipelined request is held to that answer), and split as the scheduler
+    splits it (`scatter_results`: a seg response keeps a row a point).
+    Raises ValueError for a batch whose members' quants differ, which the
+    scheduler never assembles.
+    """
+    device = params_device(params)
+    out: dict[int, np.ndarray] = {}
+    for idx, bucket in batches:
+        quants = {resolve_policy(cfg, policies[i]).quant for i in idx}
+        if len(quants) != 1:
+            raise ValueError(f"a served batch mixed quants {sorted(quants)}")
+        accel = get_accelerator(cfg, ExecutionPolicy(quant=quants.pop()), device=device)
+        reqs = tuple(Request(id=i, cloud=clouds[i], n_orig=clouds[i].shape[0], bucket=bucket,
+                             policy=accel.policy, deadline_t=None, submit_t=0.0, future=None)
+                     for i in idx)
+        mb = MicroBatch(requests=reqs, bucket=bucket, policy=accel.policy,
+                        batch=assemble_batch(reqs, bucket, 3 + cfg.in_features, max_batch))
+        with graphs.eager():
+            logits = accel.infer(params, mb.batch).cpu().numpy()
+        out.update(zip(idx, scatter_results(cfg.task, logits, mb)))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

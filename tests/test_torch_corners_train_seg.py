@@ -1,0 +1,24 @@
+"""Port parity, training pointnet2-seg in the five comparison corners on the CPU
+(baseline1/standard, baseline2/standard, pc2im/standard, baseline1/delayed,
+baseline2/delayed) under float, against the JAX package.
+
+Each case (tests/_port.py `assert_corner_trains`): step 1's loss and every
+gradient leaf against `jax.value_and_grad` of the reference's `loss_fn` on
+the same bridged params and batch, three `TrainStep` steps against the
+reference's (each step's loss), and a checkpoint of the trained state read
+back byte-identical.  The bounds are tests/_port.py's, the main path's.  The JAX side compiles once a case, so the cases are split
+by model and policy over four files; the others are
+  tests/test_torch_corners_train.py,
+  tests/test_torch_corners_train_sc.py,
+  tests/test_torch_corners_train_seg_sc.py.
+"""
+
+import pytest
+
+from _port import CORNER_IDS, CORNERS, assert_corner_trains
+from _threads import one_torch_thread  # noqa: F401  (autouse)
+
+
+@pytest.mark.parametrize("preproc,aggregation", CORNERS, ids=CORNER_IDS)
+def test_seg_corner_trains_as_the_reference(preproc, aggregation, tmp_path):
+    assert_corner_trains("seg", preproc, aggregation, "none", tmp_path)

@@ -2255,3 +2255,135 @@ def test_lm_mesh_counts_on_the_card_equal_meta(cuda, name, quant):
     assert counts["cuda"][0][4] == (n_lin if quant != "none" else 0)
     assert counts["cuda"][1][4] == (2 * n_lin if quant != "none" else 0)
 
+
+
+# -- the comparison corners through the runtime, and the examples ---------------------------
+
+# Card against the CPU at smoke width, chip_smoke.py's TRAIN_GRAD_TOL with its
+# reasons: float 5e-3 of each leaf's max (a max-pool tie the card's sums break
+# the other way), SC 1e-3 where the leaf's max is at least 1e-3 and 1e-1 on the
+# scale path below it, with the nonzero pattern above 1e-30 equal.
+CORNER_GRAD_TOL = {"none": 5e-3, "sc_w16a16": 1e-3, "sc scale path": 1e-1}
+
+
+def _corner_cfg(model, preproc, aggregation):
+    return dataclasses.replace(get_config(model, smoke=True), preproc=preproc,
+                               aggregation=aggregation)
+
+
+@pytest.mark.parametrize("model", ["pointnet2-cls", "pointnet2-seg"])
+@pytest.mark.parametrize("preproc,aggregation", COMPARISON_CORNERS)
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_corners_runtime_serving_on_the_card(cuda, model, preproc, aggregation, quant):
+    """Eight ragged clouds queued before the runtime starts (two full batches):
+    every response bitwise equal to an eager infer of its padded batch on the
+    card, and nothing captured after the warmup."""
+    from repro_torch.serve import (RuntimeConfig, ServingRuntime, TraceConfig,
+                                   padded_batch_responses, served_batches)
+
+    cfg = _corner_cfg(model, preproc, aggregation)
+    policy = ExecutionPolicy(quant=quant)
+    params = get_accelerator(cfg, policy, device=cuda).init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(21)
+    sizes = (cfg.n_points, cfg.n_points * 150 // 256, cfg.n_points * 5 // 4)
+    clouds = [rng.standard_normal((sizes[i % 3], 3)).astype(np.float32) for i in range(8)]
+    rt = ServingRuntime(cfg, params, RuntimeConfig(max_batch=4, max_wait_s=1.0,
+                                                   buckets=(cfg.n_points,), trace=TraceConfig()),
+                        policy=policy, device=cuda)
+    try:
+        rt.warmup()
+        before = graphs.captures()
+        futs = [rt.submit(c) for c in clouds]
+        rt.start()
+        outs = [f.result(timeout=120) for f in futs]
+        _wait(lambda: sum(b.n_real for b in rt.metrics.batch_records) >= len(clouds), "records")
+    finally:
+        rt.stop()
+    assert graphs.captures() == before
+    batches = served_batches(rt.tracer.events())
+    assert sorted(i for idx, _ in batches for i in idx) == list(range(len(clouds)))
+    want = padded_batch_responses(cfg, params, clouds, [policy] * len(clouds), batches, 4)
+    for i, w in want.items():
+        np.testing.assert_array_equal(outs[i], w)
+
+
+@pytest.mark.parametrize("model", ["pointnet2-cls", "pointnet2-seg"])
+@pytest.mark.parametrize("preproc,aggregation", COMPARISON_CORNERS)
+@pytest.mark.parametrize("quant", ["none", "sc_w16a16"])
+def test_corners_runtime_training_on_the_card(cuda, model, preproc, aggregation, quant):
+    """Step 1's loss and gradients on the card against the port's CPU run
+    (CORNER_GRAD_TOL), then three graphed steps bitwise equal to eager ones
+    under deterministic kernels, with one capture."""
+    from repro_torch.launch.train import value_and_grad
+
+    cfg = _corner_cfg(model, preproc, aggregation)
+    pol = ExecutionPolicy(quant=quant)
+    accel = get_accelerator(cfg, pol, device=cuda)
+    batches = _train_batches(cfg, 3, cuda, seed=2)
+    p = accel.init(torch.Generator().manual_seed(0))
+    (loss, _), grads = value_and_grad(accel, p, *batches[0])
+    accel_cpu = get_accelerator(cfg, pol, device="cpu")
+    (loss_cpu, _), grads_cpu = value_and_grad(
+        accel_cpu, accel_cpu.init(torch.Generator().manual_seed(0)),
+        *(t.cpu() for t in batches[0]))
+    assert abs(loss.item() - loss_cpu.item()) <= (1e-5 if quant == "none" else 1e-3)
+    for name, w in grads_cpu.items():
+        g, w = grads[name].cpu().double(), w.double()
+        top = w.abs().max().item()
+        if quant == "none":
+            assert (g - w).abs().max().item() <= CORNER_GRAD_TOL["none"] * top, name
+            continue
+        assert torch.equal(g.abs() > 1e-30, w.abs() > 1e-30), name
+        if top > 1e-30:
+            tol = CORNER_GRAD_TOL["sc_w16a16" if top >= 1e-3 else "sc scale path"]
+            assert (g - w).abs().max().item() <= tol * top, name
+    with _deterministic():
+        eager = _fresh_step(accel)
+        with graphs.eager():
+            want = [eager(*b) for b in batches]
+        graphed = _fresh_step(accel)
+        before = graphs.captures()
+        got = [graphed(*b) for b in batches]
+    assert graphs.captures() - before == 1
+    for g, w in zip(got, want):
+        for k in g:
+            assert torch.equal(g[k], w[k]), k
+    for a, b in zip(graphed._tensors(), eager._tensors()):
+        assert torch.equal(a, b)
+
+
+EXAMPLE_ARGS = {
+    "quickstart": [],
+    "train_pointcloud": ["--steps", "3", "--batch", "2", "--quant", "sc_w16a16"],
+    "preprocess_pipeline": [],
+    "serve_runtime": ["--requests", "12", "--mix-quant"],
+    "serve_slo": ["--requests", "120"],
+    "serve_trace": ["--requests", "16", "--rate", "400"],
+}
+
+
+@pytest.mark.parametrize("name", list(EXAMPLE_ARGS))
+def test_examples_run_on_the_card(cuda, name, tmp_path, capsys):
+    """Each point-cloud example's main() with --device cuda (its full config),
+    counts cut: it launches the port's kernels and its own check passes; on
+    the card torch_preprocess_pipeline holds its FPS and flat lattice calls
+    against the plain versions."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}_example", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    args = ["--device", "cuda", *EXAMPLE_ARGS[name]]
+    if name == "train_pointcloud":
+        args += ["--ckpt-dir", str(tmp_path)]
+    if name == "serve_trace":
+        args += ["--out", str(tmp_path / "trace.json")]
+    registry.reset_launches()
+    out = mod.main(args)
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("check: ") and last.endswith(": ok"), last
+    assert any(registry.launches().values())
+    if name == "preprocess_pipeline":
+        assert out["kernel_equals_plain"] == {"fps_tiles": True, "lattice_query": True}

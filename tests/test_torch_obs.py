@@ -378,3 +378,48 @@ def test_obs_names_equal_the_jax_package():
         "annotations", "dataclasses", "json", "sys", "threading", "np"}
     assert public <= set(dir(t_obs)), sorted(public - set(dir(t_obs)))
 
+
+
+def test_served_batches_reads_members_in_submit_order():
+    """Members come back as submit-order indices, whatever their trace ids, in
+    assembly order, each with its bucket; warmup batches carry no event."""
+    E = t_trace.TraceEvent
+    events = [E("request.submit", 1.0, trace_id=7), E("request.submit", 1.1, trace_id=3),
+              E("request.submit", 1.2, trace_id=9),
+              E("batch.assembled", 1.3, batch_id=1, args={"members": [3, 9], "bucket": 256}),
+              E("request.completed", 1.4, trace_id=3),
+              E("batch.assembled", 1.5, batch_id=2, args={"members": [7], "bucket": 128})]
+    assert t_obs.served_batches(events) == [([1, 2], 256), ([0], 128)]
+    assert t_obs.served_batches([]) == []
+
+
+@pytest.mark.parametrize("model", ["pointnet2-cls", "pointnet2-seg"])
+def test_padded_batch_responses_equal_infer_of_the_padded_batch(model):
+    """Each member's response is its row of `infer` of assemble_batch's padded
+    batch (seg: padded rows dropped, a subsampled cloud's points mapped to
+    their kept rows), under its own quant; a batch whose members' quants
+    differ raises."""
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.serve import inverse_subsample_indices
+
+    cfg = get_config(model, smoke=True)
+    params = get_accelerator(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    clouds = _clouds(5, seed=3)
+    sc = ExecutionPolicy(quant="sc_w16a16")
+    policies = [None, None, sc, sc, sc]
+    batches = [([1, 0], 256), ([4, 2, 3], 256)]
+    got = t_obs.padded_batch_responses(cfg, params, clouds, policies, batches, MAX_BATCH)
+    assert sorted(got) == list(range(len(clouds)))
+    for idx, bucket in batches:
+        pol = resolve_policy(cfg, policies[idx[0]])
+        reqs = [Request(id=i, cloud=clouds[i], n_orig=clouds[i].shape[0], bucket=bucket,
+                        policy=pol, deadline_t=None, submit_t=0.0, future=None) for i in idx]
+        want = get_accelerator(cfg, pol, device="cpu").infer(
+            params, assemble_batch(reqs, bucket, 3 + cfg.in_features, MAX_BATCH)).numpy()
+        for j, i in enumerate(idx):
+            n = clouds[i].shape[0]
+            row = want[j] if cfg.task != "seg" else (
+                want[j, :n] if n <= bucket else want[j, inverse_subsample_indices(n, bucket)])
+            np.testing.assert_array_equal(got[i], row)
+    with pytest.raises(ValueError, match="mixed quants"):
+        t_obs.padded_batch_responses(cfg, params, clouds, policies, [([1, 2], 256)], MAX_BATCH)

@@ -73,8 +73,13 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 
 def test_no_port_source_names_jax_or_repro():
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert {p.name for p in examples} >= {
+        "torch_serve_lm.py", "torch_quickstart.py", "torch_train_pointcloud.py",
+        "torch_preprocess_pipeline.py", "torch_serve_runtime.py", "torch_serve_slo.py",
+        "torch_serve_trace.py"}
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
-                 ROOT / "examples" / "torch_serve_lm.py"]:
+                 *examples]:
         assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}, path
 
 
