@@ -4108,18 +4108,44 @@ PEAK_BF16_FLOPS = 989e12
 # reduce, gather or write FLOP is one instruction on the FP32 pipes.
 MESH_PEAKS = {"bfloat16": PEAK_BF16_FLOPS, "float32": PEAK_F32_OPS, "sc_int8": PEAK_INT8_OPS,
               "vector": PEAK_F32_INSTR}
+# The dry-run cells' collective term: one device's collective bytes (the census,
+# launch/spmd.py) over H100 NVLink 4's 450 GB/s a direction (NVIDIA's H100 SXM
+# data sheet: 18 links, 900 GB/s both ways), the rate within one 8-card node.
+# The bytes are DTensor's greedy layout of the eager step, 0.39-26.7x GSPMD's
+# on a (2, 4) mesh (tests/test_torch_lm_collectives.py): an estimate, neither
+# bound, which `roofline_ms` keeps out of bound_by.  The production meshes'
+# 16-wide "model" axis spans two nodes, whose link is slower than this rate.
+NVLINK_BYTES_PER_S = 450e9
+# One device's peak on the card (max_memory_allocated over a step, less what was
+# allocated before it, plus its arguments as allocated) against the census's
+# peak_memory_in_bytes for the same cell on the 1 x 1 host mesh, within
+# mem_band: at most 0.1 % under it (the census keeps a product that a fused
+# call does not: 0.99996 at prefill on an H100), and over it by no more than what
+# the allocator adds: cuBLAS's workspace (CUBLAS_WORKSPACE, where a step makes
+# it) and the 512 B rounding of every storage the step allocates.
+MEM_FLOOR = 0.999
+CUBLAS_WORKSPACE = 32 * 2**20
+
+
+def mem_band(census: dict) -> tuple[float, float]:
+    """(lowest, highest) ratio of the card's peak to the census's for one step."""
+    peak = census["memory"]["peak_memory_in_bytes"]
+    return MEM_FLOOR, 1.0 + (CUBLAS_WORKSPACE + ALLOC_ROUND * census["allocations"]) / peak
 
 
 def lm_mesh_phase(torch, registry, card: str) -> tuple[dict, dict]:
     """Phase 16: the LM's device layout on the host mesh, the op counter on the card
-    and on meta, the dry run's argument bytes against the card's allocator, and
-    dry-run cells with their roofline terms on this card.
+    and on meta, the dry run's argument bytes against the card's allocator, one
+    device's peak on the card (SC train, prefill and decode steps) against the
+    dry run's census on the 1 x 1 mesh (which must move nothing), and dry-run
+    cells with their census (collectives, peak a device) and roofline terms,
+    the collective term at NVLink's rate, on this card.
 
     Returns the launch counts of each counted run and the numbers to report.
     """
     from repro_torch.core.policy import ExecutionPolicy
     from repro_torch.data.tokens import token_stream
-    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch import dryrun, hlo_analysis, spmd
     from repro_torch.launch import shapes as SH
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as T
@@ -4347,6 +4373,76 @@ def lm_mesh_phase(torch, registry, card: str) -> tuple[dict, dict]:
     del meta_params
     free()
 
+    # -- (f) one device's memory: the card's allocator against the census on 1 x 1 --------
+    t0 = time.perf_counter()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    sc = pols["sc_w16a16"]
+    meta = {"train": ({k: torch.empty_like(v, device="meta") for k, v in batch0.items()}, None),
+            "prefill": ({"tokens": torch.empty_like(prompts, device="meta")}, None),
+            "decode": ({"token": torch.empty((LM_BATCH, 1), dtype=torch.int32,
+                                             device="meta")},
+                       api["init_decode_state"](cfg, LM_BATCH, s_max, device="meta"))}
+    predicted = {kind: spmd.census(cfg, kind, b, st, mesh, MESH_POLICIES[0], policy=sc,
+                                   s_max=s_max)
+                 for kind, (b, st) in meta.items()}
+    for kind, c in predicted.items():  # nothing to move on one device
+        moved = {k: v for k, v in c["collectives"].items() if v["count"] or v["bytes"]}
+        if moved or c["collective_bytes_total"]:
+            fail(f"lm mesh, census of {kind} on the 1 x 1 host mesh: collectives {moved}")
+
+    def allocated(tensors) -> int:
+        """Bytes the allocator holds for the distinct storages of `tensors`."""
+        sizes = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in tensors}
+        return sum(-(-n // ALLOC_ROUND) * ALLOC_ROUND for n in sizes.values())
+
+    def card_peak(run, arg_bytes: int) -> int:
+        """max_memory_allocated over run(), less what was allocated before it, plus
+        the arguments' bytes as allocated."""
+        sync()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        sync()
+        peak = torch.cuda.max_memory_allocated()
+        del out
+        return peak - before + arg_bytes
+
+    registry.reset_launches()
+    module, opt, batch, grown, _ = placed_state(MESH_POLICIES[0])
+    got = {"train": card_peak(lambda: step_fn(module, opt, batch), grown)}
+    del module, opt, batch
+    free()
+    module = placed_params(shardings(MESH_POLICIES[0])[0])
+    params = list(module.parameters())
+    with torch.no_grad():
+        got["prefill"] = card_peak(
+            lambda: api["prefill"](module, cfg, {"tokens": prompts}, s_max, policy=sc),
+            allocated(params + [prompts]))
+        logits, state = api["prefill"](module, cfg, {"tokens": prompts}, s_max, policy=sc)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        del logits
+        leaves = [t for c in state.caches for t in c] + [state.cache_len]
+        got["decode"] = card_peak(
+            lambda: api["decode_step"](module, cfg, state, {"token": tok}, policy=sc),
+            allocated(params + leaves + [tok]))
+    check_launches("memory: train, two prefills and decode", n_train + 3 * n_step)
+    del module, params, state, tok, leaves
+    free()
+    for kind, c in predicted.items():
+        want = c["memory"]["peak_memory_in_bytes"]
+        ratio, band = got[kind] / want, mem_band(c)
+        report["memory"][f"peak {kind}"] = {"card": got[kind], "census": want, "ratio": ratio,
+                                            "census_memory": c["memory"], "band": band,
+                                            "allocations": c["allocations"]}
+        say(f"lm mesh, memory, one sc_w16a16 {kind} step of the {cfg.n_layers}-layer stablelm "
+            f"on this card ({card}): max_memory_allocated gives {got[kind]} B against the "
+            f"census's {want} B on the 1 x 1 mesh (ratio {ratio:.6f}, band ({band[0]}, "
+            f"{band[1]:.6f}): {c['allocations']} allocations); the census's collectives: none")
+        if not band[0] <= ratio <= band[1]:
+            fail(f"lm mesh, memory, {kind}: the card's peak {got[kind]} B is {ratio:.6f} x the "
+                 f"census's {want} B, outside {band}")
+    say(f"lm mesh, memory against the census: {time.perf_counter() - t0:.1f} s")
+
     # -- (d), (e) dry-run cells on meta, their roofline terms on this card -----------------
     for arch, shape, mk in MESH_CELLS:
         r = dryrun.run_cell(arch, shape, mk)
@@ -4354,12 +4450,29 @@ def lm_mesh_phase(torch, registry, card: str) -> tuple[dict, dict]:
             fail(f"lm mesh, dry run {arch} x {shape} x {mk}: {r['status']} "
                  f"{r.get('error', r.get('reason'))}")
         h = r["hlo_analysis"]
-        roof = hlo_analysis.roofline_ms(h, r["n_devices"], MESH_PEAKS, PEAK_BYTES_PER_S)
+        roof = hlo_analysis.roofline_ms(h, r["n_devices"], MESH_PEAKS, PEAK_BYTES_PER_S,
+                                        NVLINK_BYTES_PER_S)
+        peak = r["memory_analysis"]["peak_memory_in_bytes"]
+        if not h["collective_bytes_total"] > 0:
+            fail(f"lm mesh, dry run {arch} x {shape} x {mk}: no collective bytes on "
+                 f"{r['n_devices']} devices")
         report["dryrun"][f"{arch} x {shape} x {mk}"] = {
-            "lower_s": r["lower_s"], "n_devices": r["n_devices"], "flops": h["flops"],
-            "flops_by_type": h["flops_by_type"], "bytes": h["bytes"],
+            "lower_s": r["lower_s"], "census_s": h["census_s"], "n_devices": r["n_devices"],
+            "flops": h["flops"], "flops_by_type": h["flops_by_type"], "bytes": h["bytes"],
             "dot_flops": h["dot_flops"], "model_flops": r["model_flops"],
-            "argument_bytes": r["memory_analysis"]["argument_size_in_bytes"], **roof}
+            "argument_bytes": r["memory_analysis"]["argument_size_in_bytes"],
+            "collectives": h["collectives"], "collective_bytes_total": h["collective_bytes_total"],
+            "replicated_ops": h["replicated_ops"], "memory_analysis": r["memory_analysis"],
+            "card_bytes": card_bytes, **roof}
+        census = "; ".join(f"{k} {v['count']} ops {v['bytes']} B"
+                           for k, v in h["collectives"].items())
+        say(f"lm mesh, dry run {arch} x {shape} x {mk}, one device's census: {census}; "
+            f"collective term {roof['collective_ms']:.4f} ms ({h['collective_bytes_total']} B "
+            f"/ {NVLINK_BYTES_PER_S:.3g} B/s, NVLink within one 8-card node; the bytes are "
+            f"DTensor's greedy layout, an estimate kept out of bound_by); peak {peak / 1e9:.3f} GB a device against "
+            f"this card's {card_bytes / 1e9:.1f} GB "
+            f"({'fits' if peak <= card_bytes else 'does not fit'}); ops run on whole inputs: "
+            f"{h['replicated_ops'] or 'none'}")
         by_type = ", ".join(f"{t} {f:.6e} FLOPs / {MESH_PEAKS[t]:.4g} FLOP/s = "
                             f"{roof['compute_ms_by_type'][t]:.4f} ms"
                             for t, f in h["flops_by_type"].items())

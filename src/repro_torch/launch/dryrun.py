@@ -18,22 +18,33 @@ ask, so per cell it:
      and the op counter (`launch.hlo_analysis`): the family's train_loss
      and its backward through `train.step.make_train_step` (with
      --microbatch), or `prefill`, or one `decode_step`;
-  5. writes the reference's JSON keys.
+  5. runs the step once more as one device's share of the partitioned
+     program (`launch.spmd.census`): the parameters, AdamW state, batch
+     and decode state as DTensors over a fake world of the mesh's size,
+     their local shards meta tensors; it records that device's
+     collectives by kind (trip-count-scaled under `hlo_analysis`, each
+     repeated body once under `collectives_raw`, the repetitions under
+     `while_trip_counts`) and its memory (`memory_analysis`: argument,
+     output, alias, temp and peak bytes, from the live local storages);
+  6. writes the reference's JSON keys.
 
-Keys without a counterpart are null: `compile_s` (nothing compiles),
-`hlo_bytes` (no HLO), `while_trip_counts` (a Python loop counts every
-iteration), `collectives_raw` (no SPMD partitioner), `cost_analysis`
-(XLA's own per-body-once analysis; the counter's output is under
-`hlo_analysis`) and, in `memory_analysis`, the temp, peak, output, alias
-and generated-code sizes (no buffer assignment).  `lower_s` is the time to
-build and count the cell.  The counts are of the whole program, not of
-one device's share: `hlo_analysis.roofline_ms` spreads them over the
-mesh.
+The counter's FLOPs and bytes are of the whole (global) program:
+`hlo_analysis.roofline_ms` spreads them over the mesh.  The collectives
+and `memory_analysis` are one device's, as the reference's are.  Four keys
+have no counterpart and stay null: `compile_s` (nothing compiles),
+`hlo_bytes` (no HLO), `cost_analysis` (XLA's own per-body-once analysis;
+the counter's output is under `hlo_analysis`) and, in `memory_analysis`,
+`generated_code_size_in_bytes` (no generated code).  `lower_s` is the time
+to build, count and census the cell.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma3-12b --shape train_4k \\
       --mesh single --out build/dryrun/gemma3_train4k_single.json
   python -m repro_torch.launch.dryrun --all --mesh both
+
+Several cells run in a spawned pool, one process a cell at a time and as
+many processes as the host has cores (or cells); one cell runs in this
+process.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.launch import shapes as SH
+from repro_torch.launch import spmd
 from repro_torch.launch.hlo_analysis import analyze
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.families import get_family_api
@@ -100,6 +112,9 @@ class Cell:
     args: tuple
     shardings: tuple
     cfg: object
+    kind: str
+    batch: dict
+    state: object
 
 
 def cell_arguments(cfg, kind: str, batch: dict, mesh, policy_name: str,
@@ -172,7 +187,7 @@ def build_cell(arch: str, shape_name: str, mesh, policy_name: str = "fsdp_tp",
         def fn():
             with torch.no_grad():
                 return api["decode_step"](module, cfg, state, batch)
-    return Cell(fn, args, shardings, cfg)
+    return Cell(fn, args, shardings, cfg, kind, batch, state)
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, policy_name: str = "fsdp_tp",
@@ -195,17 +210,27 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, policy_name: str = "fsd
         hint_mode = "fsdp2d" if policy_name == "fsdp2d" else "off"
         with activation_sharding(mesh, mode=hint_mode):
             cell = build_cell(arch, shape_name, mesh, policy_name, overrides, microbatch)
-            result["memory_analysis"] = {
-                "available": True,
-                "argument_size_in_bytes": argument_bytes(cell.args, cell.shardings),
-                "output_size_in_bytes": None, "alias_size_in_bytes": None,
-                "temp_size_in_bytes": None, "peak_memory_in_bytes": None,
-                "generated_code_size_in_bytes": None,
-            }
+            args_bytes = argument_bytes(cell.args, cell.shardings)
             result["cost_analysis"] = None
-            result["hlo_analysis"] = analyze(cell.fn)
-        result["collectives_raw"] = None
-        result["while_trip_counts"] = None
+            counted = analyze(cell.fn)
+        t_census = time.time()
+        census = spmd.census(cell.cfg, cell.kind, cell.batch, cell.state, mesh, policy_name,
+                             microbatch=microbatch, s_max=SH.SHAPES[shape_name]["seq"])
+        mem = census["memory"]
+        result["memory_analysis"] = {
+            "available": True,
+            "argument_size_in_bytes": args_bytes,
+            **{k: mem[k] for k in ("output_size_in_bytes", "alias_size_in_bytes",
+                                   "temp_size_in_bytes", "peak_memory_in_bytes")},
+            "generated_code_size_in_bytes": None,
+        }
+        counted["collectives"] = census["collectives"]
+        counted["collective_bytes_total"] = census["collective_bytes_total"]
+        counted["replicated_ops"] = census["replicated_ops"]
+        counted["census_s"] = round(time.time() - t_census, 2)
+        result["hlo_analysis"] = counted
+        result["collectives_raw"] = census["collectives_raw"]
+        result["while_trip_counts"] = census["while_trip_counts"]
         result["hlo_bytes"] = None
         result["model_flops"] = SH.model_flops(cell.cfg, shape_name)
         result["param_count"] = cell.cfg.param_count()
@@ -219,9 +244,31 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, policy_name: str = "fsd
     return result
 
 
+def _run_and_write(job: tuple) -> tuple[dict, str]:
+    """Run one cell and write its JSON: (the result, the line to print)."""
+    arch, shape, mk, policy, overrides, microbatch, out_path = job
+    res = run_cell(arch, shape, mk, policy, overrides, microbatch)
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1)
+    status = res["status"]
+    if status == "failed":
+        extra = res.get("error", "")
+    elif status == "ok":
+        h, mem = res["hlo_analysis"], res["memory_analysis"]
+        extra = (f"counted in {res['lower_s']}s "
+                 f"flops={h['flops']:.4g} "
+                 f"model_flops={res['model_flops']:.4g} "
+                 f"collective_bytes={h['collective_bytes_total']:.4g} "
+                 f"peak_per_device={mem['peak_memory_in_bytes']:.4g}")
+    else:
+        extra = res.get("reason", "")
+    return res, f"[{status:7s}] {arch} x {shape} x {mk}: {extra}"
+
+
 def main(argv=None) -> int:
     """The command line: one cell (--arch, --shape) or --all, on --mesh single,
-    multi or both; one JSON file a cell.  Exits 1 if any cell failed."""
+    multi or both; one JSON file a cell, several cells spread over a process a
+    core.  Exits 1 if any cell failed."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=list(SH.SHAPES) + [None])
@@ -245,27 +292,29 @@ def main(argv=None) -> int:
         cells = [(args.arch, args.shape)]
 
     os.makedirs(args.out_dir, exist_ok=True)
+    suffix = f"__{args.tag}" if args.tag else ""
+    jobs = [(arch, shape, mk, args.policy, overrides, args.microbatch,
+             args.out or os.path.join(args.out_dir,
+                                      f"{arch}__{shape}__{mk}__{args.policy}{suffix}.json"))
+            for arch, shape in cells for mk in meshes]
+    if len(jobs) > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        # spawned, not forked: a fork after torch's thread pools have run can hang
+        pool = ProcessPoolExecutor(max_workers=min(os.cpu_count() or 1, len(jobs)),
+                                   mp_context=multiprocessing.get_context("spawn"))
+        results = pool.map(_run_and_write, jobs)
+    else:
+        pool, results = None, map(_run_and_write, jobs)
     rc = 0
-    for arch, shape in cells:
-        for mk in meshes:
-            res = run_cell(arch, shape, mk, args.policy, overrides, args.microbatch)
-            suffix = f"__{args.tag}" if args.tag else ""
-            out_path = args.out or os.path.join(
-                args.out_dir, f"{arch}__{shape}__{mk}__{args.policy}{suffix}.json"
-            )
-            with open(out_path, "w") as f:
-                json.dump(res, f, indent=1)
-            status = res["status"]
-            if status == "failed":
-                extra = res.get("error", "")
-                rc = 1
-            elif status == "ok":
-                extra = (f"counted in {res['lower_s']}s "
-                         f"flops={res['hlo_analysis']['flops']:.4g} "
-                         f"model_flops={res['model_flops']:.4g}")
-            else:
-                extra = res.get("reason", "")
-            print(f"[{status:7s}] {arch} x {shape} x {mk}: {extra}", flush=True)
+    try:
+        for res, line in results:
+            rc |= res["status"] == "failed"
+            print(line, flush=True)
+    finally:
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
     return rc
 
 

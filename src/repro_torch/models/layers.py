@@ -41,10 +41,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import accounting
+from repro_torch.core.overrides import overridable
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.models.nn import Linear
 
 _NEG_INF = -2.0e38
+_CONTIGUOUS = torch.contiguous_format
 
 # jax.nn.gelu is the tanh approximation by default (0.841192 at 1.0 against
 # the exact 0.841345), so gelu here is too.
@@ -152,8 +154,9 @@ def _flash_forward(q, k, v, causal: bool, window, blk: int, pairs, scale: float)
     hkv = k.shape[1]
     g = hq // hkv
     kf = k.to(torch.float32)
-    out = torch.empty((b, hq, s, dh), dtype=torch.float32, device=q.device)
-    lse = torch.empty((b, hq, s, 1), dtype=torch.float32, device=q.device)
+    # the buffers are made like q (or a slice of it), so a split q splits them alike
+    out = torch.empty_like(q, dtype=torch.float32, memory_format=_CONTIGUOUS)
+    lse = torch.empty_like(q[..., :1], dtype=torch.float32, memory_format=_CONTIGUOUS)
     by_row: dict[int, list[int]] = {}
     for i, j in pairs:
         by_row.setdefault(i, []).append(j)
@@ -165,9 +168,11 @@ def _flash_forward(q, k, v, causal: bool, window, blk: int, pairs, scale: float)
         rows = slice(i * blk, (i + 1) * blk)
         # q * scale in q's dtype, then the product in float32
         qi = (q[:, :, rows] * scale).reshape(b, hkv, g, blk, dh).to(torch.float32)
-        m = torch.full((b, hq, blk, 1), _NEG_INF, dtype=torch.float32, device=q.device)
-        den = torch.zeros((b, hq, blk, 1), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, hq, blk, dh), dtype=torch.float32, device=q.device)
+        q_rows = q[:, :, rows]
+        m = torch.full_like(q_rows[..., :1], _NEG_INF, dtype=torch.float32,
+                            memory_format=_CONTIGUOUS)
+        den = torch.zeros_like(q_rows[..., :1], dtype=torch.float32, memory_format=_CONTIGUOUS)
+        acc = torch.zeros_like(q_rows, dtype=torch.float32, memory_format=_CONTIGUOUS)
         for j in accounting.loop(cols, short, inner):
             keys = slice(j * blk, (j + 1) * blk)
             scores = torch.matmul(qi, kf[:, :, None, keys].transpose(-1, -2))
@@ -185,9 +190,12 @@ def _flash_forward(q, k, v, causal: bool, window, blk: int, pairs, scale: float)
             ).reshape(b, hq, blk, dh)
             acc = corr * acc + pv
             m = m_new
+            # nothing of a pair outlives it: each pair holds what the first does
+            del scores, mask, m_new, safe_m, p, corr, pv
         floored = torch.clamp(den, min=1e-20)
         out[:, :, rows] = acc / floored
         lse[:, :, rows] = torch.where(den > 0, m + torch.log(floored), _NEG_INF)
+        del q_rows, qi, m, den, acc, floored
     return out, lse
 
 
@@ -205,8 +213,8 @@ def _flash_backward(dout, q, k, v, out, lse, causal: bool, window, blk: int, pai
     dout = dout.to(torch.float32)
     dvec = (dout * out).sum(dim=-1, keepdim=True)  # D_i = rowsum(dO * O)  (B, Hq, S, 1)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
-    dq = torch.zeros((b, hq, s, dh), dtype=torch.float32, device=q.device)
-    dk = torch.zeros((b, hkv, k.shape[2], dh), dtype=torch.float32, device=q.device)
+    dq = torch.zeros_like(q, dtype=torch.float32, memory_format=_CONTIGUOUS)
+    dk = torch.zeros_like(k, dtype=torch.float32, memory_format=_CONTIGUOUS)
     dv = torch.zeros_like(dk)
     for i, j in accounting.loop(pairs, q.is_meta):  # on meta one pair stands for all
         rows, keys = slice(i * blk, (i + 1) * blk), slice(j * blk, (j + 1) * blk)
@@ -229,6 +237,7 @@ def _flash_backward(dout, q, k, v, out, lse, causal: bool, window, blk: int, pai
         qf = qi.reshape(b, hkv, g, blk, dh).to(torch.float32)
         dk[:, :, keys] += torch.matmul(ds.permute(0, 1, 4, 2, 3).reshape(b, hkv, blk, g * blk),
                                        qf.reshape(b, hkv, g * blk, dh)) * scale
+        del qi_g, scores, mask, safe_lse, p, dp, ds, qf  # as in the forward's pairs
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -253,6 +262,7 @@ class _FlashCore(torch.autograd.Function):
         return (*_flash_backward(dout, q, k, v, out, lse, *ctx.geometry), None)
 
 
+@overridable
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -303,6 +313,7 @@ def _valid(s: int, cache_len, window: int | None, device) -> torch.Tensor:
     return valid
 
 
+@overridable
 def decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -366,6 +377,7 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (q.to(torch.float32) * scale).to(dtype)
 
 
+@overridable
 def decode_attention_quant(
     q: torch.Tensor,
     cache: QuantKVCache,

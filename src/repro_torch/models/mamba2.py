@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.overrides import overridable
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.models.layers import RMSNorm
 from repro_torch.models.nn import Linear, draw_normal
@@ -85,6 +86,7 @@ class Mamba2(nn.Module):
         return mamba2_apply(self, self.cfg, x, cache=cache, policy=policy)
 
 
+@overridable
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv.  x: (B, S, C), w: (W, C) -> (B, S, C), in x's dtype:
     the reference's unrolled shift-multiply-add, in its order."""
@@ -115,13 +117,15 @@ def segsum(dta: torch.Tensor) -> torch.Tensor:
     return diff.masked_fill(~mask, float("-inf"))
 
 
+@overridable
 def ssd_forward(x, dt, A, B, C, *, chunk: int):
     """Chunked SSD.  x: (b, s, h, p); dt: (b, s, h); A: (h,) (negative); B, C:
-    (b, s, n), all float32.  Returns (y (b, s, h, p), final state (b, h, p, n)).
+    (b, s, n), taken in float32.  Returns (y (b, s, h, p), final state (b, h, p, n)).
 
     The chunk is min(chunk, s), halved while it does not divide s; the
     inter-chunk recurrence is a loop over the chunks that keeps the state
     *before* each chunk (the reference's `scan`)."""
+    x, B, C = x.to(torch.float32), B.to(torch.float32), C.to(torch.float32)
     b, s, h, p = x.shape
     n = B.shape[-1]
     q = min(chunk, s)
@@ -193,8 +197,7 @@ def mamba2_apply(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, cache: SSMCache |
     A = -torch.exp(p.A_log)  # (H,) negative
 
     if cache is None:
-        y, state = ssd_forward(xs.to(torch.float32), dt, A, B.to(torch.float32),
-                               C.to(torch.float32), chunk=cfg.ssm_chunk)
+        y, state = ssd_forward(xs, dt, A, B, C, chunk=cfg.ssm_chunk)
         new_cache = SSMCache(state=state, conv=conv_tail(xbc_raw, width))
     else:  # the O(1) recurrent step
         dta = torch.exp(dt[:, 0] * A[None, :])  # (B, H)

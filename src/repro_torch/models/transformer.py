@@ -49,6 +49,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.core.overrides import overridable
 from repro_torch.core.policy import ExecutionPolicy, resolve_policy
 from repro_torch.models.layers import (
     AttnConfig,
@@ -243,6 +244,7 @@ def _ce_chunk(hh: torch.Tensor, w_out: torch.Tensor, ll: torch.Tensor,
     return ((lse - gold) * mm).sum(), mm.sum()
 
 
+@overridable
 def chunked_cross_entropy(h: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor, *,
                           chunk: int, mask: torch.Tensor | None = None) -> torch.Tensor:
     """Seq-chunked CE.  h: (B, S, D), w_out: (D, V), labels: (B, S) -> scalar float32.
@@ -258,7 +260,7 @@ def chunked_cross_entropy(h: torch.Tensor, w_out: torch.Tensor, labels: torch.Te
     while s % chunk:
         chunk //= 2
     if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        mask = labels.new_ones(labels.shape, dtype=torch.float32)  # laid out as labels
     nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, s, chunk):

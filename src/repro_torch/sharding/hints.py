@@ -25,6 +25,11 @@ port runs one program on one device, so a hint returns its input itself
 `batch_only_spec` give the spec the reference would impose, which the
 dry run and the tests read.  Without an active context every hint is a
 no-op.
+
+The dry run's census (`launch.spmd`) runs a step once more with its tensors
+laid out as DTensors; there a hint lays the residual stream out by its
+spec or, where the reference sets none, by the batch alone
+(`census_layout`).
 """
 
 from __future__ import annotations
@@ -169,13 +174,37 @@ def _constrain(x: torch.Tensor, mesh, spec: PartitionSpec) -> torch.Tensor:
     return x
 
 
+# The dry run's census pass (`launch.spmd`), which lays the step's tensors out
+# as DTensors, inside `census_layout`: its `constrain(x, mesh, daxes, spec)`
+# lays x out by the spec, or where the reference imposes none (spec None)
+# settles the residual stream.  None everywhere else.
+_CENSUS: contextvars.ContextVar = contextvars.ContextVar("repro_torch_census", default=None)
+
+
+@contextlib.contextmanager
+def census_layout(layout):
+    """Make `layout` (the census's, `launch.spmd`) the one the hints ask inside the
+    block; the previous one comes back on exit."""
+    token = _CENSUS.set(layout)
+    try:
+        yield
+    finally:
+        _CENSUS.reset(token)
+
+
+def _hint(x: torch.Tensor, c: dict, spec: PartitionSpec | None) -> torch.Tensor:
+    census = _CENSUS.get()
+    if census is not None:
+        return census.constrain(x, c["mesh"], c["daxes"], spec)
+    return x if spec is None else _constrain(x, c["mesh"], spec)
+
+
 def hint_residual(x: torch.Tensor) -> torch.Tensor:
     """(B, S, D) residual-stream hint under the active layout; returns x itself."""
     c = _HINTS.get()
     if c is None:
         return x
-    spec = residual_spec(tuple(x.shape), c["mesh"], c["daxes"], c["mode"])
-    return x if spec is None else _constrain(x, c["mesh"], spec)
+    return _hint(x, c, residual_spec(tuple(x.shape), c["mesh"], c["daxes"], c["mode"]))
 
 
 def hint_batch_only(x: torch.Tensor) -> torch.Tensor:
@@ -183,5 +212,4 @@ def hint_batch_only(x: torch.Tensor) -> torch.Tensor:
     c = _HINTS.get()
     if c is None:
         return x
-    spec = batch_only_spec(tuple(x.shape), c["mesh"], c["daxes"])
-    return x if spec is None else _constrain(x, c["mesh"], spec)
+    return _hint(x, c, batch_only_spec(tuple(x.shape), c["mesh"], c["daxes"]))

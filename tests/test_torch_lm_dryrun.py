@@ -32,7 +32,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import accounting
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.kernels.sc_matmul.ops import sc_matmul_op
-from repro_torch.launch import dryrun
+from repro_torch.launch import dryrun, spmd
 from repro_torch.launch import hlo_analysis as HA
 from repro_torch.models.families import get_family_api
 from repro_torch.models.layers import _flash_geometry
@@ -216,6 +216,9 @@ def test_roofline_terms_take_one_peak_a_type():
         {"bfloat16": 2.0, "float32": 10.0, "vector": 25.0})
     assert r["compute_ms"] == pytest.approx(37.0)
     assert r["memory_ms"] == pytest.approx(1000.0) and r["bound_by"] == "bytes"
+    # the census's collective term is reported beside the bound, never in it
+    r = HA.roofline_ms({**cost, "collective_bytes_total": 9e12}, 2, peaks, 3e12, 1e9)
+    assert r["collective_ms"] == pytest.approx(9e6) and r["bound_by"] == "bytes"
     with pytest.raises(KeyError):
         HA.roofline_ms(cost, 1, {"bfloat16": 1e15}, 3e12)
 
@@ -262,12 +265,20 @@ def test_run_cell_smoke_overrides(shape, policy):
     assert r["status"] == "ok", r.get("traceback")
     assert set(r) == REF_KEYS
     assert r["n_devices"] == 512 and r["overrides"] == over
-    assert r["compile_s"] is None and r["hlo_bytes"] is None and r["collectives_raw"] is None
+    assert r["compile_s"] is None and r["hlo_bytes"] is None and r["cost_analysis"] is None
+    # one device's census (launch/spmd.py): every kind, body-once and trip-count-scaled
+    assert set(r["collectives_raw"]) == set(spmd.KINDS)
+    assert all(isinstance(n, (int, float)) for n in r["while_trip_counts"])
     mem = r["memory_analysis"]
     assert mem["available"] and mem["argument_size_in_bytes"] > 0
-    assert mem["temp_size_in_bytes"] is None and mem["peak_memory_in_bytes"] is None
+    assert mem["generated_code_size_in_bytes"] is None
+    assert mem["peak_memory_in_bytes"] >= mem["argument_size_in_bytes"]
+    assert mem["temp_size_in_bytes"] >= 0 and mem["output_size_in_bytes"] > 0
+    assert mem["alias_size_in_bytes"] > 0  # train donates params and state, decode the state
     h = r["hlo_analysis"]
-    assert h["flops"] > h["dot_flops"] > 0 and h["collectives"] == {}
+    assert h["flops"] > h["dot_flops"] > 0
+    assert set(h["collectives"]) == set(spmd.KINDS) and h["collective_bytes_total"] > 0
+    assert h["collective_bytes_total"] == sum(v["bytes"] for v in h["collectives"].values())
     cfg = dryrun.apply_overrides(get_config("stablelm-1.6b"), over)
     assert r["param_count"] == cfg.param_count() and cfg.n_layers == 2
     from repro_torch.launch.shapes import model_flops
