@@ -14,10 +14,18 @@ mixed-size clouds, then shows every consumer of the trace stream:
     execute stage;
   * the batch cross-check (`batch_crosscheck`) tying batch-span durations
     back to the `BatchRecord` totals the metrics layer recorded;
+  * the graph layer's spans (`graph_medians`): on the
+    card each replica's replays run inside `graphs.traced`, so every
+    replay's lookup, wait, copy-in, launch and clone on the host, and the card's
+    own time for preprocessing and for the feature stage, are printed as
+    medians a stage, with the count of stage times missed
+    (`graphs.stage_times_missed`; the CPU runs the stages eagerly and has
+    none);
   * a Chrome-trace JSON written by `write_chrome_trace` to --out (under
     build/ by default): open it at https://ui.perfetto.dev (or
-    chrome://tracing) to see request spans, batch stage slices and
-    control-plane instants on one timeline;
+    chrome://tracing) to see request spans, batch stage slices with the
+    graph replays nested in them, the card's stage times and control-plane
+    instants on one timeline;
   * the Prometheus text exposition of the final metrics snapshot.
 
 With --device cpu it serves the reduced (smoke) config on the CPU, with
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import graphs
 from repro_torch.core.accelerator import get_accelerator
 from repro_torch.core.device import resolve_device
 from repro_torch.serve import (
@@ -44,6 +53,7 @@ from repro_torch.serve import (
     ServingRuntime,
     TraceConfig,
     batch_crosscheck,
+    graph_medians,
     prometheus_text,
     request_timelines,
     stage_breakdown,
@@ -118,6 +128,17 @@ def main(argv=None) -> dict:
         print(f"\nbatch span vs BatchRecord cross-check: {len(checks)} batches,"
               f" worst rel_err {worst.rel_err:.1%} (batch {worst.batch_id})")
 
+    replays = [ev.args["stage"] for ev in events if ev.name == "graph.replay_end"]
+    if replays:
+        print(f"\ngraph layer: {len(replays)} replays, {graphs.stage_times_missed()} stage "
+              "times missed in this process; median host time of each part and the card's "
+              "time of each marked stage:")
+        for stage in sorted(set(replays)):
+            for label, (ms, count) in graph_medians(events, stage).items():
+                print(f"  {stage:<10} {label:<18} {ms:8.3f}ms  (n={count})")
+    else:
+        print("\ngraph layer: no replays (the stages run eagerly here)")
+
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     n_events = write_chrome_trace(args.out, events)
     print(f"\nwrote {n_events} Chrome-trace events to {args.out} — "
@@ -135,7 +156,7 @@ def main(argv=None) -> dict:
     if not ok:
         sys.exit(1)
     return {"problems": problems, "checks": checks, "out": args.out, "wall_s": wall,
-            "chrome_events": n_events}
+            "chrome_events": n_events, "graph_replays": len(replays)}
 
 
 if __name__ == "__main__":

@@ -123,21 +123,33 @@ class PC2IMAccelerator:
 
     # -- the captured stages, each a function of its static inputs ------------
 
+    # Each closes its segments with graphs.mark: in a traced capture, the
+    # card's clock for CIM preprocessing and for feature computing.
+
     def _forward_fn(self, params):
         def forward(pts):
             pre = PN.preprocess_stage(self.config, pts, policy=self.policy)
-            return PN.feature_stage(params, self.config, pts, pre, policy=self.policy), pre
+            graphs.mark("preprocess")
+            logits = PN.feature_stage(params, self.config, pts, pre, policy=self.policy)
+            graphs.mark("feature")
+            return logits, pre
         return forward
 
     def _preprocess_fn(self):
-        return lambda pts: PN.preprocess_stage(self.config, pts, policy=self.policy)
+        def preprocess(pts):
+            pre = PN.preprocess_stage(self.config, pts, policy=self.policy)
+            graphs.mark("preprocess")
+            return pre
+        return preprocess
 
     def _feature_fn(self, params, like):
         """The feature stage over `like`'s tree structure, its leaves passed flat."""
         def feature(pts, *leaves):
             it = iter(leaves)
             pre = result_map(lambda _: next(it), like)
-            return PN.feature_stage(params, self.config, pts, pre, policy=self.policy)
+            logits = PN.feature_stage(params, self.config, pts, pre, policy=self.policy)
+            graphs.mark("feature")
+            return logits
         return feature
 
     def _replay_feature(self, params, points, preproc) -> torch.Tensor:

@@ -91,6 +91,37 @@ points run op by op on the card, as before graphs.  It is the reference
 side of every graph-against-eager check and is never entered on a caller's
 behalf.  `captures()` counts captures, as the JAX `CacheStats` count
 compiles: a serving run checks that it stays flat after warmup.
+
+Tracing.  Inside `traced(tracer, batch_id)` the graph layer reports to a
+`serve.trace.Tracer` (any object with its `emit`; this module imports
+nothing of `serve`), stamped with `time.monotonic()` as every span of the
+tracer is:
+
+  * each replay, "graph.replay_end", emitted as it returns, whose args
+    give the stage, the call's entry (`start`: `ArtifactCache.run`'s, or
+    the replay's when it is called directly) and the times at which the
+    artifact was found (the lookup, parameter-address walk included), the
+    copy began (after the artifact's lock, a wait for another stream's
+    replay and the reading of the last stage times), the inputs were
+    copied in, the graph launched (`graph.replay()` returned) and the
+    outputs' clones enqueued, the bytes copied in and whether each source
+    was pageable host memory, pinned host memory or on a device;
+  * each capture, "graph.captured": the stage, its input shapes and the
+    seconds it took.  A traced capture also records timing events as nodes
+    of the graph, at its start and at each `mark(name)` the stage's
+    function reaches, which closes the segment `name` (the forward marks
+    "preprocess" and "feature"): the card's own clock for each segment;
+  * after a traced replay of a marked graph, the next traced replay of
+    that artifact emits "graph.stage_times", `{<segment>_ms}` of that
+    earlier replay (and `replay_t`, when it was launched), if its last mark
+    has completed; if not, it counts one in `stage_times_missed()` and
+    never waits.  Every replay of the graph records the marks again, so an
+    untraced replay in between leaves nothing to read.
+
+Off, the context holds None: a replay and a capture read it once and
+emit nothing, record no event and build nothing; a graph captured
+untraced holds no timing event.  A replay takes its clock stamps either
+way, so that one body serves both.
 """
 
 from __future__ import annotations
@@ -99,6 +130,7 @@ import contextlib
 import contextvars
 import gc
 import threading
+import time
 import weakref
 
 import numpy as np
@@ -113,8 +145,13 @@ STAGES = ("forward", "preprocess", "feature")
 # how deep the current context is in eager() blocks; every thread starts in a
 # fresh context, outside eager()
 _eager_depth = contextvars.ContextVar("repro_torch_eager_depth", default=0)
+# the (tracer, batch id) of the current context (`traced()`), None when tracing is off
+_tracing = contextvars.ContextVar("repro_torch_graph_tracing", default=None)
+# the timing events of the traced capture under way (`mark()`), None outside one
+_marks = contextvars.ContextVar("repro_torch_graph_marks", default=None)
 _stats_lock = threading.Lock()
 _captures = 0
+_missed = 0
 
 
 @contextlib.contextmanager
@@ -140,6 +177,79 @@ def captures() -> int:
     """How many graphs this process has captured."""
     with _stats_lock:
         return _captures
+
+
+class _Trace:
+    """Where a traced context reports: the tracer and the batch its spans belong to."""
+
+    __slots__ = ("tracer", "batch_id")
+
+    def __init__(self, tracer, batch_id: int):
+        self.tracer, self.batch_id = tracer, batch_id
+
+
+@contextlib.contextmanager
+def traced(tracer, batch_id: int = -1):
+    """Report this thread's graph replays and captures to `tracer` inside the block.
+
+    `batch_id` links the spans to the batch that caused them (-1: none).
+    Nests; the previous context comes back on exit.  Other threads are not
+    affected.
+    """
+    token = _tracing.set(_Trace(tracer, batch_id))
+    try:
+        yield
+    finally:
+        _tracing.reset(token)
+
+
+def stage_times_missed() -> int:
+    """How many marked replays the next traced replay found unfinished on the card.
+
+    Their stage times are not read: a replay never waits for the card.
+    """
+    with _stats_lock:
+        return _missed
+
+
+def mark(name: str) -> None:
+    """Close the segment `name` of the stage being captured here.
+
+    Inside a traced capture: a timing event recorded on the capture stream,
+    a node of the graph.  Anywhere else (an eager run, an untraced capture):
+    nothing.
+    """
+    marks = _marks.get()
+    if marks is not None:
+        marks.append((name, _timing_event()))
+
+
+def _timing_event():
+    """A timing event recorded on the current stream.
+
+    Inside a capture it is an external event-record node, which each replay
+    records again.
+    """
+    ev = torch.cuda.Event(enable_timing=True, external=True)
+    ev.record()
+    return ev
+
+
+def _sources(args) -> tuple[list[str], int]:
+    """Where each input lives, and the bytes of them all.
+
+    Each is "pageable" or "pinned" host memory, or on a "device".
+    """
+    where, nbytes = [], 0
+    for x in args:
+        if isinstance(x, torch.Tensor):
+            nbytes += x.numel() * x.element_size()
+            where.append("device" if x.device.type != "cpu"
+                         else "pinned" if x.is_pinned() else "pageable")
+        else:
+            nbytes += np.asarray(x).nbytes
+            where.append("pageable")
+    return where, nbytes
 
 
 def _torch_dtype(x) -> torch.dtype:
@@ -181,8 +291,13 @@ class Artifact:
     and their addresses kept to compare with the module's.
     """
 
-    def __init__(self, graph, inputs: list, outputs, launches: dict[str, int], reads=()):
+    def __init__(self, graph, inputs: list, outputs, launches: dict[str, int], reads=(),
+                 stage: str = "", marks=None):
         self.graph = graph
+        self.stage = stage
+        # [(segment, timing event)] of a traced capture, its start first; None untraced
+        self.marks = marks
+        self._marked = None  # (batch id, launch time) of the last traced replay, if marked
         self.inputs = inputs
         self.outputs = outputs
         self.launches = dict(launches)
@@ -193,13 +308,17 @@ class Artifact:
         self._done = None  # CUDA event after the last replay's clones
         self._stream = None  # the stream of the last replay
 
-    def replay(self, args, pick=None):
+    def replay(self, args, pick=None, start: float | None = None):
         """Copy `args` into the static inputs, launch the graph, return clones of its outputs.
 
         Everything runs on the current stream.  `pick` selects the outputs
         to return (all of them by default), so a caller clones only what it
-        uses.
+        uses.  Inside `traced()` the replay is reported (module docstring);
+        `start` is when the caller began to look this artifact up, this
+        call's entry if not given.
         """
+        trace = _tracing.get()
+        found = time.monotonic()
         outs = self.outputs if pick is None else pick(self.outputs)
         cuda = self.device.type == "cuda"
         with self._lock, torch.inference_mode():
@@ -207,17 +326,61 @@ class Artifact:
                 stream = torch.cuda.current_stream(self.device)
                 if self._done is not None and stream != self._stream:
                     stream.wait_event(self._done)
+            last, stages = self._marked, None
+            if trace is not None and last is not None:  # before this launch records them again
+                stages = self._stage_times()
+            copying = time.monotonic()
             for dst, src in zip(self.inputs, args):
                 dst.copy_(src if isinstance(src, torch.Tensor) else _host_tensor(src))
+            copied = time.monotonic()
             self.graph.replay()
+            launched = time.monotonic()
             got = result_map(torch.clone, outs)
+            cloned = time.monotonic()
             if cuda:
                 if self._done is None:
                     self._done = torch.cuda.Event()
                 self._done.record(stream)
                 self._stream = stream
+            # the marks now time this replay: readable only if it is traced
+            self._marked = ((trace.batch_id, launched)
+                            if trace is not None and self.marks is not None else None)
         registry.add_launches(self.launches)
+        if trace is not None:
+            self._report(trace, args, last, stages,
+                         (found if start is None else start, found, copying, copied, launched,
+                          cloned))
         return got
+
+    def _report(self, trace: _Trace, args, last, stages: dict | None, times: tuple):
+        """Emit a traced replay's events.
+
+        First the stage times of the traced replay before it (`last`, its
+        batch id and launch time), if it left marks, then this replay's own
+        host span, `times` = (start, found, copying, copied, launched,
+        cloned).
+        """
+        global _missed
+        end = time.monotonic()
+        if last is not None:
+            if stages is None:
+                with _stats_lock:
+                    _missed += 1
+            else:
+                stages.update(stage=self.stage, replay_t=last[1])
+                trace.tracer.emit("graph.stage_times", batch_id=last[0], args=stages, t=end)
+        sources, nbytes = _sources(args)
+        trace.tracer.emit("graph.replay_end", batch_id=trace.batch_id, t=end, args={
+            "stage": self.stage,
+            **dict(zip(("start", "found", "copying", "copied", "launched", "cloned"), times)),
+            "bytes_in": nbytes, "sources": sources})
+
+    def _stage_times(self) -> dict | None:
+        """{<segment>_ms} of the last replay from its marks, or None if it has not finished."""
+        if not self.marks[-1][1].query():
+            return None
+        return {f"{name}_ms": a.elapsed_time(b)
+                for (_, a), (name, b) in zip(self.marks, self.marks[1:])}
 
 
 def capture_graph(fn, static: list, what: str):
@@ -274,17 +437,41 @@ def _fresh(artifacts: dict, key, addresses: tuple, lock) -> Artifact | None:
     return None
 
 
-def _capture_artifact(capture, fn, static: list, reads, what: str) -> Artifact:
+def _capture_artifact(capture, fn, static: list, reads, what: str, stage: str) -> Artifact:
     """fn captured over the static inputs (`capture`) as a new Artifact that
-    keeps `reads` alive; counted in `captures()`.
+    keeps `reads` alive; counted in `captures()`.  In a traced context the
+    graph holds the stage's timing marks and the capture is reported.
 
     The caller holds CAPTURE_LOCK and has chosen the grad mode of the capture.
     """
     global _captures
-    graph, outputs, launches = capture(fn, static, what)
+    trace = _tracing.get()
+    if trace is None:
+        graph, outputs, launches = capture(fn, static, what)
+        marks = None
+    else:
+        t0 = time.monotonic()
+        marks = []
+        token = _marks.set(marks)
+        try:
+            graph, outputs, launches = capture(_started(fn), static, what)
+        finally:
+            _marks.reset(token)
+        trace.tracer.emit("graph.captured", batch_id=trace.batch_id, args={
+            "stage": stage, "shapes": [list(x.shape) for x in static],
+            "seconds": time.monotonic() - t0})
     with _stats_lock:
         _captures += 1
-    return Artifact(graph, static, outputs, launches, reads)
+    return Artifact(graph, static, outputs, launches, reads, stage=stage,
+                    marks=marks if marks and len(marks) > 1 else None)
+
+
+def _started(fn):
+    """fn, with a timing mark at its start (the capture's first node)."""
+    def started(*args):
+        mark("")
+        return fn(*args)
+    return started
 
 
 class _Owned:
@@ -346,9 +533,10 @@ class ArtifactCache:
         A hit replays it.  A miss runs fn eagerly on the inputs (this call's
         answer), then captures it (`ensure`).
         """
+        start = time.monotonic()
         art = self.get(owner, stage, args)
         if art is not None:
-            return art.replay(args, pick)
+            return art.replay(args, pick, start)
         with CAPTURE_LOCK, torch.inference_mode():
             out = fn(*[_on(self.device, a) for a in args])
             self.ensure(owner, stage, fn, args)
@@ -368,7 +556,8 @@ class ArtifactCache:
                 what = f"the {stage} stage at input shapes {[list(s) for s, _ in key[1]]}"
                 with torch.inference_mode():
                     static = [torch.empty(s, dtype=d, device=self.device) for s, d in key[1]]
-                    art = _capture_artifact(self._capture, fn, static, owned.reads(), what)
+                    art = _capture_artifact(self._capture, fn, static, owned.reads(), what,
+                                            stage)
                 with self._lock:
                     owned.artifacts[key] = art
         return art
@@ -421,7 +610,7 @@ class GraphedStep:
             # static inputs outside inference mode: autograd saves them for the backward
             static = [torch.empty(s, dtype=d, device=self.device) for s, d in key]
             what = f"the training step at input shapes {[list(s) for s, _ in key]}"
-            art = _capture_artifact(self._capture, self.fn, static, state, what)
+            art = _capture_artifact(self._capture, self.fn, static, state, what, "train")
             with self._lock:
                 self._artifacts[key] = art
         return out

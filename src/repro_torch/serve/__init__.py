@@ -77,6 +77,9 @@ from repro_torch.serve.obs import (  # noqa: F401
     RequestTimeline,
     StageBreakdown,
     batch_crosscheck,
+    graph_medians,
+    graph_spans,
+    graph_stage_spans,
     padded_batch_responses,
     prometheus_text,
     request_timelines,

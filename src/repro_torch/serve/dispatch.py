@@ -55,6 +55,7 @@ group's `MeshArtifacts` already built.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -62,6 +63,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
+from repro_torch.core import graphs
 from repro_torch.core.accelerator import get_accelerator, params_copy_on, place_on_group
 from repro_torch.core.device import on_streams, resolve_device, synchronize
 from repro_torch.core.engine import (
@@ -340,8 +342,10 @@ class ReplicaPool:
     def _emit(self, name: str, mb, rep_id: int = -1, args: dict | None = None):
         """Emit one batch-scoped trace event (no-op when untraced).
 
-        Warmup batches carry batch_id == -1 and stay invisible to the trace
-        stream, matching their exclusion from metrics.
+        Warmup batches carry batch_id == -1 and emit no batch event,
+        matching their exclusion from metrics.  Their graph events do reach
+        the stream (`_graph_trace`), with batch_id -1: warm-up is where the
+        captures, and the stage marks a traced capture records, happen.
         """
         tr = self.tracer
         if tr is not None and mb.batch_id != -1:
@@ -650,7 +654,21 @@ class ReplicaPool:
         if was_inflight:
             self._retry(entry, rep.id, err)
 
+    def _graph_trace(self, mb):
+        """The graph layer's tracing context for one batch.
+
+        Its replays and captures are reported on the batch's id; nothing
+        when tracing is off.
+        """
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return graphs.traced(self.tracer, mb.batch_id)
+
     def _execute(self, rep: Replica, entry: _Entry):
+        with self._graph_trace(entry.mb):
+            self._execute_batch(rep, entry)
+
+    def _execute_batch(self, rep: Replica, entry: _Entry):
         if entry.future.done():  # e.g. already re-dispatched after eviction
             with self._lock:
                 rep.inflight.pop(entry.seq, None)
@@ -1004,7 +1022,7 @@ class ReplicaPool:
             t0 = time.monotonic()
             try:
                 mb = entry.mb
-                with on_streams(rep.feat_stream):
+                with on_streams(rep.feat_stream), self._graph_trace(mb):
                     if done is not None:
                         rep.feat_stream.wait_event(done)
                         for t in (batch, *result_leaves(pre)):

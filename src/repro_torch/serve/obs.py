@@ -22,9 +22,15 @@ periodic :class:`Reporter` without touching the hot path:
 * :func:`batch_crosscheck` — reconcile batch spans against the
   independently-timed ``BatchRecord.duration_s`` wall-clock, keyed by the
   ``batch_id`` both sides carry.
+* :func:`graph_spans` / :func:`graph_stage_spans` — the graph layer's
+  spans (core/graphs.py inside ``graphs.traced``): each replay and its
+  lookup, wait, copy-in, launch and clone on the host, and the card's time of
+  each stage a traced capture marked; :func:`graph_medians` reduces them
+  to a median a part and a stage.
 * :func:`to_chrome_trace` / :func:`write_chrome_trace` — Chrome-trace /
-  Perfetto JSON: request lanes, batch lanes with stage slices, and a
-  control-plane lane, all on one shared clock.
+  Perfetto JSON: request lanes, batch lanes with stage slices and the
+  graph replays nested in them, a device lane of graph stage times where
+  there are any, and a control-plane lane, all on one shared clock.
 * :func:`prometheus_text` — Prometheus text exposition of a
   :class:`~repro_torch.serve.metrics.MetricsSnapshot`.
 
@@ -387,11 +393,92 @@ def batch_crosscheck(
     return out
 
 
+# -- the graph layer's spans ----------------------------------------------------
+
+#: The parts of one traced graph replay, in order: (label, the args key of
+#: its start, of its end) in ``graph.replay_end``.
+GRAPH_PARTS: tuple[tuple[str, str, str], ...] = (
+    ("lookup", "start", "found"),
+    ("wait", "found", "copying"),  # the artifact's lock, another stream, the last stage times
+    ("copy-in", "copying", "copied"),
+    ("launch", "copied", "launched"),
+    ("clone", "launched", "cloned"),
+)
+
+
+def graph_spans(events: list[TraceEvent]) -> list[tuple[int, str, float, float]]:
+    """(batch_id, label, t0, t1) of every traced graph replay and of its parts.
+
+    Each ``graph.replay_end`` gives "graph replay (<stage>)", from the
+    call's entry to the event, then one span per :data:`GRAPH_PARTS` entry,
+    "graph <part> (<stage>)".  Times are ``time.monotonic`` seconds.
+    """
+    out = []
+    for ev in events:
+        if ev.name != "graph.replay_end":
+            continue
+        a = ev.args
+        out.append((ev.batch_id, f"graph replay ({a['stage']})", a["start"], ev.t))
+        out.extend((ev.batch_id, f"graph {part} ({a['stage']})", a[t0], a[t1])
+                   for part, t0, t1 in GRAPH_PARTS)
+    return out
+
+
+def graph_stage_spans(events: list[TraceEvent]) -> list[tuple[int, str, float, float]]:
+    """(batch_id, segment, t0, t1) of every segment a ``graph.stage_times`` event timed.
+
+    The durations are the card's own (timing events in the graph); the
+    segments are laid end to end from the host's launch of the replay they
+    timed, which the card starts on no earlier.
+    """
+    out = []
+    for ev in events:
+        if ev.name != "graph.stage_times":
+            continue
+        t = ev.args["replay_t"]
+        for key, ms in ev.args.items():
+            if key.endswith("_ms"):
+                out.append((ev.batch_id, key[:-3], t, t + ms / 1e3))
+                t += ms / 1e3
+    return out
+
+
+def graph_medians(events: list[TraceEvent], stage: str = "forward",
+                  outside: tuple[float, float] | None = None) -> dict[str, tuple[float, int]]:
+    """{label: (median ms, count)} over the traced replays of ``stage``.
+
+    The labels: "replay" (the call's entry to ``graph.replay_end``), each
+    part of :data:`GRAPH_PARTS`, and "card: <segment>" for each segment
+    the replays' ``graph.stage_times`` timed.  ``outside`` = (t0, t1), in
+    ``time.monotonic`` seconds, leaves out the replays that started in it
+    and the stage times of the replays launched in it: a profiled stretch,
+    under which both read longer.
+    """
+    def kept(t):
+        return outside is None or not outside[0] <= t <= outside[1]
+
+    parts: dict[str, list[float]] = {}
+    for ev in events:
+        a = ev.args or {}
+        if a.get("stage") != stage:
+            continue
+        if ev.name == "graph.replay_end" and kept(a["start"]):
+            parts.setdefault("replay", []).append((ev.t - a["start"]) * 1e3)
+            for part, t0, t1 in GRAPH_PARTS:
+                parts.setdefault(part, []).append((a[t1] - a[t0]) * 1e3)
+        elif ev.name == "graph.stage_times" and kept(a["replay_t"]):
+            for key, ms in a.items():
+                if key.endswith("_ms"):
+                    parts.setdefault(f"card: {key[:-3]}", []).append(ms)
+    return {label: (float(np.median(ms)), len(ms)) for label, ms in parts.items()}
+
+
 # -- Chrome trace / Perfetto export -------------------------------------------
 
 _PID_REQUESTS = 1
 _PID_BATCHES = 2
 _PID_CONTROL = 3
+_PID_DEVICE = 4
 
 
 def to_chrome_trace(events: list[TraceEvent]) -> dict:
@@ -402,7 +489,11 @@ def to_chrome_trace(events: list[TraceEvent]) -> dict:
     marks for every edge), ``batches`` (one row per batch id — "X" slices
     per execution stage plus assembly/dispatch/retry instants) and
     ``control-plane`` (one row per replica — eviction/rejoin/scale/chaos/
-    cache instants).  Timestamps are microseconds of ``time.monotonic``;
+    cache instants).  Traced graph replays (:func:`graph_spans`) and
+    captures are "X" slices on their batch's row, inside its execute or
+    stage slice (row 0 for those outside a served batch), and the card's
+    stage times (:func:`graph_stage_spans`) fill a fourth lane, ``device``,
+    one row per batch.  Timestamps are microseconds of ``time.monotonic``;
     load the JSON in https://ui.perfetto.dev or chrome://tracing.
     """
     out: list[dict] = [
@@ -475,9 +566,25 @@ def to_chrome_trace(events: list[TraceEvent]) -> dict:
                     "args": ev.args or {},
                 }
             )
+    for bid, label, t0, t1 in graph_spans(events):
+        out.append({"ph": "X", "pid": _PID_BATCHES, "tid": max(0, bid), "name": label,
+                    "ts": t0 * 1e6, "dur": (t1 - t0) * 1e6})
+    for ev in events:
+        if ev.name == "graph.captured":
+            secs = ev.args["seconds"]
+            out.append({"ph": "X", "pid": _PID_BATCHES, "tid": max(0, ev.batch_id),
+                        "name": f"graph capture ({ev.args['stage']})",
+                        "ts": (ev.t - secs) * 1e6, "dur": secs * 1e6, "args": ev.args})
+    stages = graph_stage_spans(events)
+    if stages:
+        out.append({"ph": "M", "pid": _PID_DEVICE, "name": "process_name",
+                    "args": {"name": "device"}})
+    for bid, segment, t0, t1 in stages:
+        out.append({"ph": "X", "pid": _PID_DEVICE, "tid": max(0, bid), "name": segment,
+                    "ts": t0 * 1e6, "dur": (t1 - t0) * 1e6})
     for ev in events:
         scope = ev.name.partition(".")[0]
-        if scope in ("request", "batch"):
+        if scope in ("request", "batch", "graph"):
             continue
         out.append(
             {

@@ -39,11 +39,14 @@ import time
 
 # --------------------------------------------------------------------------
 # Event-name registry.  CLOSED: every name emitted anywhere in repro_torch.serve
-# (subpackages included) must be declared here exactly once
+# (subpackages included) or by the graph layer (core/graphs.py, which is
+# handed a Tracer inside graphs.traced) must be declared here exactly once
 # (tests/test_torch_serve.py checks both directions).  Names are
 # "<scope>.<edge>"; scopes are:
 #   request.* — events on one request's span (trace_id set)
 #   batch.*   — events on one micro-batch's span (batch_id set)
+#   graph.*   — the graph layer's replays and captures, on the batch that
+#               caused them (batch_id -1 outside a served batch)
 #   replica.* / scale.* / chaos.* / cache.* / adapt.* — control-plane stream
 # --------------------------------------------------------------------------
 EVENTS: tuple[str, ...] = (
@@ -77,6 +80,12 @@ EVENTS: tuple[str, ...] = (
     "batch.feature_end",
     "batch.completed",
     "batch.failed",
+    # graph layer: a replay's host span (the times of its parts in
+    # replay_end's args), the card's times of the stages a
+    # traced capture marked, and a capture
+    "graph.replay_end",
+    "graph.stage_times",
+    "graph.captured",
     # control plane
     "replica.evicted",
     "replica.rejoin",

@@ -111,3 +111,44 @@ def test_without_device_asks_for_the_card(name):
         pytest.skip("this host has a card: the example would run there")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _load(name).main([])
+
+
+def test_serve_trace_nests_the_graph_layers_spans_in_their_batches(capsys, tmp_path,
+                                                                   monkeypatch):
+    """With the graph layer's replay path on the CPU (stub captures, `_graph_stub`), the
+    example prints the graph spans, and its Chrome trace is well formed: each replay of
+    a served batch lies inside one of that batch's slices, each part of a replay inside
+    the replay, and the card's stage times fill the device lane, preprocessing first."""
+    from _graph_stub import stub_graphs
+    from repro_torch.core.accelerator import clear_cache
+
+    stub_graphs(monkeypatch)
+    path = tmp_path / "trace.json"
+    try:
+        out, text = _run("serve_trace", ["--requests", "16", "--rate", "400", "--out",
+                                         str(path)], capsys)
+    finally:
+        clear_cache()
+    assert out["graph_replays"] > 0 and "graph layer:" in text
+    slices = [e for e in json.loads(path.read_text())["traceEvents"] if e["ph"] == "X"]
+    batch = {}
+    for e in slices:
+        if e["pid"] == 2 and not e["name"].startswith("graph"):
+            batch.setdefault(e["tid"], []).append(e)
+    replays = [e for e in slices if e["pid"] == 2 and e["name"].startswith("graph replay")]
+    parts = [e for e in slices if e["pid"] == 2 and e["name"].startswith("graph ")
+             and e not in replays and not e["name"].startswith("graph capture")]
+    served = [r for r in replays if r["tid"] > 0]
+    assert served and len(parts) == 5 * len(replays)
+
+    def inside(inner, outer):
+        return outer["ts"] <= inner["ts"] and (inner["ts"] + inner["dur"]
+                                               <= outer["ts"] + outer["dur"])
+
+    for r in served:
+        assert any(inside(r, b) for b in batch[r["tid"]]), r
+    for p in parts:
+        assert any(inside(p, r) for r in replays if r["tid"] == p["tid"]), p
+    device = [e for e in slices if e["pid"] == 4]
+    assert device and {e["name"] for e in device} == {"preprocess", "feature"}
+    assert all(e["dur"] > 0 and e["tid"] in batch for e in device if e["tid"] > 0)

@@ -24,7 +24,10 @@ both, and a whisper decode step (its cross-attention over the cached
 encoder K/V) replayed as a CUDA graph.  Last, the LM's device layout (`-k
 lm_mesh`): the dense smoke configs under the host mesh's activation hints,
 bitwise equal to the same calls without them, and the op counter's counts
-on the card equal to those on meta tensors.
+on the card equal to those on meta tensors.  Last, the graph layer's spans
+(`-k traced_replays`): at each closed-loop benchmark cell's shape, the
+program's launch spans hold the profiler's cudaGraphLaunch records on one
+clock, and the forward graph's stage marks time the card's work.
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test skips where
 torch.cuda.is_available() is false.  On the card:
@@ -2387,3 +2390,108 @@ def test_examples_run_on_the_card(cuda, name, tmp_path, capsys):
     assert any(registry.launches().values())
     if name == "preprocess_pipeline":
         assert out["kernel_equals_plain"] == {"fps_tiles": True, "lattice_query": True}
+    if name == "serve_trace":  # the replicas' replays, traced
+        assert out["graph_replays"] > 0
+
+
+# The benchmark's closed-loop cells (BENCHMARK.json): model, clouds a batch, quant.
+GRAPH_SPAN_CELLS = {
+    "seg-sc-b16": ("pointnet2-seg", 16, "sc_w16a16"),
+    "cls-sc-b64": ("pointnet2-cls", 64, "sc_w16a16"),
+    "cls-fp32-b64": ("pointnet2-cls", 64, "none"),
+}
+GRAPH_SPAN_REPLAYS = 48
+LAUNCH_SLACK_S = 20e-6
+
+
+@pytest.mark.parametrize("cell", list(GRAPH_SPAN_CELLS))
+def test_traced_replays_share_the_profilers_clock_and_time_the_cards_stages(cuda, cell):
+    """A traced closed loop of `infer` at a benchmark cell's shape, each batch's
+    logits read back, part of it under torch.profiler: with the profiler's clock
+    mapped onto time.monotonic, at least 99 % of the cudaGraphLaunch host records
+    lie within 20 us of a replay's launch span; the card's preprocess + feature
+    time a replay, from the graph's own timing events in the replays after the
+    profiled stretch, comes within 10 % of the card's busy time a replay in the
+    stretch from the records of the graph's launches (the copy in, the clone and
+    the read-back left out); and no replay's stage times were missed.
+
+    The map: a range recorded between two monotonic stamps ends before the
+    second, so each gives a least offset; entering a range takes tens of
+    microseconds before its start is stamped and leaving it a few after its end,
+    so the greatest of these bounds over a dozen ranges is the offset to a few
+    microseconds.  The stage times are read outside the profiler: under it the
+    card idles some 0.3 ms at the start of each replay, which the graph's marks
+    see and its kernel records do not."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core.accelerator import PC2IMAccelerator
+    from repro_torch.serve.trace import TraceConfig, Tracer
+
+    model, batch, quant = GRAPH_SPAN_CELLS[cell]
+    cfg = get_config(model)
+    accel = PC2IMAccelerator(cfg, ExecutionPolicy(quant=quant), cuda)  # captures anew
+    params = accel.init(torch.Generator().manual_seed(0))
+    pool = [np.random.default_rng(s).uniform(-1, 1, (batch, cfg.n_points, 3))
+            .astype(np.float32) for s in range(4)]
+    tracer = Tracer(TraceConfig(capacity=1 << 16))
+    with graphs.traced(tracer):
+        for i in range(4):  # the capture, with its timing marks, and warm replays
+            accel.infer(params, pool[i]).cpu()
+        missed = graphs.stage_times_missed()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):  # a session can lose its first device records
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            accel.infer(params, pool[0]).cpu()
+            stamps = []
+            for _ in range(6):
+                with record_function("graph-span-clock"):
+                    pass
+                stamps.append(time.monotonic())
+            mono0 = time.monotonic()
+            with record_function("graph-span-stretch"):
+                for i in range(GRAPH_SPAN_REPLAYS):
+                    accel.infer(params, pool[i % 4]).cpu()
+            mono1 = time.monotonic()
+            for _ in range(6):
+                with record_function("graph-span-clock"):
+                    pass
+                stamps.append(time.monotonic())
+        for i in range(GRAPH_SPAN_REPLAYS + 1):  # unprofiled; the first reads the last
+            accel.infer(params, pool[i % 4]).cpu()  # profiled replay's stage times
+    assert graphs.stage_times_missed() == missed
+    assert tracer.dropped == 0
+    launches, device, stretch, clock = {}, [], None, []
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CUDA:
+            device.append((evt.start_ns(), evt.end_ns(), evt.correlation_id()))
+        elif evt.name() == "graph-span-stretch":
+            stretch = (evt.start_ns(), evt.end_ns())
+        elif evt.name() == "graph-span-clock":
+            clock.append(evt.end_ns())
+        elif evt.name() == "cudaGraphLaunch":
+            launches[evt.correlation_id()] = (evt.start_ns(), evt.end_ns())
+    assert stretch is not None and len(clock) == len(stamps)
+    s0, s1 = stretch
+    offset = max(end - t * 1e9 for end, t in zip(sorted(clock), stamps))
+    ends = [e for e in tracer.events() if e.name == "graph.replay_end"]
+    spans = [(e.args["copied"] - LAUNCH_SLACK_S, e.args["launched"] + LAUNCH_SLACK_S)
+             for e in ends if mono0 <= e.args["start"] <= mono1]
+    assert len(spans) == GRAPH_SPAN_REPLAYS
+    inside = {c: ((a - offset) / 1e9, (b - offset) / 1e9) for c, (a, b) in launches.items()
+              if s0 <= a <= s1}
+    assert len(inside) == GRAPH_SPAN_REPLAYS
+    held = sum(any(t0 <= a and b <= t1 for t0, t1 in spans) for a, b in inside.values())
+    assert held >= 0.99 * len(inside), (held, len(inside))
+    busy, edge = 0, s0
+    for a, b in sorted((a, b) for a, b, c in device if c in inside):
+        busy += max(0, b - max(a, edge))
+        edge = max(edge, b)
+    busy_ms = busy / 1e6 / GRAPH_SPAN_REPLAYS
+    stages = [e.args for e in tracer.events()
+              if e.name == "graph.stage_times" and e.args["replay_t"] > mono1]
+    assert len(stages) == GRAPH_SPAN_REPLAYS
+    assert all(a["preprocess_ms"] > 0 and a["feature_ms"] > 0 for a in stages)
+    stage_ms = float(np.median([a["preprocess_ms"] + a["feature_ms"] for a in stages]))
+    assert abs(stage_ms - busy_ms) <= 0.1 * busy_ms, (stage_ms, busy_ms)

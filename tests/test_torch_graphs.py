@@ -15,6 +15,11 @@ replays are held bitwise against `graphs.eager()` there
     accelerator;
   * the launch bookkeeping: a capture's launches are recorded, not counted,
     and every replay adds them (driven through a stub registry);
+  * tracing (`graphs.traced`): a traced replay reports its lookup, copy-in,
+    launch and clone times, bytes and sources on the context's batch; a
+    traced capture reports itself and holds the stage marks whose times the
+    next replay emits (stub timing events); untraced, nothing is emitted
+    and no timing event is made;
   * the forward path, float and SC, cls and seg, builds no tensor from host
     data and reads nothing back to the host: what a capture forbids.
 
@@ -25,6 +30,7 @@ import contextlib
 import dataclasses
 import gc
 import threading
+import time
 import weakref
 
 import numpy as np
@@ -32,11 +38,13 @@ import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
+from _graph_stub import STREAM, TimingEvent
+from _graph_stub import stub_capture as _stub_capture
 from _threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.configs import get_config
 from repro_torch.core import graphs
 from repro_torch.core.accelerator import get_accelerator
-from repro_torch.core.engine import result_leaves, result_map, result_to_host
+from repro_torch.core.engine import result_leaves, result_to_host
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.kernels import registry
 from repro_torch.models import pointnet2 as PN
@@ -108,28 +116,6 @@ def test_cpu_entry_points_never_capture(monkeypatch):
 
 
 # -- ArtifactCache with a stub capture ----------------------------------------------
-
-
-STREAM = 7  # the handle of the stub's capture stream
-
-
-class _StubGraph:
-    """Stands in for a captured graph: a replay recomputes fn into the static
-    outputs, and, like a real replay, counts no launch from Python."""
-
-    def __init__(self, fn, static, outputs):
-        self.fn, self.static, self.outputs = fn, static, outputs
-
-    def replay(self):
-        with graphs.registry.recording(STREAM):
-            new = self.fn(*self.static)
-        result_map(lambda dst, src: dst.copy_(src), self.outputs, new)
-
-
-def _stub_capture(fn, static, what):
-    with graphs.registry.recording(STREAM) as launches:
-        outputs = fn(*static)
-    return _StubGraph(fn, static, outputs), outputs, launches
 
 
 def _affine(x):
@@ -346,6 +332,162 @@ def test_registry_recording_takes_only_its_own_streams_launches():
     registry.add_launches(rec)
     assert registry.launches()["fps_tiles"] == 3
     registry.reset_launches()
+
+
+# -- tracing ---------------------------------------------------------------------
+
+
+@pytest.fixture
+def timing_events(monkeypatch):
+    monkeypatch.setattr(graphs, "_timing_event", TimingEvent)
+    monkeypatch.setattr(TimingEvent, "done", True)
+    return TimingEvent
+
+
+def _two_stages(x, labels):
+    """A stage that marks two segments, as the forward does."""
+    y = x * 2
+    graphs.mark("preprocess")
+    z = y.sum(dim=-1) + labels
+    graphs.mark("feature")
+    return z, y
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("untraced graph work emitted an event or made a timing event")
+
+
+def test_untraced_replays_and_captures_emit_nothing_and_make_no_event(monkeypatch):
+    """Outside `traced()` nothing is emitted and no timing event is made: not
+    by a capture, a replay, `mark()` or `GraphedStep`."""
+    from repro_torch.serve.trace import Tracer
+
+    monkeypatch.setattr(Tracer, "emit", _refuse)
+    monkeypatch.setattr(graphs, "_timing_event", _refuse)
+    monkeypatch.setattr(torch.cuda, "Event", _refuse)
+    tracer = Tracer()
+    cache = graphs.ArtifactCache(torch.device("cpu"), capture=_stub_capture)
+    owner = torch.nn.Linear(1, 1)
+    x, labels = np.ones((3, 4), np.float32), torch.arange(3)
+    for _ in range(3):
+        cache.run(owner, "forward", _two_stages, [x, labels])
+    assert cache.get(owner, "forward", [x, labels]).marks is None
+    graphs.mark("preprocess")
+    step = graphs.GraphedStep(lambda a: (a + 1,), lambda: (), torch.device("cpu"),
+                              capture=_stub_capture)
+    step(torch.ones(2))
+    step(torch.ones(2))
+    assert len(tracer) == 0 and tracer.emitted == 0
+    assert graphs._tracing.get() is None and graphs._marks.get() is None
+
+
+def test_traced_replay_reports_its_parts_in_order(monkeypatch):
+    """A traced replay emits one graph.replay_end on the context's batch: the
+    stage, its inner times in order, the bytes copied in and each source's
+    memory."""
+    from repro_torch.serve.trace import Tracer
+
+    cache = graphs.ArtifactCache(torch.device("cpu"), capture=_stub_capture)
+    owner = torch.nn.Linear(1, 1)
+    x, labels = np.ones((3, 4), np.float32), torch.arange(3)
+    cache.run(owner, "forward", _two_stages, [x, labels])  # captured untraced
+    tracer = Tracer()
+    before = time.monotonic()
+    with graphs.traced(tracer, batch_id=5):
+        got = cache.run(owner, "forward", _two_stages, [x, labels])
+        monkeypatch.setattr(torch.Tensor, "is_pinned", lambda self: True)
+        with graphs.traced(tracer, batch_id=6):  # nests
+            cache.run(owner, "forward", _two_stages, [x, labels])
+        art = cache.get(owner, "forward", [x, labels])
+        art.replay([x, labels])  # a replay called directly: found at its entry
+    after = time.monotonic()
+    for a, b in zip(got, _two_stages(torch.from_numpy(x), labels)):
+        assert torch.equal(a, b)
+    events = tracer.events()
+    assert [(e.name, e.batch_id) for e in events] == [
+        ("graph.replay_end", 5), ("graph.replay_end", 6), ("graph.replay_end", 5)]
+    for k, end in enumerate(events):
+        a = end.args
+        assert a["stage"] == "forward"
+        times = [a["start"], a["found"], a["copying"], a["copied"], a["launched"], a["cloned"],
+                 end.t]
+        assert before <= times[0] and times == sorted(times) and end.t <= after
+        assert a["bytes_in"] == 3 * 4 * 4 + 3 * 8
+        assert a["sources"] == ["pageable", "pageable" if k == 0 else "pinned"]
+    assert events[0].args["start"] < events[0].args["found"]  # run stamps before its lookup
+    assert events[2].args["found"] == events[2].args["start"]
+    assert graphs._tracing.get() is None
+
+
+def test_traced_capture_reports_itself_and_times_its_marked_stages(timing_events):
+    """A capture inside `traced()` emits graph.captured and holds the stage's
+    marks; each later traced replay emits the stage times of the one before it,
+    or counts a miss when its last mark has not finished."""
+    from repro_torch.serve.trace import Tracer
+
+    cache = graphs.ArtifactCache(torch.device("cpu"), capture=_stub_capture)
+    owner = torch.nn.Linear(1, 1)
+    x, labels = np.ones((3, 4), np.float32), torch.arange(3)
+    tracer = Tracer()
+    with graphs.traced(tracer, batch_id=2):
+        cache.run(owner, "forward", _two_stages, [x, labels])  # eager, then captured
+    art = cache.get(owner, "forward", [x, labels])
+    assert [name for name, _ in art.marks] == ["", "preprocess", "feature"]
+    (captured,) = tracer.events()
+    assert (captured.name, captured.batch_id) == ("graph.captured", 2)
+    assert captured.args["stage"] == "forward" and captured.args["shapes"] == [[3, 4], [3]]
+    assert captured.args["seconds"] >= 0
+    tracer.clear()
+    for bid in (3, 4):
+        with graphs.traced(tracer, batch_id=bid):
+            cache.run(owner, "forward", _two_stages, [x, labels])
+    events = tracer.events()
+    assert [e.name for e in events] == ["graph.replay_end", "graph.stage_times",
+                                        "graph.replay_end"]
+    times = events[1]
+    assert times.batch_id == 3 and times.args == {
+        "preprocess_ms": 1.25, "feature_ms": 1.25, "stage": "forward",
+        "replay_t": events[0].args["launched"]}
+    missed = graphs.stage_times_missed()
+    timing_events.done = False
+    with graphs.traced(tracer, batch_id=5):
+        cache.run(owner, "forward", _two_stages, [x, labels])
+    assert graphs.stage_times_missed() == missed + 1
+    assert "graph.stage_times" not in [e.name for e in tracer.events()[3:]]
+    # an untraced replay records the marks again: the next traced one reads nothing
+    timing_events.done = True
+    cache.run(owner, "forward", _two_stages, [x, labels])
+    tracer.clear()
+    with graphs.traced(tracer, batch_id=6):
+        cache.run(owner, "forward", _two_stages, [x, labels])
+    assert [e.name for e in tracer.events()] == ["graph.replay_end"]
+    assert graphs.stage_times_missed() == missed + 1
+
+
+def test_traced_forward_capture_marks_preprocessing_then_features(timing_events):
+    """The accelerator's captured forward closes a "preprocess" then a
+    "feature" segment, and each serving stage its own."""
+    from repro_torch.serve.trace import Tracer
+
+    cfg = get_config("pointnet2-cls", smoke=True)
+    accel = get_accelerator(cfg, device="cpu")
+    params = accel.init(torch.Generator().manual_seed(0))
+    accel = type(accel)(cfg, accel.policy, "cpu")
+    accel.artifacts = graphs.ArtifactCache(torch.device("cpu"), capture=_stub_capture)
+    pts = np.random.default_rng(0).uniform(-1, 1, (2, cfg.n_points, 3)).astype(np.float32)
+    tracer = Tracer()
+    with graphs.traced(tracer):
+        accel.warmup(params, pts)
+        accel.infer(params, pts)
+    segments = {stage: [name for name, _ in art.marks]
+                for (stage, _), art in accel.artifacts._by_params[params].artifacts.items()}
+    pre = next(iter(accel.artifacts._by_stream.values())).artifacts
+    segments.update({stage: [name for name, _ in art.marks]
+                     for (stage, _), art in pre.items()})
+    assert segments == {"forward": ["", "preprocess", "feature"], "feature": ["", "feature"],
+                        "preprocess": ["", "preprocess"]}
+    names = [e.name for e in tracer.events()]
+    assert names.count("graph.captured") == 3 and names[-1] == "graph.replay_end"
 
 
 # -- the forward path is capturable: no host data in, nothing read back --------------

@@ -179,6 +179,90 @@ def test_chrome_trace_equals_the_jax_package(rows, tmp_path):
     assert (tmp_path / "port.json").read_text() == (tmp_path / "jax.json").read_text()
 
 
+# batch 8's execute span holds one traced replay of the forward graph; the next
+# replay's stage_times time it on the card; a capture outside any batch (warmup)
+GRAPH = (
+    ("graph.captured", 2.025, -1, -1, -1, "", {"stage": "forward", "shapes": [[4, 128, 3]],
+                                               "seconds": 0.02}),
+    ("graph.replay_end", 2.040, -1, 8, -1, "", {
+        "stage": "forward", "start": 2.031, "found": 2.032, "copying": 2.0325, "copied": 2.034,
+        "launched": 2.038, "cloned": 2.039, "bytes_in": 6144, "sources": ["pageable"]}),
+    ("graph.stage_times", 2.131, -1, 8, -1, "", {
+        "preprocess_ms": 2.5, "feature_ms": 20.0, "stage": "forward", "replay_t": 2.038}),
+)
+
+
+def test_graph_spans_render_inside_their_batch_and_on_the_device_lane():
+    """The graph layer's events become its spans, slices on their batch's row
+    inside the execute slice, and a device lane; the rest of the trace is as
+    without them."""
+    events = _events(t_trace, STREAM + GRAPH)
+    spans = t_obs.graph_spans(events)
+    assert [label for _, label, _, _ in spans] == [
+        "graph replay (forward)", "graph lookup (forward)", "graph wait (forward)",
+        "graph copy-in (forward)", "graph launch (forward)", "graph clone (forward)"]
+    assert all(bid == 8 for bid, _, _, _ in spans)
+    assert [t for _, _, t0, t1 in spans[1:] for t in (t0, t1)] == pytest.approx(
+        [2.031, 2.032, 2.032, 2.0325, 2.0325, 2.034, 2.034, 2.038, 2.038, 2.039])
+    assert t_obs.graph_stage_spans(events) == [
+        (8, "preprocess", 2.038, 2.038 + 0.0025),
+        (8, "feature", 2.038 + 0.0025, 2.038 + 0.0025 + 0.02)]
+    doc = t_obs.to_chrome_trace(events)["traceEvents"]
+    plain = t_obs.to_chrome_trace(_events(t_trace, STREAM))["traceEvents"]
+    added = [e for e in doc if e not in plain]
+    assert all(e in doc for e in plain)
+    execute = next(e for e in plain if e.get("name") == "execute" and e["tid"] == 8)
+    graph = [e for e in added if e["pid"] == 2]
+    assert len(graph) == 7 and {e["tid"] for e in graph} == {0, 8}
+    for e in graph:
+        if e["tid"] == 8:
+            assert execute["ts"] <= e["ts"] and e["ts"] + e["dur"] <= (
+                execute["ts"] + execute["dur"] + 1e-6)
+        else:
+            assert e["name"] == "graph capture (forward)" and e["dur"] == pytest.approx(2e4)
+    device = [e for e in added if e["pid"] == 4]
+    assert device[0] == {"ph": "M", "pid": 4, "name": "process_name",
+                         "args": {"name": "device"}}
+    assert [(e["name"], e["tid"]) for e in device[1:]] == [("preprocess", 8), ("feature", 8)]
+    assert len(added) == len(graph) + len(device)
+
+
+def _replay(t, launch_ms, stage="forward"):
+    """A graph.replay_end entered at t whose parts take 1, 0.5, 2, launch_ms and 1 ms."""
+    start = t
+    found, copying, copied = start + 1e-3, start + 1.5e-3, start + 3.5e-3
+    launched = copied + launch_ms / 1e3
+    return ("graph.replay_end", launched + 2e-3, -1, 1, -1, "", {
+        "stage": stage, "start": start, "found": found, "copying": copying, "copied": copied,
+        "launched": launched, "cloned": launched + 1e-3, "bytes_in": 8, "sources": ["pinned"]})
+
+
+def test_graph_medians_reduce_each_stage_and_leave_out_a_stretch():
+    """graph_medians: a median and a count of each part of one stage's replays
+    and of each segment their stage times gave; replays that start in
+    `outside`, and stage times of replays launched in it, are left out."""
+    rows = (_replay(1.0, 1.0), _replay(1.1, 3.0), _replay(1.2, 2.0), _replay(1.3, 50.0),
+            _replay(1.4, 9.0, stage="feature"),
+            ("graph.stage_times", 1.5, -1, 1, -1, "", {
+                "preprocess_ms": 0.5, "feature_ms": 4.0, "stage": "forward", "replay_t": 1.01}),
+            ("graph.stage_times", 1.6, -1, 1, -1, "", {
+                "preprocess_ms": 0.9, "feature_ms": 6.0, "stage": "forward", "replay_t": 1.31}))
+    events = _events(t_trace, rows)
+    whole = t_obs.graph_medians(events)
+    assert list(whole) == ["replay", "lookup", "wait", "copy-in", "launch", "clone",
+                           "card: preprocess", "card: feature"]
+    assert whole["launch"] == pytest.approx((2.5, 4))
+    assert whole["lookup"] == pytest.approx((1.0, 4)) and whole["wait"] == pytest.approx((0.5, 4))
+    assert whole["copy-in"] == pytest.approx((2.0, 4))
+    assert whole["replay"] == pytest.approx((3.5 + 2.5 + 2.0, 4))
+    assert whole["card: feature"] == pytest.approx((5.0, 2))
+    cut = t_obs.graph_medians(events, outside=(1.25, 1.35))
+    assert cut["launch"] == pytest.approx((2.0, 3)) and cut["card: preprocess"] == (0.5, 1)
+    assert t_obs.graph_medians(events, "feature")["launch"] == pytest.approx((9.0, 1))
+    assert t_obs.graph_medians(events, "preprocess") == {}
+    assert t_obs.graph_medians(_events(t_trace, STREAM)) == {}
+
+
 class _Clock:
     """A scripted time.monotonic: each call advances by `step` seconds."""
 

@@ -719,11 +719,13 @@ def test_sharded_policies_are_served(cfg, params, bridged):
 
 def test_every_emitted_trace_event_is_declared():
     """The registry is closed in both directions: every event literal in the
-    port's serving modules (subpackages included) is declared in EVENTS, and
-    every declared name is used by some module other than trace.py."""
-    lit = re.compile(r"""["']((?:request|batch|replica|scale|chaos|cache|adapt)\.[a-z_]+)["']""")
+    port's serving modules (subpackages included) and its graph layer is
+    declared in EVENTS, and every declared name is used by some module other
+    than trace.py."""
+    lit = re.compile(
+        r"""["']((?:request|batch|graph|replica|scale|chaos|cache|adapt)\.[a-z_]+)["']""")
     used = {}
-    for path in sorted(SERVE_SRC.rglob("*.py")):
+    for path in [*sorted(SERVE_SRC.rglob("*.py")), SERVE_SRC.parent / "core" / "graphs.py"]:
         for name in lit.findall(path.read_text()):
             used.setdefault(name, set()).add(path.name)
     undeclared = sorted(set(used) - set(EVENTS))
