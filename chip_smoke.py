@@ -34,7 +34,7 @@ graphs.eager(), which is the reference side of every graph check.
 Phases, each of which stops the run with a non-zero exit code if it fails:
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the four CUDA kernels from src/repro_torch/csrc with nvcc for
+  2. build the five CUDA kernel sources from src/repro_torch/csrc with nvcc for
      sm_90a, one nvcc per source, all at once, and print ptxas's report of
      every instantiation (registers, shared memory, stack, spills);
   3. run one cls and one seg forward (quant="sc_w16a16") and the flat path
@@ -54,9 +54,9 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      set to 0 just before it and read just after.  cls and seg run
      get_accelerator(CONFIG, policy).infer on a few batches of 8 clouds for
      quant="none" and quant="sc_w16a16"; a cls forward must launch 2 FPS,
-     2 lattice and (under SC) 12 SC-matmul kernels, a seg forward 2 FPS,
-     2 lattice, 2 knn3 and (under SC) 12 SC-matmul kernels, and the flat
-     path one flat lattice kernel a query; one cls and one seg batch under
+     2 lattice, 2 group_maxpool and (under SC) 12 SC-matmul kernels, a seg
+     forward 2 FPS, 2 lattice, 2 group_maxpool, 2 knn3 and (under SC) 12
+     SC-matmul kernels, and the flat path one flat lattice kernel a query; one cls and one seg batch under
      "sc_w8a8" are counted likewise.  The first infer of a shape runs
      eagerly and captures its graph, which counts nothing; each later one
      replays it, which adds the captured launches.  Then a forward per batch is
@@ -171,9 +171,10 @@ Phases, each of which stops the run with a non-zero exit code if it fails:
      timed as phase 3 times its calls; a forward must make, and each counted
      run launch, per stage 1 FPS kernel unless baseline2 (whose masked FPS,
      grid partition and ball query are plain ops, as in the reference) and
-     1 lattice kernel under pc2im, plus 12 SC matmuls under SC and 2 knn3 for
-     seg.  The replay of infer, infer_with_preprocess, preprocess_stage,
-     feature_stage and feature_from_cached is bitwise equal to graphs.eager(),
+     1 lattice kernel under pc2im, plus 12 SC matmuls under SC, 2 knn3 for
+     seg and 2 group_maxpool under delayed aggregation.  The replay of infer,
+     infer_with_preprocess, preprocess_stage, feature_stage and
+     feature_from_cached is bitwise equal to graphs.eager(),
      the preprocessing bitwise equal to the port's CPU run and the logits
      within LOGIT_ATOL of it.  It prints each corner's eager and replayed
      forward (host clock, median of 10), busy and idle share (profiled, with
@@ -668,6 +669,10 @@ KERNELS = {
         "source": "src/repro_torch/csrc/lattice.cu",
         "replaces": "src/repro/kernels/lattice/kernel.py:97",
     },
+    "group_maxpool": {
+        "source": "src/repro_torch/csrc/group_pool.cu",
+        "replaces": "no TPU kernel: XLA fused src/repro/core/grouping.py:61's gather and max",
+    },
 }
 
 # The port's CUDA kernels by their symbols in csrc/, each under the launch
@@ -676,9 +681,9 @@ KERNELS = {
 # the counters were credited against the kernels the card ran.
 KERNEL_SYMBOLS = {"fps_warp_kernel": "fps", "fps_tiles_kernel": "fps", "lattice_kernel": "lattice",
                   "knn3_kernel": "knn3", "sc_matmul_kernel": "sc_matmul",
-                  "sc_matmul_res_kernel": "sc_matmul"}
+                  "sc_matmul_res_kernel": "sc_matmul", "group_maxpool_kernel": "group_maxpool"}
 SYMBOL_OF = {"fps_tiles": "fps", "lattice_tiles": "lattice", "lattice_query": "lattice",
-             "knn3": "knn3", "sc_matmul": "sc_matmul"}
+             "knn3": "knn3", "sc_matmul": "sc_matmul", "group_maxpool": "group_maxpool"}
 SYMBOL_RE = re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(KERNEL_SYMBOLS) + r")(?![A-Za-z0-9_])")
 
 
@@ -881,6 +886,16 @@ def bound(name: str, args, kw, plain_out) -> tuple[float, float, float]:
         p = points.shape[1]
         nbytes = b * (q + p) * 3 * 4 + b * q * kw["k"] * 8
         ops = (DISTANCE_INSTR[kw["metric"]] + 1) * b * q * p  # distance, compare
+        return nbytes, ops, PEAK_F32_INSTR
+    if name == "group_maxpool":
+        features, idx, mask = args
+        b, n, c = features.shape
+        m, s = idx.shape[1:]
+        # each feature row a valid slot names, read once; the index, the mask, the output
+        valid = mask.cpu().numpy()
+        rows = idx.cpu().numpy().astype(np.int64) + n * np.arange(b)[:, None, None]
+        nbytes = np.unique(rows[valid]).size * c * 4 + b * m * s * (4 + 1) + b * m * c * 4
+        ops = int(valid.sum()) * c  # a compare a valid value
         return nbytes, ops, PEAK_F32_INSTR
     x, w = args
     m, k = x.shape
@@ -1090,6 +1105,7 @@ def expected_launches(path: str, quant: str, cfg=None) -> dict[str, int]:
     want["fps_tiles"] = 0 if cfg.preproc == "baseline2" else len(cfg.sa)
     want["lattice_tiles"] = len(cfg.sa) if cfg.preproc == "pc2im" else 0
     want["sc_matmul"] = n_linears(cfg) if quant != "none" else 0
+    want["group_maxpool"] = len(cfg.sa) if cfg.aggregation == "delayed" else 0
     if path == "seg":
         want["knn3"] = len(cfg.sa)
     return want
@@ -4704,6 +4720,7 @@ def main() -> None:
     from repro_torch.core.policy import ExecutionPolicy
     from repro_torch.kernels import build, registry
     from repro_torch.kernels.fps import ops as _fps_ops  # noqa: F401  (registers)
+    from repro_torch.kernels.group_pool import ops as _group_pool_ops  # noqa: F401
     from repro_torch.kernels.knn3.ops import knn3
     from repro_torch.kernels.lattice.ops import lattice_query_fused
     from repro_torch.kernels.sc_matmul import ops as _sc_ops  # noqa: F401

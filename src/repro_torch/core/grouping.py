@@ -4,8 +4,10 @@ Standard PointNet++ set abstraction groups first: each centroid's
 neighbours (M, nsample, C) go through the MLP, then a max-pool, so MLP cost
 scales with M * nsample.  Delayed aggregation runs the MLP per *point* and
 only then gathers each centroid's neighbours and max-pools them, so MLP
-cost scales with N.  `interpolate_features` is the segmentation model's
-up-sampling: 3-NN inverse-distance interpolation of coarse features.
+cost scales with N; that gather and max-pool are one op
+(`kernels/group_pool`: a kernel on the card, `masked_maxpool` of
+`group_features` on the CPU).  `interpolate_features` is the segmentation
+model's up-sampling: 3-NN inverse-distance interpolation of coarse features.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.query import NeighborSet
+from repro_torch.kernels.group_pool import ops as group_pool
 
 _NEG = -1e30
 
@@ -48,9 +51,15 @@ def aggregate_standard(features: torch.Tensor, nbrs: NeighborSet, mlp_fn) -> tor
     return masked_maxpool(mlp_fn(group_features(features, nbrs)), nbrs.mask)
 
 
-def aggregate_delayed(features: torch.Tensor, nbrs: NeighborSet, mlp_fn) -> torch.Tensor:
-    """mlp -> group -> pool (paper C5): (..., N, C) -> (..., M, C')."""
-    return masked_maxpool(group_features(mlp_fn(features), nbrs), nbrs.mask)
+def aggregate_delayed(features: torch.Tensor, nbrs: NeighborSet, mlp_fn,
+                      backend: str | None = "auto") -> torch.Tensor:
+    """mlp -> group -> pool (paper C5): (..., N, C) -> (..., M, C').
+
+    The group and the pool are `group_maxpool`, which equals
+    `masked_maxpool(group_features(...))` bit for bit and never builds the
+    grouped tensor on the card.
+    """
+    return group_pool.group_maxpool(mlp_fn(features), nbrs.idx, nbrs.mask, backend=backend)
 
 
 def interpolate_features(features: torch.Tensor, idx: torch.Tensor,

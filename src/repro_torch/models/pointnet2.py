@@ -219,7 +219,8 @@ def _sa_stage(aggregation: str, mlp: MLP, xyz, feats, res, policy):
     nbrs = res.neighbors
     if aggregation == "delayed":
         x = xyz if feats is None else torch.cat([xyz, feats], dim=-1)
-        return res.centroid_xyz, G.aggregate_delayed(x, nbrs, lambda t: mlp(t, policy=policy))
+        return res.centroid_xyz, G.aggregate_delayed(x, nbrs, lambda t: mlp(t, policy=policy),
+                                                     backend=policy.resolved_backend())
     if aggregation != "standard":
         raise ValueError(f"aggregation must be 'standard' or 'delayed', got {aggregation!r}")
     grouped = G.group_relative_coords(xyz, res.centroid_xyz, nbrs)  # (B, M, S, 3)

@@ -52,6 +52,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.pointnet2_cls import CONFIG
 from repro_torch.configs.pointnet2_seg import CONFIG as SEG_CONFIG
 from repro_torch.core import graphs
+from repro_torch.core import grouping as G
 from repro_torch.core.accelerator import get_accelerator
 from repro_torch.core.engine import clamp_depth, result_leaves, result_to_host
 from repro_torch.core.policy import ExecutionPolicy
@@ -59,6 +60,9 @@ from repro_torch.kernels import registry
 from repro_torch.kernels.fps.kernel import fps_tiles_cuda
 from repro_torch.kernels.fps.ops import fps_tiles
 from repro_torch.kernels.fps.ref import fps_tiles_plain
+from repro_torch.kernels.group_pool.kernel import group_maxpool_cuda
+from repro_torch.kernels.group_pool.ops import group_maxpool
+from repro_torch.kernels.group_pool.ref import group_maxpool_plain
 from repro_torch.kernels.knn3.kernel import Knn3Plan, knn3_cuda, knn3_plan
 from repro_torch.kernels.knn3.ops import knn3
 from repro_torch.kernels.knn3.ref import knn3_plain
@@ -286,11 +290,12 @@ def test_forward_launches_each_kernel(cuda):
         torch.cuda.synchronize()
         assert logits.shape == (BATCH, CONFIG.n_classes) and bool(torch.isfinite(logits).all())
         assert registry.launches() == {"fps_tiles": 2, "lattice_tiles": 2, "sc_matmul": n_sc,
-                                       "knn3": 0, "lattice_query": 0}
+                                       "knn3": 0, "lattice_query": 0, "group_maxpool": 2}
 
 
 def test_seg_forward_launches_each_kernel(cuda):
-    """A full-width seg forward: 2 FPS, 2 lattice and 2 knn3 launches (+12 SC)."""
+    """A full-width seg forward: 2 FPS, 2 lattice, 2 knn3 and 2 group_maxpool
+    launches (+12 SC)."""
     params = get_accelerator(SEG_CONFIG, device=cuda).init(torch.Generator().manual_seed(0))
     pts = np.random.default_rng(1).uniform(-1, 1, (BATCH, SEG_CONFIG.n_points, 3))
     for quant, n_sc in (("none", 0), ("sc_w16a16", _seg_n_linears())):
@@ -301,7 +306,7 @@ def test_seg_forward_launches_each_kernel(cuda):
         assert logits.shape == (BATCH, SEG_CONFIG.n_points, SEG_CONFIG.n_classes)
         assert bool(torch.isfinite(logits).all())
         assert registry.launches() == {"fps_tiles": 2, "lattice_tiles": 2, "sc_matmul": n_sc,
-                                       "knn3": 2, "lattice_query": 0}
+                                       "knn3": 2, "lattice_query": 0, "group_maxpool": 2}
 
 
 @pytest.mark.parametrize("stage", [0, 1])
@@ -430,6 +435,170 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         knn3_cuda(pts, pts[:, :2].contiguous(), k=3)
     with pytest.raises(ValueError):
         lattice_query_cuda(pts, pts, nsample=4, l_range=0.5)  # 3-D: use the per-tile wrapper
+
+
+# -- delayed aggregation's gather + masked max-pool (csrc/group_pool.cu) ---------------
+
+# The closed-loop benchmark cells: (config, clouds a batch, quant).
+CELLS = {"seg-sc-b16": (SEG_CONFIG, 16, "sc_w16a16"), "cls-sc-b64": (CONFIG, 64, "sc_w16a16"),
+         "cls-fp32-b64": (CONFIG, 64, "none")}
+
+
+def _bitwise(got, want):
+    return got.shape == want.shape and torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@contextlib.contextmanager
+def _group_maxpool_plain_on_the_card():
+    """The op's CUDA slot given its plain version, the composition the kernel
+    replaced (take_along_dim, then masked_maxpool), inside the block."""
+    spec = registry.get("group_maxpool")
+    registry.register("group_maxpool", plain=spec.plain, cuda=spec.plain)
+    try:
+        yield
+    finally:
+        registry.register("group_maxpool", plain=spec.plain, cuda=spec.cuda)
+
+
+@pytest.mark.parametrize("cell", list(CELLS))
+@pytest.mark.parametrize("stage", [0, 1])
+def test_group_maxpool_kernel_at_the_cells_sa_shapes(cuda, cell, stage):
+    """Each SA stage of each benchmark cell, neighbourhoods from the real engine on
+    generated clouds, seeded features: the kernel == its plain version, bitwise."""
+    cfg, b, quant = CELLS[cell]
+    accel = get_accelerator(cfg, ExecutionPolicy(quant=quant), device=cuda)
+    nbrs = accel.preprocess_stage(_clouds_for(cfg, 1, seed=60 + stage, b=b)[0])[stage].neighbors
+    n = cfg.n_points if stage == 0 else cfg.sa[stage - 1].n_centroids
+    c = cfg.sa[stage].mlp[-1]
+    assert nbrs.idx.shape == (b, cfg.sa[stage].n_centroids, cfg.sa[stage].nsample)
+    assert nbrs.idx.dtype == torch.int32 and c in (128, 256)
+    g = torch.Generator(device=cuda).manual_seed(stage)
+    features = torch.relu(torch.randn(b, n, c, generator=g, device=cuda))
+    got = group_maxpool_cuda(features, nbrs.idx, nbrs.mask)
+    torch.cuda.synchronize()
+    assert _bitwise(got, group_maxpool_plain(features, nbrs.idx, nbrs.mask))
+
+
+@pytest.mark.parametrize("c", [1, 3, 128, 256])
+@pytest.mark.parametrize("s", [1, 16, 32])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_group_maxpool_kernel_edge_cases(cuda, c, s, aligned):
+    """All-masked centroids (0), a centroid with every slot valid and values below
+    the -1e30 sentinel, a NaN row, ties, and a table 4 B past a 16 B boundary
+    (the scalar lanes), against the plain version, bitwise."""
+    b, n, m = 3, 50, 40
+    g = torch.Generator(device=cuda).manual_seed(c * 100 + s)
+    table = torch.round(torch.randn(b, n, c, generator=g, device=cuda) * 2) / 2 + 0.0
+    if not aligned:
+        buf = torch.empty(table.numel() + 1, device=cuda)
+        buf[1:] = table.reshape(-1)
+        table = buf[1:].view(b, n, c)
+        assert table.data_ptr() % 16 == 4 and table.is_contiguous()
+    idx = torch.randint(0, n, (b, m, s), generator=g, device=cuda, dtype=torch.int32)
+    mask = torch.rand(b, m, s, generator=g, device=cuda) > 0.4
+    mask[0, :5] = False
+    mask[1, 0] = True
+    table[1, idx[1, 0]] = -1e38
+    mask[2, 3, 0] = True
+    table[2, idx[2, 3, 0], c // 2] = float("nan")
+    got = group_maxpool_cuda(table, idx, mask)
+    torch.cuda.synchronize()
+    want = group_maxpool_plain(table, idx, mask)
+    assert _bitwise(got, want)
+    assert torch.equal(got[0, :5], torch.zeros(5, c, device=cuda))
+    assert torch.isnan(got[2, 3, c // 2])
+
+
+def test_group_maxpool_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    f = torch.zeros(2, 10, 8, device=cuda)
+    idx = torch.zeros(2, 4, 3, dtype=torch.int32, device=cuda)
+    mask = torch.ones(2, 4, 3, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="xla"):
+        group_maxpool(f, idx, mask, backend="xla")
+    with pytest.raises(ValueError):
+        group_maxpool_cuda(f.double(), idx, mask)
+    with pytest.raises(ValueError):
+        group_maxpool_cuda(f, idx.long(), mask)
+    with pytest.raises(ValueError):
+        group_maxpool_cuda(f, idx, mask.to(torch.uint8))
+    with pytest.raises(ValueError, match="contiguous"):
+        group_maxpool_cuda(f.transpose(1, 2).contiguous().transpose(1, 2), idx, mask)
+    with pytest.raises(ValueError):
+        group_maxpool_cuda(f, idx, mask[:, :3].contiguous())
+    with pytest.raises(ValueError):
+        group_maxpool_cuda(f[:1].contiguous(), idx, mask)
+    with pytest.raises(ValueError):
+        group_maxpool_cuda(f, idx[..., :0].contiguous(), mask[..., :0].contiguous())
+    with pytest.raises(ValueError):
+        group_maxpool_cuda(f, idx.cpu(), mask)
+    assert group_maxpool_cuda(f[..., :0].contiguous(), idx, mask).shape == (2, 4, 0)
+
+
+@pytest.mark.parametrize("cell", list(CELLS))
+def test_group_maxpool_cell_forward_replays_equal_the_composition(cuda, cell):
+    """At each cell's batch: every group_maxpool call of an eager forward (2, one
+    an SA stage) == its plain version, bitwise; a graphed replay on another
+    batch launches 2 and equals an eager forward through the composition the
+    kernel replaced (take_along_dim, masked_maxpool) bitwise."""
+    cfg, b, quant = CELLS[cell]
+    accel = get_accelerator(cfg, ExecutionPolicy(quant=quant), device=cuda)
+    params = accel.init(torch.Generator().manual_seed(5))
+    cap, new = _clouds_for(cfg, 2, seed=70, b=b)
+    calls = []
+    spec = registry.get("group_maxpool")
+
+    def record(*args):
+        calls.append([a.clone() for a in args])
+        return spec.cuda(*args)
+
+    registry.register("group_maxpool", plain=spec.plain, cuda=record)
+    try:
+        with graphs.eager():
+            accel.infer(params, cap)
+    finally:
+        registry.register("group_maxpool", plain=spec.plain, cuda=spec.cuda)
+    assert len(calls) == len(cfg.sa)
+    for args in calls:
+        assert _bitwise(spec.cuda(*args), spec.plain(*args))
+    accel.infer(params, cap)  # captures
+    registry.reset_launches()
+    got = accel.infer(params, new)
+    torch.cuda.synchronize()
+    assert registry.launches()["group_maxpool"] == len(cfg.sa)
+    with _group_maxpool_plain_on_the_card(), graphs.eager():
+        want = accel.infer(params, new)
+    assert _bitwise(got, want)
+
+
+@pytest.mark.parametrize("model", ["pointnet2-cls", "pointnet2-seg"])
+def test_group_maxpool_sc_train_step_equals_the_composition(cuda, model, monkeypatch):
+    """One SC step's loss and every gradient with the kernel (its backward the
+    composition's, recomputed) equal autograd through the composition itself,
+    bitwise, under deterministic kernels."""
+    from repro_torch.models import pointnet2
+
+    cfg = get_config(model)
+    policy = ExecutionPolicy(quant="sc_w16a16")
+    params = get_accelerator(cfg, policy, device=cuda).init(torch.Generator().manual_seed(6))
+    pts, labels = _train_batches(cfg, 1, cuda, seed=3)[0]
+
+    def step():
+        loss, _ = pointnet2.loss_fn(params, cfg, pts, labels, policy=policy)
+        return loss, torch.autograd.grad(loss, list(params.parameters()))
+
+    with _deterministic(), graphs.eager():
+        registry.reset_launches()
+        loss, grads = step()
+        assert registry.launches()["group_maxpool"] == len(cfg.sa)
+        monkeypatch.setattr(G, "aggregate_delayed", lambda x, nbrs, mlp_fn, backend="auto":
+                            G.masked_maxpool(G.group_features(mlp_fn(x), nbrs), nbrs.mask))
+        registry.reset_launches()
+        want_loss, want_grads = step()
+        assert registry.launches()["group_maxpool"] == 0
+    assert _bitwise(loss, want_loss)
+    for got, want in zip(grads, want_grads):
+        assert _bitwise(got, want)
+    assert any(bool(g.abs().sum() > 0) for g in grads)
 
 
 # -- the serving path on the card: streams, replicas, host reads ---------------
@@ -1083,7 +1252,8 @@ def test_train_step_replays_bitwise_equal_to_eager_steps(cuda, model, quant):
         counts = registry.launches()
     assert graphs.captures() - before == 1
     assert counts == {n: 3 * v for n, v in per_forward.items()}
-    assert per_forward["fps_tiles"] == 2 and (per_forward["sc_matmul"] > 0) == (quant != "none")
+    assert per_forward["fps_tiles"] == per_forward["group_maxpool"] == 2
+    assert (per_forward["sc_matmul"] > 0) == (quant != "none")
     for g, w in zip(got, want):
         assert set(g) == {"loss", "accuracy", "grad_norm"}
         for k in g:
@@ -1227,7 +1397,8 @@ def _sharded_parity(group, model, smoke):
         with graphs.eager():
             want = single.infer(params, batch)
         per_forward = {"fps_tiles": len(cfg.sa), "lattice_tiles": len(cfg.sa),
-                       "knn3": len(cfg.sa) if cfg.task == "seg" else 0}
+                       "knn3": len(cfg.sa) if cfg.task == "seg" else 0,
+                       "group_maxpool": len(cfg.sa)}
         for mode in ("batch", "tensor"):
             arts = get_accelerator(cfg, ExecutionPolicy(quant=quant, sharding=mode),
                                    device=group[0]).mesh_artifacts(group)
@@ -1464,7 +1635,7 @@ def test_comparison_corner_replays_equal_eager(cuda, model, preproc, aggregation
     """Smoke width: each comparison corner's entry points replayed on a batch
     other than the captured one, bitwise equal to graphs.eager(); a replay's
     launches: baseline1 2 FPS, baseline2 none, pc2im 2 FPS + 2 lattice; SC
-    12 matmuls; seg 2 knn3."""
+    12 matmuls; seg 2 knn3; delayed aggregation 2 group_maxpool."""
     cfg = dataclasses.replace(get_config(model, smoke=True), preproc=preproc,
                               aggregation=aggregation)
     accel = get_accelerator(cfg, ExecutionPolicy(quant=quant), device=cuda)
@@ -1485,7 +1656,8 @@ def test_comparison_corner_replays_equal_eager(cuda, model, preproc, aggregation
             + len(cfg.head) + 1) if quant != "none" else 0
     want = {"fps_tiles": 0 if preproc == "baseline2" else 2,
             "lattice_tiles": 2 if preproc == "pc2im" else 0, "sc_matmul": n_sc,
-            "knn3": 2 if cfg.task == "seg" else 0, "lattice_query": 0}
+            "knn3": 2 if cfg.task == "seg" else 0, "lattice_query": 0,
+            "group_maxpool": 2 if aggregation == "delayed" else 0}
     assert registry.launches() == want
     assert torch.equal(got, logits)
     _same_tree(accel.preprocess_stage(new), pre)
